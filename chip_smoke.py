@@ -6,25 +6,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
   1. device  — a CUDA card is present; its name and power limit as
      ``nvidia-smi`` prints them;
-  2. build   — every CUDA kernel of the serving path, from the sources in
-     this checkout, for sm_90a (nvcc, one process per source);
-  3. parity  — each kernel against its plain PyTorch version on the card,
-     at full StarCoder2-3B widths in bf16 (B 8, Hq 24, Hkv 2, hd 128,
-     page 16, 256 pages a slot): SWA window 4096 with the ring wrapped and
-     not, full attention, partly and wholly inactive batches, unallocated
-     pages;
+  2. build   — every CUDA kernel of the port, from the sources in this
+     checkout, for sm_90a (nvcc, one process per source, all at once);
+  3. parity  — each kernel against its plain PyTorch version on the card:
+     paged decode and insert at full StarCoder2-3B widths in bf16 (B 8,
+     Hq 24, Hkv 2, hd 128, page 16, 256 pages a slot; SWA window 4096 with
+     the ring wrapped and not, full attention, partly and wholly inactive
+     batches, unallocated pages); vecavg at the CNN's [5, 555178] in
+     float32 and bf16, at C 1 and 32, and at a ragged D 513, each launched
+     twice and held bitwise against itself;
   4. serve   — full-config StarCoder2-3B (random bf16 weights from seed 0)
      serves a 16-request Poisson trace through
-     ``PagedServeLoop(cache_update="kernel")``; the launch counters, zeroed
-     just before, prove both kernels ran on that path; one decode step
-     from a mid-trace state is run through the kernels and through the
-     plain versions and the two are compared;
+     ``PagedServeLoop(cache_update="kernel")``; the paged launch counters,
+     zeroed just before, prove both kernels ran on that path; one decode
+     step from a mid-trace state is run through the kernels and through
+     the plain versions and the two are compared;
   5. profile — torch.profiler over a few serving ticks: device time by
      kernel and the device's busy share, against the wall of those ticks
      with the profiler on and of the same ticks replayed without it;
-  6. timing  — each kernel at the serve shapes against its bound, its
-     plain version and, where one exists, a single PyTorch call computing
-     the same function.
+  6. fed     — the paper's CNN experiment (benchmarks/common.py ``FULL``,
+     CNN fields): cnn-cifar10 on 4000 synthetic CIFAR-10-shaped samples,
+     Case 3 over 5 clients, batch 32, eta 0.01, alpha 0.95, tau_max 50, 40
+     rounds of FedVeca, then FedAvg and FedNova with the fair fixed taus,
+     through ``FederatedSimulator``; the vecavg counter, zeroed just before,
+     must read 2 launches a round (240); then one round from one state
+     through the kernel reduce and through the plain tree reduce (cuDNN
+     deterministic), one round on the card against the port's CPU path,
+     and torch.profiler over two FedVeca rounds;
+  7. timing  — each kernel at its main-path shapes against its bound, its
+     plain version and, where one exists, a PyTorch call computing the
+     same function.
 
 Prints, before the last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -44,15 +55,26 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import strict_fp32  # noqa: E402
+from repro_torch.core.controller import ControllerConfig, ControllerCore  # noqa: E402
+from repro_torch.core.engine import EngineConfig, RoundEngine  # noqa: E402
+from repro_torch.data.device import DeviceShards, host_stacked_batches  # noqa: E402
+from repro_torch.data.partition import partition_case3  # noqa: E402
+from repro_torch.data.synthetic import Dataset, make_classification  # noqa: E402
+from repro_torch.fed import FederatedSimulator, FedSimConfig, fair_fixed_tau  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.vecavg import ops as va_ops  # noqa: E402
+from repro_torch.kernels.vecavg import ref as va_ref  # noqa: E402
 from repro_torch.models.model import build_model_by_name  # noqa: E402
 from repro_torch.serve import PagedServeLoop, poisson_trace  # noqa: E402
 from repro_torch.serve.slots import RequestQueue  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, same source
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock: the host's head start in time_ms
 B, HQ, HKV, HD, PS, P = 8, 24, 2, 128, 16, 256  # StarCoder2-3B serve shapes
 W = 4096
 DECODE_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
@@ -70,6 +92,26 @@ DECODE_F32_ATOL, DECODE_F32_RTOL = 1e-3, 2.0**-8
 # the per-layer bf16 differences above feed the residual stream of every
 # later layer; logits have std ~1 at this init.
 STEP_LOGITS_ATOL = 1e-1
+VECAVG_SRC = "src/repro_torch/kernels/vecavg/csrc/vecavg.cu"
+# vecavg against its plain version: the JAX package's kernel-vs-oracle bars
+# (tests/test_kernels.py): delta_w 1e-6 in float32, 2e-2 in bf16 (one bf16
+# rounding of the output), the per-client norms rtol 1e-4 (float32 sums in
+# another order).
+VECAVG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
+VECAVG_SQN_RTOL = 1e-4
+# The paper's CNN experiment (benchmarks/common.py FULL, CNN fields).
+FED = dict(model="cnn-cifar10", n_train=4000, n_test=2000, clients=5, batch=32, eta=0.01,
+           alpha=0.95, tau_max=50, rounds=40)
+CNN_D = 555178  # the CNN's parameters, all leaves concatenated
+# One fused round, kernel reduce vs plain tree reduce, from one state and
+# batches with deterministic cuDNN: only the two reduces differ (float32
+# sums in another order), ~1e-7 on the new params.
+ROUND_PARAMS_ATOL = 1e-6
+# One round on the card vs the port's CPU path, same params and batches:
+# cuDNN's and the CPU's convolutions sum in other orders over 5x5x32
+# windows; the round-step bars of the CPU tests against the JAX package
+# (params 1e-6) scaled by ten for the accumulation over the local steps.
+CARD_CPU_PARAMS_ATOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -205,6 +247,44 @@ def phase_parity(dev):
     ins = max(insert_case(gen, dev, 30, 72, "30 layers, 72 of 256 pages"),
               insert_case(gen, dev, 30, 0, "30 layers, no page allocated"))
     return {"paged_decode": max(errs), "paged_insert": ins}
+
+
+def vecavg_case(gen, dev, C, D, dtype):
+    """Kernel twice (bitwise to itself) and the plain version on one input."""
+    u = torch.randn(C, D, generator=gen, device=dev).to(dtype)
+    p = torch.rand(C, generator=gen, device=dev) + 0.1
+    p /= p.sum()
+    scale = torch.full((), -0.01 * 23.5, device=dev)  # -eta * tau_k, a device scalar
+    dw1, sqn1 = va_ops.vecavg(u, p, scale)
+    dw2, sqn2 = va_ops.vecavg(u, p, scale)
+    dw_r, sqn_r = va_ref.vecavg(u, p, scale)
+    sync()
+    tag = f"[{C}, {D}] {str(dtype).replace('torch.', '')}"
+    require(torch.equal(dw1, dw2) and torch.equal(sqn1, sqn2),
+            f"[parity] vecavg {tag}: two launches on one input differ")
+    require(bool(torch.isfinite(dw1.float()).all()), f"[parity] vecavg {tag}: non-finite")
+    tol = VECAVG_TOL[dtype]
+    err = (dw1.float() - dw_r.float()).abs().max().item()
+    sqn_err = ((sqn1 - sqn_r).abs() / sqn_r.abs()).max().item()
+    require(torch.allclose(dw1.float(), dw_r.float(), atol=tol, rtol=tol),
+            f"[parity] vecavg {tag}: max|kernel - plain| {err}")
+    require(torch.allclose(sqn1, sqn_r, atol=0, rtol=VECAVG_SQN_RTOL),
+            f"[parity] vecavg {tag}: sqnorm rel err {sqn_err}")
+    print(f"[parity] vecavg {tag}: bitwise across launches; max|dw - plain| {err:.3e} "
+          f"(tol {tol}), max sqn rel err {sqn_err:.3e}")
+    return err
+
+
+def phase_vecavg_parity(dev):
+    """Returns the largest float32 error (the main path's dtype)."""
+    gen = torch.Generator(device=dev).manual_seed(99)
+    errs = [vecavg_case(gen, dev, 5, CNN_D, torch.float32),
+            vecavg_case(gen, dev, 1, CNN_D, torch.float32),
+            vecavg_case(gen, dev, 32, CNN_D, torch.float32),
+            vecavg_case(gen, dev, 5, 513, torch.float32)]
+    for C, D in ((5, CNN_D), (32, CNN_D), (5, 513)):
+        vecavg_case(gen, dev, C, D, torch.bfloat16)
+    return max(errs)
 
 
 # ---------------------------------------------------------------------------
@@ -370,14 +450,216 @@ def phase_profile(loop, reqs, n_ticks=8):
 
 
 # ---------------------------------------------------------------------------
-# 6. timing
+# 6. the paper's CNN experiment
+# ---------------------------------------------------------------------------
+
+
+def fed_data():
+    """benchmarks/common.build_clients("cnn-cifar10", case 3, 5, FULL)."""
+    kw = dict(sep=0.8, noise=0.5)
+    orig = make_classification(FED["n_train"], (32, 32, 3), 10, seed=0, **kw)
+    test = make_classification(FED["n_test"], (32, 32, 3), 10, seed=1, **kw)
+    clients = [Dataset(orig.x[s], orig.y[s])
+               for s in partition_case3(orig.y, FED["clients"], 0)]
+    return clients, test
+
+
+def fed_cfg(mode, **kw):
+    base = dict(mode=mode, eta=FED["eta"], alpha=FED["alpha"], tau_max=FED["tau_max"],
+                batch_size=FED["batch"], rounds=FED["rounds"], seed=0)
+    return FedSimConfig(**{**base, **kw})
+
+
+def run_mode(model, clients, test, cfg):
+    sim = FederatedSimulator(model, clients, cfg, test)
+    sync()
+    t0 = time.perf_counter()
+    log = sim.run()
+    sync()
+    wall = time.perf_counter() - t0
+    losses = log.column("test_loss")
+    require(bool(np.isfinite(losses).all() and np.isfinite(log.column("train_loss")).all()),
+            f"[fed] {cfg.mode}: non-finite loss")
+    taus = np.stack(log.column("tau"))
+    require(taus.shape == (cfg.rounds, len(clients)) and taus.min() >= 1
+            and taus.max() <= cfg.tau_max, f"[fed] {cfg.mode}: taus out of range")
+    out = dict(rounds=cfg.rounds, wall_s=wall, ms_per_round=1e3 * wall / cfg.rounds,
+               rounds_per_s=cfg.rounds / wall, final_test_loss=float(losses[-1]),
+               final_test_acc=float(log.rows[-1]["test_acc"]),
+               first_test_loss=float(losses[0]), tau_all=int(log.tau_all),
+               host_blocked_s=sim.driver.host_blocked_s, dispatch_s=sim.driver.dispatch_s)
+    print(f"[fed] {cfg.mode}: {json.dumps(out)}")
+    return log, out
+
+
+def phase_fed(dev):
+    """The main path of the training slice: FederatedSimulator on the card."""
+    with strict_fp32():
+        flags = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                     float32_matmul_precision=torch.get_float32_matmul_precision())
+    print(f"[fed] the round runs under {json.dumps(flags)}")
+    require(not flags["cudnn_allow_tf32"] and flags["float32_matmul_precision"] == "highest",
+            "[fed] the round would run convolutions or matmuls in TF32")
+    model = build_model_by_name(FED["model"], device=dev)
+    clients, test = fed_data()
+    # warm-up (cuDNN handles, torch.func), not counted
+    FederatedSimulator(model, clients, fed_cfg("fedveca", rounds=2), test).run()
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    va_ops.reset_launches()
+    modes = {}
+    veca, modes["fedveca"] = run_mode(model, clients, test, fed_cfg("fedveca"))
+    sizes = np.array([len(c) for c in clients], float)
+    ft = np.minimum(fair_fixed_tau(veca.tau_all, FED["rounds"], FED["batch"], sizes),
+                    FED["tau_max"])
+    for mode in ("fedavg", "fednova"):
+        _, modes[mode] = run_mode(model, clients, test, fed_cfg(mode, fixed_tau=ft))
+    launches = dict(va_ops.launches)
+    v = modes["fedveca"]
+    require(v["final_test_loss"] < v["first_test_loss"],
+            f"[fed] fedveca: test loss did not fall ({v['first_test_loss']:.4f} -> "
+            f"{v['final_test_loss']:.4f})")
+    # the paper's claim at the slack of the JAX package's own headline test
+    # (tests/test_simulator.py::test_fedveca_beats_fedavg_on_noniid)
+    require(v["final_test_loss"] <= modes["fedavg"]["final_test_loss"] + 0.02,
+            f"[fed] fedveca {v['final_test_loss']:.4f} worse than fedavg "
+            f"{modes['fedavg']['final_test_loss']:.4f} + 0.02")
+    want = 2 * FED["rounds"] * 3
+    require(launches["vecavg"] == want,
+            f"[fed] vecavg launched {launches['vecavg']} times, expected {want}")
+    out = dict(config=FED, fixed_tau=ft.tolist(), modes=modes, launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               peak_mem_over_start_gb=(torch.cuda.max_memory_allocated(dev) - base) / 1e9,
+               fedveca_taus_last=veca.rows[-1]["tau"])
+    print(f"[fed] {json.dumps(out)}")
+    return model, clients, veca, out
+
+
+def _engine(model, aggregator, C, tau_max, batch, shards=None):
+    cc = ControllerConfig(eta=FED["eta"], alpha=FED["alpha"], tau_max=tau_max)
+    return RoundEngine(model.loss, EngineConfig(eta=FED["eta"], tau_max=tau_max,
+                                                batch_size=batch, aggregator=aggregator),
+                       shards=shards, controller=ControllerCore(cc, C))
+
+
+def phase_fed_checks(dev, model, clients, params):
+    """(a) One fused round from one state and batches, kernel reduce vs
+    plain tree reduce; (b) one round on the card vs the port's CPU path."""
+    C, T, Bt = len(clients), FED["tau_max"], FED["batch"]
+    p = np.array([len(c) for c in clients], np.float64)
+    p = (p / p.sum()).astype(np.float32)
+    rng = np.random.default_rng(7)
+    b0 = host_stacked_batches(clients, rng, T, Bt, device=dev)
+    b1 = host_stacked_batches(clients, rng, T, Bt, device=dev)
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        kern, plain = _engine(model, "auto", C, T, Bt), _engine(model, "fallback", C, T, Bt)
+        st0 = kern.init_controller_state(params, np.full(C, 2, np.int32))
+        p1, st1, _, _ = kern.run_fused(params, st0, p, batches=b0)  # state at k = 1
+        res = {}
+        for name, eng in (("kernel", kern), ("plain", plain)):
+            va_ops.reset_launches()
+            res[name] = eng.run_fused(p1, st1, p, batches=b1)
+            sync()
+            require(va_ops.launches["vecavg"] == (2 if name == "kernel" else 0),
+                    f"[fed] {name} reduce launched vecavg {va_ops.launches['vecavg']} times")
+    err = max((res["kernel"][0][k] - res["plain"][0][k]).abs().max().item() for k in p1)
+    tk, tp = res["kernel"][3]["tau_next"].cpu(), res["plain"][3]["tau_next"].cpu()
+    require(err <= ROUND_PARAMS_ATOL, f"[fed] kernel vs plain round: params differ by {err}")
+    require(torch.equal(tk, tp), f"[fed] kernel vs plain round: tau_next {tk} vs {tp}")
+    out["kernel_vs_plain_round"] = dict(max_abs_params=err, tau_next=tk.tolist())
+    print(f"[fed] round k=1 kernel vs plain reduce: max|params| {err:.3e} "
+          f"(tol {ROUND_PARAMS_ATOL}), tau_next equal {tk.tolist()}")
+
+    # (b) the card against the port's CPU path (held against the JAX
+    # package by the CPU tests), round 0, a few local steps
+    T2, B2 = 5, 8
+    small = host_stacked_batches(clients, np.random.default_rng(8), T2, B2)
+    cpu_model = build_model_by_name(FED["model"], device="cpu")
+    outs = []
+    for d, m in ((dev, model), (torch.device("cpu"), cpu_model)):
+        eng = _engine(m, "auto", C, T2, B2)
+        prm = {k: v.to(d) for k, v in params.items()}
+        st = eng.init_controller_state(prm, np.full(C, T2, np.int32))
+        outs.append(eng.run_fused(prm, st, p, batches=small))
+    sync()
+    (card, _, _, gc), (cpu, _, _, gp) = outs
+    perr = max((card[k].cpu() - cpu[k]).abs().max().item() for k in params)
+    berr = max(((gc[k].cpu() - gp[k]).abs() / gp[k].abs().clamp_min(1e-30)).max().item()
+               for k in ("beta", "delta"))
+    require(perr <= CARD_CPU_PARAMS_ATOL, f"[fed] card vs CPU round: params differ by {perr}")
+    require(berr <= 1e-3, f"[fed] card vs CPU round: beta/delta rel err {berr}")
+    out["card_vs_cpu_round"] = dict(max_abs_params=perr, beta_delta_rel=berr)
+    print(f"[fed] round 0 card vs CPU path: max|params| {perr:.3e} "
+          f"(tol {CARD_CPU_PARAMS_ATOL}), beta/delta rel {berr:.3e} (tol 1e-3)")
+    return out
+
+
+def phase_fed_profile(dev, model, clients, params, n_rounds=2):
+    """torch.profiler over ``n_rounds`` fused FedVeca rounds (device data
+    path), and the same rounds without it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    C = len(clients)
+    p = np.array([len(c) for c in clients], np.float64)
+    p = torch.as_tensor((p / p.sum()).astype(np.float32), device=dev)
+    eng = _engine(model, "auto", C, FED["tau_max"], FED["batch"],
+                  shards=DeviceShards.from_datasets(clients, device=dev))
+    st0 = eng.init_controller_state(params, np.full(C, 2, np.int32))
+    p1, st1, _, _ = eng.run_fused(params, st0, p, key=1)
+    sync()
+
+    def rounds():
+        prm, st = p1, st1
+        for k in range(n_rounds):
+            prm, st, _, diag = eng.run_fused(prm, st, p, key=2 + k)
+        sync()
+
+    t0 = time.perf_counter()
+    rounds()
+    plain_us = 1e6 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rounds()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    by_kernel = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
+                       key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in by_kernel)
+    launches = sum(c for _, _, c in by_kernel)
+    vecavg = [(t, c) for k, t, c in by_kernel if "vecavg" in k]
+    out = dict(rounds=n_rounds, wall_ms_per_round=wall_us / n_rounds / 1e3,
+               vecavg_device_ms_per_round=sum(t for t, _ in vecavg) / n_rounds / 1e3,
+               vecavg_kernels_per_round=sum(c for _, c in vecavg) / n_rounds,
+               wall_ms_per_round_unprofiled=plain_us / n_rounds / 1e3,
+               device_busy_ms_per_round=busy / n_rounds / 1e3,
+               device_busy_share_unprofiled=busy / plain_us if busy else None,
+               device_busy_share=busy / wall_us if busy else None,
+               kernel_launches_per_round=launches / n_rounds,
+               top=[(k[:60], round(t / n_rounds / 1e3, 4), c) for k, t, c in by_kernel[:12]])
+    if busy == 0:
+        print("[fed-profile] the profiler recorded no device time")
+    print(f"[fed-profile] {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. timing
 # ---------------------------------------------------------------------------
 
 
 def time_ms(fn, n=50, warmup=5):
     """Mean device time of ``fn`` with the 50 MB L2 flushed before each
     launch (in serving, a layer's weights pass through L2 between two
-    launches of a kernel)."""
+    launches of a kernel). A spin on the device after the flush lets the
+    host enqueue ``fn`` before the card reaches it, so the events time the
+    card's work and not the wrapper's host time."""
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -386,6 +668,7 @@ def time_ms(fn, n=50, warmup=5):
           for _ in range(n)]
     for s, e in ev:
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -453,10 +736,31 @@ def phase_timing(model, loop, st, launches, errs):
         bound_ms=1e3 * ins_bytes / HBM_BYTES_PER_S, bound_by="bytes",
         library_ms=time_ms(lambda: (pk.index_copy_(1, ids_ok, ks_ok),
                                     pv.index_copy_(1, ids_ok, vs_ok)))))
-    for r in rows:
-        print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
     return rows
+
+
+def vecavg_timing_row(dev, launches, err):
+    """vecavg at the main path's shape: U [5, 555178] float32 (the CNN's
+    parameters of 5 clients), p [5], a device scale."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    C, D = FED["clients"], CNN_D
+    u = torch.randn(C, D, generator=gen, device=dev)
+    p = torch.full((C,), 1.0 / C, device=dev)
+    scale = torch.full((), -0.235, device=dev)
+    n_bytes = 4 * (C * D + C + 1) + 4 * (D + C)  # U, p, scale in; delta_w, sqn out
+    n_ops = 4 * C * D  # a multiply-add for the sum, one for the square, per element
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    row = dict(
+        name="vecavg", route="cuda", source=VECAVG_SRC,
+        replaces="src/repro/kernels/vecavg/kernel.py:21",
+        launches=launches, max_abs_err=err,
+        ms=time_ms(lambda: va_ops.vecavg(u, p, scale)),
+        plain_ms=time_ms(lambda: va_ref.vecavg(u, p, scale)),
+        bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=time_ms(lambda: (-scale * (p @ u), (u * u).sum(1))))
+    print(f"[timing] vecavg: {n_bytes} bytes, {n_ops} float32 ops")
+    return row
 
 
 def main() -> int:
@@ -468,10 +772,20 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     errs = phase_parity(dev)
+    errs["vecavg"] = phase_vecavg_parity(dev)
     model, params, loop, reqs, state, serve = phase_serve(dev)
     prof = phase_profile(loop, reqs)
     rows = phase_timing(model, loop, state, serve["launches"], errs)
-    print(json.dumps({"serve": serve, "profile": prof, "card": smi}))
+    del model, params, loop, reqs, state  # the serving model's 8 GB
+    torch.cuda.empty_cache()
+    cnn, clients, veca, fed = phase_fed(dev)
+    fed["checks"] = phase_fed_checks(dev, cnn, clients, veca.params)
+    fed["profile"] = phase_fed_profile(dev, cnn, clients, veca.params)
+    rows.append(vecavg_timing_row(dev, fed["launches"]["vecavg"], errs["vecavg"]))
+    for r in rows:
+        print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
+    print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

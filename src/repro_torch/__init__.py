@@ -10,6 +10,8 @@ Entry points run on the card unless the caller asks for the CPU:
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,22 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch: device 'cuda' requested but torch.cuda.is_available() "
             "is False; pass device='cpu' explicitly to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def strict_fp32():
+    """Run float32 work in full float32 on the card, as the JAX reference
+    computes it: cuDNN convolutions without TF32 (its default keeps ~3
+    decimal digits) and float32 matmul precision ``"highest"``. Every other
+    cuDNN flag keeps its current value; both settings are restored on exit.
+    The federated round, its evaluator and the centralized baseline run
+    under this."""
+    prec = torch.get_float32_matmul_precision()
+    cudnn = torch.backends.cudnn
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prec)

@@ -1,7 +1,8 @@
 """Architecture configs and the registry (a copy of the JAX package's
 ``configs/base.py``: ``ArchConfig``, ``reduced()`` and ``get_arch``).
 
-Only the architectures the port serves are registered; each resolves to a
+Only the architectures the port runs are registered (two served decoders
+and the paper's three toy models); each resolves to a
 module of ``repro_torch.configs``. ``reduced()`` is the CPU-test variant
 (2 layers, d_model <= 128, f32) with exactly the JAX package's arithmetic,
 so reduced configs agree between the two packages.
@@ -159,6 +160,10 @@ ARCH_MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     # full attention (window=0); served here at reduced size by the CPU tests
     "qwen1.5-32b": "qwen1_5_32b",
+    # the paper's own models, trained by the federated round (repro_torch.fed)
+    "svm-mnist": "svm_mnist",
+    "cnn-mnist": "cnn_mnist",
+    "cnn-cifar10": "cnn_cifar10",
 }
 
 

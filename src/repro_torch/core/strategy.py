@@ -1,0 +1,198 @@
+"""Per-mode federated update strategies + pluggable server reduces (port of
+``repro/core/strategy.py``, single device).
+
+The paper's "generalized update rules" (Eq. 2-3) specialize along two
+seams, both on one ``Strategy`` per mode:
+
+  * the client half — how a client turns its minibatch gradient into the
+    local SGD direction (Alg. 2 line 7): plain SGD, FedProx's proximal
+    pull, SCAFFOLD's control-variate correction;
+  * the server half — how the stacked per-client accumulators reduce into
+    the global step (Alg. 1 line 7 / Eq. 3+5): step-size-normalized
+    (FedVeca/FedNova, Eq. 5), unnormalized sums (FedAvg/FedProx, Eq. 4),
+    or parameter-delta averaging (SCAFFOLD).
+
+In the port the client half sees the whole client axis at once: ``g``,
+``drift`` and ``c_client`` are stacked trees ``[C, ...]`` and ``c_server``
+is unstacked (it broadcasts).
+
+Every server half routes through a ``reduce(stacked, w, scale) -> (tree,
+sqnorms)`` callable. ``kernel_reduce`` is the vecavg kernel — one
+flattened [C, D_total] pass that also yields the per-client squared norms
+— and, like every kernel wrapper, dispatches by device: a CPU tensor takes
+its plain version, a CUDA tensor the kernel. ``fallback_reduce`` is the
+per-leaf tree path, and is taken only when asked for by name.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Tuple
+
+import torch
+
+from repro_torch.core.tree import (
+    tree_axpy,
+    tree_map,
+    tree_scale,
+    tree_sqnorm_per_client,
+    tree_weighted_sum,
+)
+from repro_torch.kernels.vecavg.ops import vecavg_tree
+
+MODES = ("fedveca", "fednova", "fedavg", "fedprox", "scaffold")
+
+# reduce(stacked [C,...] tree, w [C], scale scalar)
+#   -> (scale * sum_c w_c * stacked_c, per-client ||stacked_c||^2)
+Reduce = Callable[[Any, torch.Tensor, Any], Tuple[Any, torch.Tensor]]
+
+
+def fallback_reduce(stacked, w, scale):
+    """Per-leaf weighted reduction (tensordot) in plain PyTorch."""
+    out = tree_scale(tree_weighted_sum(stacked, w), scale)
+    return out, tree_sqnorm_per_client(stacked)
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum(x) over the client axis."""
+    return x.sum()
+
+
+def kernel_reduce(stacked, w, scale):
+    """The vecavg kernel: one [C, D_total] pass, norms ride along."""
+    # vecavg computes -scale * p @ U, so negate to match reduce's contract.
+    return vecavg_tree(stacked, w, -scale)
+
+
+def make_reduce(spec) -> Reduce:
+    """'auto' | 'pallas' (both the kernel reduce) | 'fallback' | callable.
+
+    The JAX package's 'auto' picks its fallback off the TPU; here 'auto'
+    is the kernel reduce on every device, so nothing on the card reaches
+    the tree path unless ``'fallback'`` is named."""
+    if callable(spec):
+        return spec
+    if spec in ("auto", "pallas"):
+        return kernel_reduce
+    if spec == "fallback":
+        return fallback_reduce
+    raise ValueError(f"unknown aggregator {spec!r}; valid: 'auto', 'pallas', 'fallback'")
+
+
+def _per_client(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Broadcast [C] over the trailing dims of a [C, ...] leaf."""
+    return v.reshape((v.shape[0],) + (1,) * (like.dim() - 1))
+
+
+class Strategy:
+    """One federated mode: client-side direction + server-side reduce."""
+
+    name: str = "base"
+    uses_scaffold: bool = False
+
+    # -- client half (Alg. 2 line 7) ----------------------------------------
+    def local_direction(self, g, drift, c_server, c_client):
+        """Gradient -> local SGD direction, stacked over the clients.
+
+        g: minibatch gradients [C, ...]; drift: w^l - w_k [C, ...];
+        c_server [...] / c_client [C, ...]: SCAFFOLD control variates (zero
+        trees for other modes).
+        """
+        return g
+
+    # -- server half (Alg. 1 line 7) ----------------------------------------
+    def server_delta(self, outs, params, tau_f, p, eta, reduce: Reduce):
+        """Global step from the round's stacked outputs dict."""
+        raise NotImplementedError
+
+    def update_scaffold(self, outs, params, scaffold, tau_f, eta):
+        return scaffold
+
+
+class FedVecaStrategy(Strategy):
+    """Eq. 5: w' = w - eta * tau_k * sum_i p_i G_i (FedNova update rule,
+    driven by the adaptive bi-directional tau controller)."""
+
+    name = "fedveca"
+
+    def server_delta(self, outs, params, tau_f, p, eta, reduce):
+        G = tree_map(lambda x: x / _per_client(tau_f, x), outs["cum_g"])  # cum_g_i / tau_i
+        tau_k = global_sum(p * tau_f)
+        delta_w, _ = reduce(G, p, -eta * tau_k)
+        return delta_w
+
+
+class FedNovaStrategy(FedVecaStrategy):
+    """Same aggregation algebra as FedVeca; tau is fixed, not adapted."""
+
+    name = "fednova"
+
+
+class FedAvgStrategy(Strategy):
+    """Eq. 4: unnormalized sums, w' = w - eta * sum_i p_i sum_l g_i^l."""
+
+    name = "fedavg"
+
+    def server_delta(self, outs, params, tau_f, p, eta, reduce):
+        delta_w, _ = reduce(outs["cum_g"], p, -eta)
+        return delta_w
+
+
+class FedProxStrategy(FedAvgStrategy):
+    """FedAvg aggregation + proximal local objective (mu/2)||w - w_k||^2."""
+
+    name = "fedprox"
+
+    def __init__(self, mu: float = 0.0):
+        self.mu = mu
+
+    def local_direction(self, g, drift, c_server, c_client):
+        return tree_axpy(self.mu, drift, g)
+
+
+class ScaffoldStrategy(Strategy):
+    """SCAFFOLD: variance-reduced local steps, parameter-delta averaging."""
+
+    name = "scaffold"
+    uses_scaffold = True
+
+    def local_direction(self, g, drift, c_server, c_client):
+        return tree_map(lambda gg, cs, ci: gg.float() + cs.float() - ci.float(),
+                        g, c_server, c_client)
+
+    def server_delta(self, outs, params, tau_f, p, eta, reduce):
+        local_delta = tree_map(lambda wc, w0: wc.float() - w0.float()[None],
+                               outs["params"], params)
+        delta_w, _ = reduce(local_delta, p, 1.0)
+        return delta_w
+
+    def update_scaffold(self, outs, params, scaffold, tau_f, eta):
+        # c_i' = c_i - c + (w_k - w_i^tau)/(tau_i * eta); c' = c + mean(dc)
+        from repro_torch.core.fedveca import ScaffoldState
+
+        C = tau_f.shape[0]
+        C_total = global_sum(torch.ones_like(tau_f))
+        c_server, c_client = scaffold.c, scaffold.c_i
+        inv = 1.0 / (tau_f * eta)
+        c_i_new = tree_map(
+            lambda ci, cs, wc, w0: (
+                ci.float() - cs.float()[None]
+                + (w0.float()[None] - wc.float()) * inv.reshape((C,) + (1,) * w0.dim())
+            ).to(ci.dtype),
+            c_client, c_server, outs["params"], params,
+        )
+        dc = tree_map(torch.sub, c_i_new, c_client)
+        mean_dc = tree_weighted_sum(dc, torch.full((C,), 1.0, device=tau_f.device) / C_total)
+        return ScaffoldState(c=tree_axpy(1.0, mean_dc, c_server), c_i=c_i_new)
+
+
+def get_strategy(mode: str, *, mu: float = 0.0) -> Strategy:
+    if mode == "fedveca":
+        return FedVecaStrategy()
+    if mode == "fednova":
+        return FedNovaStrategy()
+    if mode == "fedavg":
+        return FedAvgStrategy()
+    if mode == "fedprox":
+        return FedProxStrategy(mu)
+    if mode == "scaffold":
+        return ScaffoldStrategy()
+    raise ValueError(f"unknown mode {mode!r}; valid: {MODES}")

@@ -1,0 +1,104 @@
+"""Federated data path of the round (port of ``repro/data/device.py``,
+single device).
+
+Client shards are stacked once into device-resident ``[C, N_max, ...]``
+buffers (padded to the largest shard; padding rows are never sampled
+because indices are drawn below each client's true size), and each round's
+minibatch indices are drawn on the device: no per-round host-to-device
+upload of a ``[C, tau_max, batch, ...]`` tensor.
+
+**Per-client index streams.** ``sample`` draws client i's indices from a
+``torch.Generator`` seeded from (round key, i), so they depend only on
+(key, i, size_i). They cannot match the JAX package's ``jax.random``
+streams; cross-framework tests draw their batches with
+``host_stacked_batches`` instead, which both packages implement with the
+same numpy calls.
+
+Batches are vision batches ``dict(x=[.., b, *obs] float32, y=[.., b]
+int32)``; LM token batches come with the federated LM slice (ROADMAP A14).
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.data.synthetic import Dataset
+
+
+def format_batch(x, y, device="cpu") -> dict:
+    """Raw (x, y) arrays or tensors -> the model batch dict on ``device``."""
+    return dict(x=torch.as_tensor(x, device=device).to(torch.float32),
+                y=torch.as_tensor(y, device=device).to(torch.int32))
+
+
+def _seed(*words: int) -> int:
+    """A 64-bit generator seed from non-negative integers."""
+    return int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0])
+
+
+def round_key(seed: int, k: int) -> int:
+    """The key of round ``k`` of a run seeded with ``seed``."""
+    return _seed(seed, k)
+
+
+class DeviceShards:
+    """Client shards resident on one device: x [C, N_max, ...], y [C, N_max]
+    and the true sizes (host ints)."""
+
+    def __init__(self, x: torch.Tensor, y: torch.Tensor, sizes: Sequence[int]):
+        self.x = x
+        self.y = y
+        self.sizes = [int(s) for s in sizes]
+
+    @property
+    def num_clients(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    @staticmethod
+    def from_datasets(datasets: Sequence[Dataset], device="cpu") -> "DeviceShards":
+        """Stack per-client datasets into zero-padded device buffers."""
+        sizes = [len(d) for d in datasets]
+        n_max = max(sizes)
+
+        def pad_stack(arrs):
+            out = np.zeros((len(arrs), n_max) + arrs[0].shape[1:], arrs[0].dtype)
+            for i, a in enumerate(arrs):
+                out[i, : len(a)] = a
+            return torch.from_numpy(out).to(device)
+
+        return DeviceShards(pad_stack([d.x for d in datasets]),
+                            pad_stack([d.y for d in datasets]), sizes)
+
+    def sample(self, key: int, tau_max: int, batch: int) -> dict:
+        """Draw leaves [C, tau_max, batch, ...] on the device; client i's
+        indices come from a generator seeded from (key, i)."""
+        dev = self.device
+        idx = torch.stack([
+            torch.randint(0, size, (tau_max, batch), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(_seed(key, i)))
+            for i, size in enumerate(self.sizes)])
+        ids = torch.arange(self.num_clients, device=dev)[:, None, None]
+        return format_batch(self.x[ids, idx], self.y[ids, idx], device=dev)
+
+
+def host_stacked_batches(datasets: List[Dataset], rng, tau_max: int, batch: int,
+                         device="cpu") -> dict:
+    """Host path: leaves [C, tau_max, batch, ...], a fresh minibatch per
+    local step, drawn with numpy exactly as the JAX package draws them, and
+    uploaded whole every round.
+
+    ``rng`` is an ``np.random.Generator`` (the driver loop's RNG); the
+    legacy ``RandomState`` is also accepted."""
+    draw = rng.integers if isinstance(rng, np.random.Generator) else rng.randint
+    xs, ys = [], []
+    for d in datasets:
+        idx = draw(0, len(d), size=(tau_max, batch))
+        xs.append(d.x[idx])
+        ys.append(d.y[idx])
+    return format_batch(np.stack(xs), np.stack(ys), device=device)

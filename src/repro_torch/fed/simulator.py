@@ -1,0 +1,156 @@
+"""Federated simulator (port of ``repro/fed/simulator.py``, the
+synchronous fields): K rounds of the fused round+controller step via
+``core/driver.TrainDriver``.
+
+Implements the paper's experimental protocol (§IV-A):
+  * FedVeca: adaptive tau via the controller (Alg. 1);
+  * FedAvg / FedNova baselines with fixed tau_i = floor(E_avg * D_i / B)
+    derived from a recorded FedVeca run for a fair comparison (§IV-A1);
+  * centralized SGD trained for the same total iteration count tau_all;
+  * per-round test loss/accuracy, premise value eta*tau_k*L, and the
+    (tau_i, beta_i, delta_i, A_i, L_k) traces of Fig. 6.
+
+The round and the controller run on the model's device (``build_model``
+defaults to the card). The server reduce is the vecavg kernel unless
+``aggregator="fallback"`` is named. Float32 work runs in full float32
+(``repro_torch.strict_fp32``: no TF32 convolutions).
+
+``run(params=...)`` and ``centralized_sgd(..., params=...)`` take a params
+tree (e.g. carried over from the JAX package with ``repro_torch.bridge``,
+whose ``jax.random`` init cannot be reproduced here); without one they
+init from a ``torch.Generator`` seeded with ``cfg.seed``.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+item: ``cohort_size`` (A16), ``wire`` (A17), ``buffered`` (A17), ``mesh``
+(A18).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+from torch.func import grad_and_value
+
+from repro_torch import strict_fp32
+from repro_torch.core.controller import ControllerConfig, ControllerCore
+from repro_torch.core.driver import TrainDriver, make_dataset_evaluator
+from repro_torch.core.engine import EngineConfig, RoundEngine, not_ported
+from repro_torch.data.device import DeviceShards, format_batch, host_stacked_batches
+from repro_torch.data.synthetic import Dataset
+from repro_torch.metrics.logger import RunLogger
+
+
+@dataclasses.dataclass
+class FedSimConfig:
+    mode: str = "fedveca"  # fedveca | fednova | fedavg | fedprox | scaffold
+    eta: float = 0.01  # paper §IV-A4
+    alpha: float = 0.95
+    tau_max: int = 50
+    tau_init: int = 2
+    batch_size: int = 32
+    rounds: int = 100
+    seed: int = 0
+    mu: float = 0.01  # fedprox
+    fixed_tau: Optional[np.ndarray] = None  # fedavg/fednova per-client tau
+    eval_every: int = 1
+    log_dir: Optional[str] = None
+    aggregator: str = "auto"  # 'auto' | 'pallas' (vecavg kernel) | 'fallback'
+    data_path: str = "device"  # 'device' (resident shards) | 'host' (numpy batches)
+    overlap: int = 1  # in-flight rounds before host sync; 0 = sync mode
+    # -- not ported yet (NotImplementedError naming the ROADMAP item) -------
+    cohort_size: Optional[int] = None  # A16
+    wire: str = "none"  # A17
+    buffered: bool = False  # A17
+    mesh: Optional[object] = None  # A18
+
+
+class FederatedSimulator:
+    def __init__(self, model, client_data: List[Dataset], cfg: FedSimConfig,
+                 test_data: Optional[Dataset] = None):
+        if cfg.cohort_size is not None:
+            raise not_ported("cohort_size (partial participation)", "A16")
+        if cfg.buffered:
+            raise not_ported("buffered=True (asynchronous rounds)", "A17")
+        self.model = model
+        self.device = model.device
+        self.client_data = client_data
+        self.cfg = cfg
+        self.test_data = test_data
+        self.C = len(client_data)
+        sizes = np.array([len(d) for d in client_data], np.float64)
+        self.p = (sizes / sizes.sum()).astype(np.float32)
+
+        shards = (DeviceShards.from_datasets(client_data, device=self.device)
+                  if cfg.data_path == "device" else None)
+        ctrl_cfg = ControllerConfig(eta=cfg.eta, alpha=cfg.alpha, tau_max=cfg.tau_max)
+        self.engine = RoundEngine(
+            model.loss,
+            EngineConfig(mode=cfg.mode, eta=cfg.eta, tau_max=cfg.tau_max, mu=cfg.mu,
+                         batch_size=cfg.batch_size, aggregator=cfg.aggregator,
+                         wire=cfg.wire),
+            shards=shards,
+            controller=ControllerCore(ctrl_cfg, self.C, adapt=(cfg.mode == "fedveca")),
+            mesh=cfg.mesh,
+        )
+        self.driver = TrainDriver(
+            self.engine, self.p,
+            overlap=cfg.overlap, seed=cfg.seed, mode=cfg.mode,
+            eval_fn=(make_dataset_evaluator(model.loss, test_data, device=self.device)
+                     if test_data is not None else None),
+            eval_every=cfg.eval_every,
+            batches_fn=self._host_batches if cfg.data_path == "host" else None,
+        )
+
+    # -- data ---------------------------------------------------------------
+    def _host_batches(self, rng: np.random.Generator):
+        """Host path: leaves [C, tau_max, b, ...] drawn with numpy."""
+        return host_stacked_batches(self.client_data, rng, self.cfg.tau_max,
+                                    self.cfg.batch_size, device=self.device)
+
+    # -- main loop ----------------------------------------------------------
+    def init_taus(self) -> np.ndarray:
+        cfg = self.cfg
+        if cfg.mode == "fedveca":
+            return np.full(self.C, cfg.tau_init, np.int32)
+        taus = (np.asarray(cfg.fixed_tau, np.int32) if cfg.fixed_tau is not None
+                else np.full(self.C, cfg.tau_init, np.int32))
+        return np.clip(taus, 1, cfg.tau_max)
+
+    def run(self, params=None, rounds: Optional[int] = None) -> RunLogger:
+        cfg = self.cfg
+        rounds = rounds or cfg.rounds
+        if params is None:
+            params = self.model.init(cfg.seed)
+        params = {k: v.to(self.device) for k, v in params.items()}
+        log = RunLogger(cfg.log_dir, name=f"{cfg.mode}")
+        return self.driver.run(params, rounds, self.init_taus(), logger=log)
+
+
+def fair_fixed_tau(tau_all: int, rounds: int, batch: int, sizes: np.ndarray) -> np.ndarray:
+    """§IV-A1: E_avg = tau_all/K * B/D; tau_i = floor(E_avg * D_i / B)."""
+    D = float(sizes.sum())
+    e_avg = (tau_all / rounds) * batch / D
+    return np.maximum(1, np.floor(e_avg * sizes / batch)).astype(np.int32)
+
+
+def centralized_sgd(model, data: Dataset, iterations: int, batch: int, eta: float,
+                    test_data: Optional[Dataset] = None, seed: int = 0, params=None):
+    """The paper's centralized baseline: tau_all SGD iterations on pooled
+    data, drawn with numpy ``RandomState(seed)`` as the JAX package draws
+    them. Returns (params, test metrics)."""
+    rng = np.random.RandomState(seed)
+    dev = model.device
+    params = model.init(seed) if params is None else params
+    params = {k: v.to(dev) for k, v in params.items()}
+    gv = grad_and_value(model.loss, has_aux=True)
+    with strict_fp32():
+        for _ in range(iterations):
+            idx = rng.randint(0, len(data), size=batch)
+            g, _ = gv(params, format_batch(data.x[idx], data.y[idx], device=dev))
+            params = {k: (w.float() - eta * g[k].float()).to(w.dtype)
+                      for k, w in params.items()}
+    if test_data is None:
+        return params, {}
+    ev = make_dataset_evaluator(model.loss, test_data, device=dev)(params)
+    return params, {k: float(v) for k, v in ev.items()}

@@ -32,6 +32,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 # name -> source, relative to this package
 SOURCES: Dict[str, str] = {
     "paged_attention": "paged_attention/csrc/paged_attention.cu",
+    "vecavg": "vecavg/csrc/vecavg.cu",
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,1 +1,1 @@
-"""Models of the port (dense decoder family)."""
+"""Models of the port: the dense decoder family and the paper's toy models."""

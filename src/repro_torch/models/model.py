@@ -1,12 +1,15 @@
-"""Model API of the port (serving surface of ``repro/models/model.py``).
+"""Model API of the port (``repro/models/model.py``).
 
     model = build_model(cfg, device="cuda")
     params = model.init(seed)                          -> flat dict of tensors
+    model.loss(params, batch)                          -> (scalar, metrics)  [toy]
+    model.forward(params, batch)                       -> logits / scores    [toy]
     model.prefill(params, batch, pad_to=, length=)     -> (logits, DecodeCache)
     model.init_paged_cache(n_slots, n_pages, page_size) -> PagedDecodeCache
     model.paged_decode_step(params, cache, page_table, token, pos, ...)
 
-Only the dense decoder family is ported; the others raise
+The dense decoder family (serving) and the paper's toy models (svm-mnist,
+cnn-mnist, cnn-cifar10; training) are ported; the other families raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, get_arch
-from repro_torch.models import transformer
+from repro_torch.models import simple, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,12 +33,31 @@ class Model:
     prefill: Optional[Callable]
     paged_decode_step: Optional[Callable]
     init_paged_cache: Optional[Callable]
+    loss: Optional[Callable] = None
+    forward: Optional[Callable] = None
+
+
+def _toy_model(cfg: ArchConfig, dev: torch.device) -> Model:
+    svm = cfg.name.startswith("svm")
+    init_fn = simple.svm_init if svm else simple.cnn_init
+
+    def init(seed: int = 0):
+        return init_fn(torch.Generator(device=dev).manual_seed(seed), cfg, dev)
+
+    return Model(
+        config=cfg, device=dev, init=init, prefill=None, paged_decode_step=None,
+        init_paged_cache=None,
+        loss=functools.partial(simple.svm_loss if svm else simple.cnn_loss, cfg),
+        forward=functools.partial(simple.svm_forward if svm else simple.cnn_forward, cfg),
+    )
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
-    """The serving model of ``cfg`` on ``device`` (default ``cuda``; raises
-    when no GPU is present rather than running on the CPU)."""
+    """The model of ``cfg`` on ``device`` (default ``cuda``; raises when no
+    GPU is present rather than running on the CPU)."""
     dev = resolve_device(device)
+    if cfg.family == "toy":
+        return _toy_model(cfg, dev)
     transformer.check_dense(cfg)
     return Model(
         config=cfg,

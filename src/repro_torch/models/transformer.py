@@ -29,7 +29,7 @@ def check_dense(cfg):
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r} is not ported yet (ROADMAP.md: "
             "MoE, hybrid, xLSTM, VLM and audio families come with the rest of "
-            "serving; the toy models with the FedVeca-round slice)")
+            "serving; the toy models are built by models.model.build_model)")
 
 
 def _prefixed(prefix: str, tree: Dict[str, torch.Tensor]) -> Params:

@@ -37,7 +37,16 @@ def _files():
 def test_port_modules_found():
     mods = _port_modules()
     for want in ("repro_torch.bridge", "repro_torch.kernels.paged_attention.ops",
-                 "repro_torch.serve.loop", "repro_torch.serve.__main__"):
+                 "repro_torch.serve.loop", "repro_torch.serve.__main__",
+                 "repro_torch.data.synthetic", "repro_torch.data.partition",
+                 "repro_torch.data.device", "repro_torch.metrics.logger",
+                 "repro_torch.configs.svm_mnist", "repro_torch.configs.cnn_mnist",
+                 "repro_torch.configs.cnn_cifar10", "repro_torch.core.tree",
+                 "repro_torch.kernels.vecavg.ref", "repro_torch.kernels.vecavg.ops",
+                 "repro_torch.models.simple", "repro_torch.core.strategy",
+                 "repro_torch.core.fedveca", "repro_torch.core.controller",
+                 "repro_torch.core.engine", "repro_torch.core.driver",
+                 "repro_torch.fed.simulator", "repro_torch.fed.__main__"):
         assert want in mods
 
 

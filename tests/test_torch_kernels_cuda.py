@@ -6,7 +6,9 @@ Imports torch and the port only (no JAX), so it runs on the card's machine:
 
 Without a card every test skips (the kernels have no CPU mode). Bars:
 pools bitwise; outputs 1e-5 in float32, 2e-2 in bf16 (the plain version
-rounds logits and probabilities to bf16, the kernel keeps float32).
+rounds logits and probabilities to bf16, the kernel keeps float32);
+vecavg 1e-6 in float32 and 2e-2 in bf16 with norms at rtol 1e-4 (the bars
+of tests/test_kernels.py), and two launches on one input bitwise equal.
 """
 import numpy as np
 import pytest
@@ -14,6 +16,8 @@ import torch
 
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as tref
+from repro_torch.kernels.vecavg import ops as va_ops
+from repro_torch.kernels.vecavg import ref as va_ref
 
 torch.set_num_threads(2)
 
@@ -109,3 +113,51 @@ def test_serve_streams_kernel_equal_plain_on_card(cuda, arch):
         launched = dict(pa_ops.launches)
     assert launched["paged_decode"] > 0 and launched["paged_insert"] == len(trace)
     assert outs["kernel"] == outs["scatter"]
+
+
+@pytest.mark.parametrize("C,D", [(2, 64), (5, 513), (16, 2048), (32, 100), (1, 4099),
+                                 (5, 555178)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vecavg_kernel_matches_plain_on_card(cuda, C, D, dtype):
+    g = torch.Generator().manual_seed(C * 100 + D)
+    u = torch.randn(C, D, generator=g).to(cuda, dtype)
+    p = torch.rand(C, generator=g).add_(0.1).to(cuda)
+    p /= p.sum()
+    va_ops.reset_launches()
+    dw, sqn = va_ops.vecavg(u, p, 0.73)
+    dw2, sqn2 = va_ops.vecavg(u, p, torch.tensor(0.73, device=cuda))
+    dw_r, sqn_r = va_ref.vecavg(u, p, 0.73)
+    torch.cuda.synchronize()
+    assert va_ops.launches["vecavg"] == 2
+    assert dw.dtype == dtype and torch.equal(dw, dw2) and torch.equal(sqn, sqn2)
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(dw.float(), dw_r.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(sqn, sqn_r, atol=0, rtol=1e-4)
+
+
+def test_round_reduces_launch_the_kernel_on_card(cuda):
+    """On the card 'auto' and 'pallas' launch vecavg twice a round;
+    'fallback' launches it never. The kernel round and the fallback round
+    agree within 1e-6 (deterministic cuDNN: only the reduce differs)."""
+    from repro_torch.core.fedveca import make_round_step
+    from repro_torch.models.model import build_model_by_name
+
+    model = build_model_by_name("cnn-cifar10", device=cuda)
+    params = model.init(0)
+    g = torch.Generator().manual_seed(0)
+    C, T, B = 3, 3, 4
+    batches = dict(x=torch.randn(C, T, B, 32, 32, 3, generator=g).to(cuda),
+                   y=torch.randint(0, 10, (C, T, B), generator=g).to(cuda, torch.int32))
+    tau = torch.tensor([3, 2, 3], dtype=torch.int32, device=cuda)
+    pw = torch.tensor([0.5, 0.2, 0.3], device=cuda)
+    outs = {}
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        for agg in ("auto", "pallas", "fallback"):
+            va_ops.reset_launches()
+            step = make_round_step(model.loss, eta=0.01, aggregator=agg)
+            outs[agg] = step(params, batches, tau, pw, torch.tensor(0.05, device=cuda))
+            torch.cuda.synchronize()
+            assert va_ops.launches["vecavg"] == (0 if agg == "fallback" else 2), agg
+    for k in params:
+        assert torch.equal(outs["auto"][0][k], outs["pallas"][0][k])
+        torch.testing.assert_close(outs["auto"][0][k], outs["fallback"][0][k], atol=1e-6, rtol=0)

@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro.models import transformer as jtransformer
 from repro.models.model import build_model_by_name as jax_build
 from repro.models.transformer import insert_cache_pages as jax_insert_cache_pages
 from repro_torch import bridge
@@ -97,6 +99,34 @@ def test_prefill_matches_jax(arch):
     _close(tc.kv.k, jc.kv.k)
     _close(tc.kv.v, jc.kv.v)
     np.testing.assert_array_equal(_np(tc.kv.pos), np.asarray(jc.kv.pos))
+
+
+def test_swa_prefill_beyond_window_matches_jax_forward():
+    """Reduced StarCoder2 (window W = 64) with a prompt of S = 101 > W: the
+    port's windowed prefill against the JAX package's ``forward``, which
+    applies the window (its ``prefill`` does not for S > W: ROADMAP C/R1).
+    The ring cache of each layer is held against ``prefill_kv_cache(
+    window=W)`` on that layer's windowed input: ``pos`` exactly, K/V at the
+    prefill tolerance."""
+    jm, jp, tm, tp = _pair("starcoder2-3b")
+    cfg = jm.config
+    W, S = cfg.sliding_window, cfg.sliding_window + 37
+    assert W == 64
+    toks = np.random.RandomState(5).randint(0, cfg.vocab_size, (1, S)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(toks)}
+    jlogits, _ = jtransformer.forward(cfg, jp, batch)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
+    _close(tl, jlogits[:, -1])
+    h = jtransformer.embed_tokens(cfg, jp, batch)
+    positions = jnp.arange(S)
+    for layer in range(cfg.num_layers):
+        lp = jax.tree.map(lambda x: x[layer], jp["layers"])
+        ring = jattn.prefill_kv_cache(cfg, lp["attn"], jlayers.apply_norm(cfg, lp["norm1"], h),
+                                      positions, window=W)
+        np.testing.assert_array_equal(_np(tc.kv.pos[layer]), np.asarray(ring.pos))
+        _close(tc.kv.k[layer], ring.k)
+        _close(tc.kv.v[layer], ring.v)
+        h, _ = jtransformer.layer_apply(cfg, lp, h, positions, window=W)
 
 
 def test_prefill_padded_length_matches_jax():
