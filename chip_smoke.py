@@ -14,7 +14,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the ring wrapped and not, full attention, partly and wholly inactive
      batches, unallocated pages); vecavg at the CNN's [5, 555178] in
      float32 and bf16, at C 1 and 32, and at a ragged D 513, each launched
-     twice and held bitwise against itself;
+     twice and held bitwise against itself; flash attention in float32 and
+     bf16 at StarCoder2-3B's [1, 8192, 24/2, 128] (causal, window 4096) and
+     at S 4096, Qwen1.5-32B's [1, 2048, 40/40, 128], a q_offset case with
+     Sq < Sk, a ragged edge, and rows with no live key (exactly 0);
   4. serve   — full-config StarCoder2-3B (random bf16 weights from seed 0)
      serves a 16-request Poisson trace through
      ``PagedServeLoop(cache_update="kernel")``; the paged launch counters,
@@ -35,7 +38,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and torch.profiler over two FedVeca rounds;
   7. timing  — each kernel at its main-path shapes against its bound, its
      plain version and, where one exists, a PyTorch call computing the
-     same function.
+     same function;
+  8. forward — full-width StarCoder2-3B (random weights from seed 0), B 1,
+     S 8192: ``forward`` and ``loss`` with ``impl="pallas"`` against
+     ``impl="auto"`` (chunked above S 2048), in float32 (logits) and bf16
+     (loss); the flash counter, zeroed just before each call, must read 30
+     (one a layer); ms and peak memory of each; ``prefill(impl="pallas")``
+     at S 1024 against ``impl="direct"``; Qwen1.5-32B at full width cut to
+     4 of its 64 layers, S 2048, ``pallas`` against ``auto``; backward
+     through ``impl="pallas"`` raises; torch.profiler over one bf16
+     forward (flash / GEMM / other); the flash timing rows.
 
 Prints, before the last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -44,6 +56,7 @@ Needs one card and no network; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -62,12 +75,15 @@ from repro_torch.data.device import DeviceShards, host_stacked_batches  # noqa: 
 from repro_torch.data.partition import partition_case3  # noqa: E402
 from repro_torch.data.synthetic import Dataset, make_classification  # noqa: E402
 from repro_torch.fed import FederatedSimulator, FedSimConfig, fair_fixed_tau  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.kernels.vecavg import ops as va_ops  # noqa: E402
 from repro_torch.kernels.vecavg import ref as va_ref  # noqa: E402
-from repro_torch.models.model import build_model_by_name  # noqa: E402
+from repro_torch.models.model import build_model, build_model_by_name  # noqa: E402
 from repro_torch.serve import PagedServeLoop, poisson_trace  # noqa: E402
 from repro_torch.serve.slots import RequestQueue  # noqa: E402
 
@@ -112,6 +128,26 @@ ROUND_PARAMS_ATOL = 1e-6
 # windows; the round-step bars of the CPU tests against the JAX package
 # (params 1e-6) scaled by ten for the accumulation over the local steps.
 CARD_CPU_PARAMS_ATOL = 1e-5
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+# Flash kernel vs its plain version: the JAX package's kernel-vs-oracle
+# bars (tests/test_kernels.py): 2e-5 in float32 (float32 sums in another
+# order), 3e-2 in bf16 (the plain version rounds logits and probabilities
+# to bf16, the kernel keeps both in float32).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# (name, B, Sq, Sk, Hq, Hkv, hd, causal, window, q_offset)
+FLASH_CASES = [
+    ("starcoder2-3b S 8192", 1, 8192, 8192, 24, 2, 128, True, 4096, 0),
+    ("starcoder2-3b S 4096", 1, 4096, 4096, 24, 2, 128, True, 4096, 0),
+    ("qwen1.5-32b S 2048", 1, 2048, 2048, 40, 40, 128, True, 0, 0),
+    ("q_offset 5000, Sq 1000 < Sk 6000", 1, 1000, 6000, 24, 2, 128, True, 4096, 5000),
+    ("ragged edges, B 2, hd 64", 2, 777, 777, 8, 2, 64, True, 300, 0),
+    ("rows with no live key", 1, 200, 256, 4, 2, 128, False, 16, 250),
+]
+FWD_S, PREFILL_S, QWEN_S, QWEN_LAYERS = 8192, 1024, 2048, 4
+# A full-width forward, pallas vs auto: the JAX package's model-level bar
+# (tests/test_kernels.py::test_flash_attention_is_model_attention) on the
+# float32 logits; in bf16 the mean loss over 8192 tokens, 1e-3.
+FWD_LOGITS_ATOL, FWD_BF16_LOSS_ATOL = 2e-4, 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -285,6 +321,47 @@ def phase_vecavg_parity(dev):
     for C, D in ((5, CNN_D), (32, CNN_D), (5, 513)):
         vecavg_case(gen, dev, C, D, torch.bfloat16)
     return max(errs)
+
+
+def _flash_inputs(gen, dev, dtype, B, Sq, Sk, Hq, Hkv, hd):
+    q = torch.randn(B, Sq, Hq, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Sk, Hkv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Sk, Hkv, hd, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_flash_parity(dev):
+    """Flash kernel against its plain version at full widths, both types.
+    Returns the largest error per type."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    worst = {}
+    with strict_fp32():
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff in FLASH_CASES:
+                q, k, v = _flash_inputs(gen, dev, dtype, B, Sq, Sk, Hq, Hkv, hd)
+                kw = dict(causal=causal, window=window, q_offset=qoff)
+                o = fa_ops.flash_attention(q, k, v, **kw)
+                sync()
+                o_r = fa_ref.attention(q, k, v, **kw)
+                sync()
+                tag = f"{name} {str(dtype).replace('torch.', '')}"
+                require(o.dtype == dtype and o.shape == q.shape, f"[parity] flash {tag}: {o.shape}")
+                require(bool(torch.isfinite(o.float()).all()), f"[parity] flash {tag}: non-finite")
+                err = (o.float() - o_r.float()).abs().max().item()
+                require(err <= FLASH_TOL[dtype],
+                        f"[parity] flash {tag}: max|kernel - plain| {err} > {FLASH_TOL[dtype]}")
+                live = fa_ref.live_mask(Sq, Sk, causal=causal, window=window, q_offset=qoff,
+                                        device=dev).any(1)
+                n_empty = int((~live).sum())
+                if n_empty:
+                    require(bool((o[:, ~live] == 0).all() and (o_r[:, ~live] == 0).all()),
+                            f"[parity] flash {tag}: a row with no live key is not 0")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                print(f"[parity] flash {tag}: max|o - plain| {err:.3e} (tol {FLASH_TOL[dtype]})"
+                      + (f", {n_empty} rows with no live key exactly 0" if n_empty else ""))
+                del q, k, v, o, o_r
+    torch.cuda.empty_cache()
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -763,6 +840,210 @@ def vecavg_timing_row(dev, launches, err):
     return row
 
 
+# ---------------------------------------------------------------------------
+# 8. the dense forward with impl="pallas" at full width
+# ---------------------------------------------------------------------------
+
+
+def _lm_batch(gen, cfg, B, S, dev):
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+
+
+def _f32(cfg, **kw):
+    return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32", **kw)
+
+
+def timed_call(fn, dev):
+    """-> (result, ms on the host clock ending in a sync, peak GB allocated
+    during the call, flash launches); the counter is zeroed just before."""
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa_ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, ms, torch.cuda.max_memory_allocated(dev) / 1e9, fa_ops.launches["flash_attention"]
+
+
+def _check_launches(what, n, want):
+    require(n == want, f"[forward] {what}: flash launched {n} times, expected {want}")
+
+
+def phase_forward_f32(dev):
+    """StarCoder2-3B in float32: forward pallas vs auto (logits), prefill
+    pallas vs direct."""
+    cfg = _f32(get_arch("starcoder2-3b"))
+    L = cfg.num_layers
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = _lm_batch(gen, cfg, 1, FWD_S, dev)
+    out = {}
+    with torch.inference_mode(), strict_fp32():
+        (lp, _), ms_p, mem_p, n = timed_call(lambda: model.forward(params, batch, impl="pallas"), dev)
+        _check_launches("f32 forward", n, L)
+        (la, _), ms_a, mem_a, n = timed_call(lambda: model.forward(params, batch, impl="auto"), dev)
+        _check_launches("f32 forward, impl auto", n, 0)
+        require(lp.shape == (1, FWD_S, cfg.vocab_size) and bool(torch.isfinite(lp).all()),
+                f"[forward] f32 pallas logits {tuple(lp.shape)} not finite or misshaped")
+        err = (lp - la).abs().max().item()
+        require(err <= FWD_LOGITS_ATOL, f"[forward] f32 logits pallas vs auto: {err}")
+        out["f32"] = dict(logits_max_abs_pallas_vs_auto=err, pallas_ms=ms_p, auto_ms=ms_a,
+                          pallas_peak_gb=mem_p, auto_peak_gb=mem_a, launches=L)
+        print(f"[forward] starcoder2-3b f32 S {FWD_S}: logits max|pallas - auto| {err:.3e} "
+              f"(tol {FWD_LOGITS_ATOL}); pallas {ms_p:.1f} ms, auto {ms_a:.1f} ms; "
+              f"flash launches {L}")
+        del lp, la
+        pb = {"tokens": batch["tokens"][:, :PREFILL_S]}
+        (pl_, pc), _, _, n = timed_call(lambda: model.prefill(params, pb, impl="pallas"), dev)
+        _check_launches("f32 prefill", n, L)
+        dl, dc = model.prefill(params, pb, impl="direct")
+        sync()
+        errs = dict(logits=(pl_ - dl).abs().max().item(),
+                    k=(pc.kv.k - dc.kv.k).abs().max().item(),
+                    v=(pc.kv.v - dc.kv.v).abs().max().item())
+        require(max(errs.values()) <= FWD_LOGITS_ATOL and torch.equal(pc.kv.pos, dc.kv.pos),
+                f"[forward] f32 prefill pallas vs direct: {errs}")
+        out["f32_prefill"] = dict(S=PREFILL_S, max_abs_pallas_vs_direct=errs, launches=n)
+        print(f"[forward] prefill f32 S {PREFILL_S}: pallas vs direct {json.dumps(errs)}, "
+              f"pos equal, flash launches {n}")
+    return out
+
+
+def phase_forward_bf16(dev):
+    """StarCoder2-3B in bf16, the model's own type: the main path's timed
+    forward, its loss against auto, a backward that must raise, a profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_model_by_name("starcoder2-3b", device=dev)
+    cfg, L = model.config, model.config.num_layers
+    params = model.init(0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = _lm_batch(gen, cfg, 1, FWD_S, dev)
+    out = {}
+    with torch.inference_mode():
+        model.forward(params, batch, impl="pallas")  # warm-up (cuBLAS handles, allocator)
+        model.forward(params, batch, impl="auto")
+        (logits, _), ms_p, mem_p, n = timed_call(
+            lambda: model.forward(params, batch, impl="pallas"), dev)
+        _check_launches("bf16 forward (the main path)", n, L)
+        require(logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+                "[forward] bf16 pallas logits not finite")
+        del logits
+        _, ms_a, mem_a, _ = timed_call(lambda: model.forward(params, batch, impl="auto"), dev)
+        (loss_p, _), ms_lp, mem_lp, n = timed_call(
+            lambda: model.loss(params, batch, impl="pallas"), dev)
+        _check_launches("bf16 loss", n, L)
+        loss_a, _ = model.loss(params, batch, impl="auto")
+        d = abs(loss_p.item() - loss_a.item())
+        require(d <= FWD_BF16_LOSS_ATOL, f"[forward] bf16 loss pallas {loss_p.item()} vs "
+                f"auto {loss_a.item()}")
+        out["bf16"] = dict(pallas_ms=ms_p, auto_ms=ms_a, pallas_peak_gb=mem_p,
+                           auto_peak_gb=mem_a, loss_pallas=loss_p.item(), loss_auto=loss_a.item(),
+                           loss_abs_diff=d, loss_pallas_ms=ms_lp, loss_pallas_peak_gb=mem_lp,
+                           launches=L, weights_gb=sum(t.numel() * t.element_size()
+                                                      for t in params.values()) / 1e9)
+        print(f"[forward] starcoder2-3b bf16 S {FWD_S}: pallas {ms_p:.1f} ms (peak {mem_p:.2f} GB), "
+              f"auto {ms_a:.1f} ms (peak {mem_a:.2f} GB); loss pallas {loss_p.item():.6f} vs auto "
+              f"{loss_a.item():.6f} (|d| {d:.2e}, tol {FWD_BF16_LOSS_ATOL}); flash launches {L}")
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.forward(params, batch, impl="pallas")
+            sync()
+        split = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+        n_k = 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA or dev_us(e) <= 0:
+                continue
+            key = e.key.lower()
+            part = ("flash" if "flash_attention" in key else
+                    "gemm" if any(w in key for w in ("gemm", "nvjet", "xmma", "cutlass")) else
+                    "other")
+            split[part] += dev_us(e) / 1e3
+            n_k += e.count
+        out["profile_ms"] = dict(split, kernels=n_k)
+        if not any(split.values()):
+            print("[forward] the profiler recorded no device time")
+        print(f"[forward] bf16 forward device time by part (ms): {json.dumps(out['profile_ms'])}")
+    # backward through the forward-only kernel raises, on the card as on the CPU
+    short = {k: v[:, :64] for k, v in batch.items()}
+    grad_params = dict(params)
+    grad_params["layers/attn/w_q"] = params["layers/attn/w_q"].detach().requires_grad_(True)
+    loss, _ = model.loss(grad_params, short, impl="pallas")
+    raised = False
+    try:
+        loss.backward()
+    except RuntimeError as e:
+        raised = "no backward" in str(e)
+    require(raised, "[forward] backward through impl='pallas' did not raise")
+    print("[forward] backward through impl='pallas' raises (forward-only kernel)")
+    return out
+
+
+def phase_forward_qwen(dev):
+    """Qwen1.5-32B at full width, 4 of 64 layers, float32, S 2048: pallas vs
+    auto (direct at this length)."""
+    cfg = _f32(get_arch("qwen1.5-32b"), num_layers=QWEN_LAYERS)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    batch = _lm_batch(torch.Generator(device=dev).manual_seed(9), cfg, 1, QWEN_S, dev)
+    with torch.inference_mode(), strict_fp32():
+        model.forward(params, batch, impl="pallas")  # warm-up
+        (lp, _), ms_p, mem_p, n = timed_call(lambda: model.forward(params, batch, impl="pallas"), dev)
+        _check_launches("qwen forward", n, QWEN_LAYERS)
+        (la, _), ms_a, mem_a, _ = timed_call(lambda: model.forward(params, batch, impl="auto"), dev)
+        require(bool(torch.isfinite(lp).all()), "[forward] qwen logits not finite")
+        err = (lp - la).abs().max().item()
+    require(err <= FWD_LOGITS_ATOL, f"[forward] qwen f32 logits pallas vs auto: {err}")
+    out = dict(layers=QWEN_LAYERS, S=QWEN_S, logits_max_abs_pallas_vs_auto=err, pallas_ms=ms_p,
+               auto_ms=ms_a, pallas_peak_gb=mem_p, auto_peak_gb=mem_a, launches=n)
+    print(f"[forward] qwen1.5-32b f32 {QWEN_LAYERS} layers S {QWEN_S}: logits max|pallas - auto| "
+          f"{err:.3e}; pallas {ms_p:.1f} ms, auto {ms_a:.1f} ms; flash launches {n}")
+    return out
+
+
+def flash_timing_row(dev, launches, errs):
+    """The flash kernel at the forward's shapes, bf16: kernel, plain version
+    and SDPA with the same mask (timed only; the port never calls it)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = []
+    for name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff in FLASH_CASES[:3]:
+        q, k, v = _flash_inputs(gen, dev, torch.bfloat16, B, Sq, Sk, Hq, Hkv, hd)
+        kw = dict(causal=causal, window=window, q_offset=qoff)
+        mask = fa_ref.live_mask(Sq, Sk, device=dev, **kw)
+        pairs = int(mask.sum()) * B * Hq
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v in; o out
+        n_ops = 4 * hd * pairs
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+        qt, kt, vt = (x.transpose(1, 2).repeat_interleave(Hq // x.shape[2], dim=1).contiguous()
+                      for x in (q, k, v))
+        rows.append(dict(
+            shape=name, live_pairs=pairs,
+            ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw)),
+            plain_ms=time_ms(lambda: fa_ref.attention(q, k, v, **kw), n=20),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))))
+        print(f"[timing] flash {name}: {json.dumps(rows[-1])}")
+        del q, k, v, qt, kt, vt
+    main_row = rows[0]
+    return dict(name="flash_attention", route="cuda", source=FLASH_SRC,
+                replaces="src/repro/kernels/flash_attention/kernel.py:27",
+                launches=launches, max_abs_err=errs[torch.bfloat16],
+                max_abs_err_f32=errs[torch.float32],
+                **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "live_pairs")},
+                shape=main_row["shape"], other_shapes=rows[1:],
+                blocks_per_sm=fa_ops.blocks_per_sm(torch.bfloat16, 128))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -773,6 +1054,7 @@ def main() -> int:
     phase_build()
     errs = phase_parity(dev)
     errs["vecavg"] = phase_vecavg_parity(dev)
+    flash_errs = phase_flash_parity(dev)
     model, params, loop, reqs, state, serve = phase_serve(dev)
     prof = phase_profile(loop, reqs)
     rows = phase_timing(model, loop, state, serve["launches"], errs)
@@ -782,10 +1064,19 @@ def main() -> int:
     fed["checks"] = phase_fed_checks(dev, cnn, clients, veca.params)
     fed["profile"] = phase_fed_profile(dev, cnn, clients, veca.params)
     rows.append(vecavg_timing_row(dev, fed["launches"]["vecavg"], errs["vecavg"]))
+    del cnn, clients, veca
+    torch.cuda.empty_cache()
+    fwd = phase_forward_f32(dev)
+    torch.cuda.empty_cache()
+    fwd.update(phase_forward_bf16(dev))
+    torch.cuda.empty_cache()
+    fwd["qwen_f32"] = phase_forward_qwen(dev)
+    torch.cuda.empty_cache()
+    rows.append(flash_timing_row(dev, fwd["bf16"]["launches"], flash_errs))
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
-    print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "card": smi}))
+    print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -31,6 +31,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 
 # name -> source, relative to this package
 SOURCES: Dict[str, str] = {
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "paged_attention": "paged_attention/csrc/paged_attention.cu",
     "vecavg": "vecavg/csrc/vecavg.cu",
 }

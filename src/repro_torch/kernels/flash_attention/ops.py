@@ -1,0 +1,123 @@
+"""Flash attention: the CUDA kernel for CUDA tensors, the plain version
+(``ref.py``) for CPU tensors.
+
+Dispatch is by the device of ``q`` alone. A CUDA tensor reaches the kernel
+or raises (bad dtype, head dim, shape, a failed build or launch); there is
+no fallback. ``launches["flash_attention"]`` counts kernel launches and is
+bumped only where the kernel is launched, so a run can prove that its
+attention went through it.
+
+The op is forward only, as the JAX package's Pallas kernel is
+(``jax.grad`` through it fails): its backward raises on every device.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ref
+
+launches: Dict[str, int] = {"flash_attention": 0}
+
+HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_YZ = 65535
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# csrc/flash_attention.cu's C interface; the launch returns a cudaError_t
+_SIGNATURES = {
+    "flash_attention_launch": ([_I, _I] + [_P] * 4 + [_I] * 5 + [_L] * 9
+                               + [_I] * 3 + [ctypes.c_float, _P], _I),
+    "flash_attention_blocks_per_sm": ([_I, _I], _I),
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _lib():
+    return build.load("flash_attention", _SIGNATURES)
+
+
+def blocks_per_sm(dtype, hd: int) -> int:
+    """Blocks of the kernel that fit on one SM at once (the card's
+    occupancy for this type and head dim)."""
+    return _lib().flash_attention_blocks_per_sm(_DTYPE_CODE[dtype], hd)
+
+
+def _launch(q, k, v, causal: bool, window: int, q_offset: int):
+    dev, dt = q.device, q.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention: dtype {dt} not supported (float32, bfloat16)")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if k.shape[0] != B or k.shape[3] != hd or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if B > _MAX_GRID_YZ or Hq > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: B={B}, Hq={Hq} beyond the grid's {_MAX_GRID_YZ}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"flash_attention: {name} is {t.dtype} on {t.device}, "
+                             f"expected {dt} on {dev}")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name}'s head_dim axis must have stride 1")
+    out = torch.empty((B, Sq, Hq, hd), dtype=dt, device=dev)
+    if out.numel() == 0:
+        return out
+    err = _lib().flash_attention_launch(
+        _DTYPE_CODE[dt], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Sk, Hq, Hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), int(window), int(q_offset), 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch: CUDA error {err} "
+                           f"({torch.cuda.get_device_name(dev)})")
+    launches["flash_attention"] += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        if q.device.type == "cpu":
+            return ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention: no kernel for {q.device}")
+        return _launch(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise RuntimeError(
+            "flash_attention has no backward: it ports the forward-only Pallas "
+            "kernel (repro/kernels/flash_attention/kernel.py), through which "
+            "jax.grad fails too; differentiate attention_block(impl='direct' or "
+            "'chunked') instead")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                    use_pallas: bool = True, block_q: int = 128, block_k: int = 128):
+    """q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd] in q's dtype.
+    Query ``i`` sits at position ``q_offset + i``; keys at ``0..Sk-1``.
+
+    ``use_pallas=False`` selects the plain version on any device (named
+    only, as in the JAX ops). ``block_q``/``block_k`` keep the JAX
+    signature: they tile the TPU grid there; the CUDA kernel's tiles are
+    fixed (64 x 64) and no result depends on them.
+    """
+    del block_q, block_k
+    if not use_pallas:
+        return ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window), int(q_offset))

@@ -1,13 +1,16 @@
-"""GQA attention, serving half (port of ``repro/models/attention.py``).
+"""GQA attention (port of ``repro/models/attention.py``).
 
-Prefill runs the direct masked-softmax attention written out as matmuls
-(float32 softmax). Decode runs against the shared KV page pool through
+Full-sequence attention (forward, loss, prefill) has the JAX package's
+paths: the direct masked softmax written out as matmuls, the chunked
+online softmax over KV blocks, and ``impl="pallas"``, which runs
+``kernels/flash_attention`` (the CUDA kernel for CUDA tensors, its plain
+version for CPU tensors). ``"auto"`` is direct up to S = 2048 and chunked
+above, as there. Decode runs against the shared KV page pool through
 ``kernels/paged_attention``: ``cache_update="kernel"`` dispatches the CUDA
 kernel for CUDA tensors (its plain version for CPU tensors), and
-``"scatter"`` always runs the plain version. The JAX package's
-``"mask"`` write, its chunked and Pallas prefill attention, the
-contiguous ring cache decode and paged chunk prefill are not ported yet
-(ROADMAP.md).
+``"scatter"`` always runs the plain version. The JAX package's ``"mask"``
+write, the contiguous ring cache decode and paged chunk prefill are not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.models.layers import Params, apply_rope, dense_init
@@ -80,20 +85,67 @@ def _direct_attention(q, k, v, q_pos, k_pos, causal, window):
     return o.reshape(B, Sq, Hq, hd)
 
 
+def _chunked_attention(q, k, v, q_pos, k_pos, causal, window, q_block=512, k_block=1024):
+    """Online-softmax attention over KV blocks of ``k_block`` keys, every q
+    block of ``q_block`` rows at once (the JAX package vmaps them);
+    O(Sq * k_block) logits in memory. Padded keys sit at position 2**30 and
+    padded queries at -1, as there."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = -(-Sq // q_block), -(-Sk // k_block)
+    pad_q, pad_k = nq * q_block - Sq, nk * k_block - Sk
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    qpos = F.pad(q_pos, (0, pad_q), value=-1)
+    kposb = F.pad(k_pos, (0, pad_k), value=2**30).reshape(nk, k_block)
+    qb = qp.reshape(B, nq, q_block, Hkv, G, hd)
+    kb = kp.reshape(B, nk, k_block, Hkv, hd)
+    vb = vp.reshape(B, nk, k_block, Hkv, hd)
+    acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
+    m = torch.full(qb.shape[:-1], NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(qb.shape[:-1], dtype=torch.float32, device=q.device)
+    for j in range(nk):
+        kj, vj, kpos_j = kb[:, j], vb[:, j], kposb[j]
+        logit = torch.einsum("bnqhgd,bkhd->bnqhgk", qb, kj).float() * scale
+        msk = _mask(qpos, kpos_j, causal, window) & (kpos_j < 2**30)[None, :]
+        msk = msk.reshape(nq, q_block, k_block)
+        logit = torch.where(msk[None, :, :, None, None, :], logit,
+                            torch.full_like(logit, NEG_INF))
+        m_new = torch.maximum(m, logit.amax(-1))
+        p = torch.exp(logit - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bnqhgk,bkhd->bnqhgd", p.to(vj.dtype), vj).float()
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, nq * q_block, Hq, hd)[:, :Sq].to(q.dtype)
+
+
+ATTENTION_IMPLS = ("auto", "direct", "chunked", "pallas")
+
+
 def attention_block(cfg, p: Params, x, positions, *, window: Optional[int] = None,
                     causal: bool = True, impl: str = "auto"):
-    """Prefill attention sub-block. x [B,S,d]. ``window=None`` applies the
-    config's sliding window. ``impl`` is "auto" or "direct", both the direct
-    attention here (the JAX package's "auto" switches to chunked attention
-    above S = 2048; chunked and "pallas" are not ported yet)."""
-    if impl not in ("auto", "direct"):
-        raise NotImplementedError(
-            f"attention impl={impl!r} is not ported (ROADMAP.md: flash "
-            "attention comes with the LM-training slice)")
+    """Full-sequence attention sub-block (forward, loss, prefill). x [B,S,d].
+    ``window=None`` applies the config's sliding window. ``impl``: "direct",
+    "chunked", "pallas" (``kernels/flash_attention``: the CUDA kernel for
+    CUDA tensors, forward only), or "auto" (direct for S <= 2048, chunked
+    above, as in the JAX package)."""
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention impl={impl!r}; expected one of {ATTENTION_IMPLS}")
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions, cfg.rope)
     win = cfg.sliding_window if window is None else window
-    o = _direct_attention(q, k, v, positions, positions, causal, win)
+    if impl == "pallas":
+        o = fa_ops.flash_attention(q, k, v, causal=causal, window=win)
+    elif impl == "direct" or (impl == "auto" and S <= 2048):
+        o = _direct_attention(q, k, v, positions, positions, causal, win)
+    else:
+        o = _chunked_attention(q, k, v, positions, positions, causal, win)
     return o.reshape(B, S, cfg.q_dim) @ p["attn/w_o"]
 
 

@@ -144,3 +144,21 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits, targets, mask=None):
+    """Token-level cross entropy in float32. logits [..., V], targets int
+    [...]; with ``mask`` [...] the masked mean, its sum clamped at 1."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -2,15 +2,16 @@
 
     model = build_model(cfg, device="cuda")
     params = model.init(seed)                          -> flat dict of tensors
-    model.loss(params, batch)                          -> (scalar, metrics)  [toy]
-    model.forward(params, batch)                       -> logits / scores    [toy]
-    model.prefill(params, batch, pad_to=, length=)     -> (logits, DecodeCache)
+    model.loss(params, batch[, impl=])                 -> (scalar, metrics)
+    model.forward(params, batch[, impl=])              -> (logits, aux) / scores [toy]
+    model.prefill(params, batch, impl=, pad_to=, length=) -> (logits, DecodeCache)
     model.init_paged_cache(n_slots, n_pages, page_size) -> PagedDecodeCache
     model.paged_decode_step(params, cache, page_table, token, pos, ...)
 
-The dense decoder family (serving) and the paper's toy models (svm-mnist,
-cnn-mnist, cnn-cifar10; training) are ported; the other families raise
-``NotImplementedError`` naming the ROADMAP item.
+The dense decoder family (forward, loss, prefill, paged decode) and the
+paper's toy models (svm-mnist, cnn-mnist, cnn-cifar10; training) are
+ported; the other families raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -67,6 +68,8 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         paged_decode_step=functools.partial(transformer.paged_decode_step, cfg),
         init_paged_cache=functools.partial(transformer.init_paged_cache, cfg,
                                            device=dev),
+        loss=functools.partial(transformer.loss_fn, cfg),
+        forward=functools.partial(transformer.forward, cfg),
     )
 
 

@@ -1,4 +1,5 @@
-"""Dense decoder stack, serving half (port of ``repro/models/transformer.py``).
+"""Dense decoder stack (port of ``repro/models/transformer.py``): the
+full-sequence forward and loss, prefill, and paged decode.
 
 Params are a flat dict of tensors keyed by the JAX package's keypaths
 (``embed``, ``final_norm/scale``, ``layers/attn/w_q`` ...); per-layer
@@ -6,8 +7,8 @@ leaves are stacked ``[L, ...]`` and the stack is a Python loop over
 layers (the JAX package scans). KV pools are updated in place where the
 JAX package returns new (donated) buffers.
 
-Only the dense family is ported; MoE, hybrid, xLSTM and VLM families are
-queued in ROADMAP.md ("the rest of serving").
+Only the dense family is ported; the MoE, hybrid, xLSTM, VLM and audio
+families raise (ROADMAP.md A13).
 """
 from __future__ import annotations
 
@@ -17,9 +18,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (Params, apply_norm, embed_init,
-                                       mlp_apply, mlp_init, norm_init,
-                                       dense_init)
+from repro_torch.models.layers import (Params, apply_norm, cross_entropy,
+                                       dense_init, embed_init, mlp_apply,
+                                       mlp_init, norm_init)
 
 
 def check_dense(cfg):
@@ -27,9 +28,9 @@ def check_dense(cfg):
     if cfg.family != "dense" or cfg.is_moe or cfg.hybrid_parallel_ssm \
             or cfg.vision_dim or cfg.learned_pos:
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} is not ported yet (ROADMAP.md: "
-            "MoE, hybrid, xLSTM, VLM and audio families come with the rest of "
-            "serving; the toy models are built by models.model.build_model)")
+            f"{cfg.name}: family={cfg.family!r} is not ported yet (ROADMAP.md A13: "
+            "the MoE, hybrid, xLSTM, VLM and audio families; the toy models are "
+            "built by models.model.build_model)")
 
 
 def _prefixed(prefix: str, tree: Dict[str, torch.Tensor]) -> Params:
@@ -89,6 +90,43 @@ def _mlp_residual(cfg, lp: Params, h):
 
 
 # ---------------------------------------------------------------------------
+# forward / loss (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def layer_apply(cfg, lp: Params, h, positions, impl: str = "auto", window=None):
+    """One decoder layer -> (h, aux). The dense family has no auxiliary
+    loss, so aux is a float32 zero."""
+    hn = apply_norm(cfg, lp, "norm1", h)
+    h = h + attn.attention_block(cfg, lp, hn, positions, impl=impl, window=window)
+    return _mlp_residual(cfg, lp, h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def forward(cfg, p: Params, batch, impl: str = "auto", window=None):
+    """-> (logits [B, S, V], aux loss). ``impl`` picks the attention
+    (``attention.attention_block``); ``window=None`` applies the config's.
+    The JAX ``forward``'s ``remat`` and ``unroll`` are XLA compile knobs
+    (rematerialization and scan unrolling) and are not ported: this runs
+    eagerly, layer by layer."""
+    check_dense(cfg)
+    h = embed_tokens(cfg, p, batch["tokens"])
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in layer_params(p, cfg.num_layers):
+        h, a = layer_apply(cfg, lp, h, positions, impl=impl, window=window)
+        aux = aux + a
+    return unembed(cfg, p, h), aux / max(cfg.num_layers, 1)
+
+
+def loss_fn(cfg, p: Params, batch, impl: str = "auto", window=None):
+    """-> (cross entropy + aux, {"ce", "aux"}); ``batch["loss_mask"]``
+    optional."""
+    logits, aux = forward(cfg, p, batch, impl=impl, window=window)
+    ce = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
 
@@ -97,12 +135,13 @@ class DecodeCache(NamedTuple):
     kv: attn.KVCache  # leaves stacked [L, B, W, ...]
 
 
-def prefill(cfg, p: Params, batch, *, pad_to: int = 0, length=None):
+def prefill(cfg, p: Params, batch, *, impl: str = "auto", pad_to: int = 0, length=None):
     """Whole-prompt forward -> (last-token logits [B, V], DecodeCache).
 
-    ``pad_to``: full-attention cache capacity. ``length``: optional int [B]
-    true prompt lengths of right-padded prompts (full attention only):
-    logits come from position length-1 and padded cache slots get pos -1.
+    ``impl`` picks the attention, as in :func:`forward`. ``pad_to``:
+    full-attention cache capacity. ``length``: optional int [B] true prompt
+    lengths of right-padded prompts (full attention only): logits come from
+    position length-1 and padded cache slots get pos -1.
 
     Attention applies the config's sliding window, as the JAX package's
     ``forward`` does. (The JAX ``prefill`` passes window 0 and so attends
@@ -124,7 +163,8 @@ def prefill(cfg, p: Params, batch, *, pad_to: int = 0, length=None):
     for lp in layer_params(p, cfg.num_layers):
         hn = apply_norm(cfg, lp, "norm1", h)
         kv = attn.prefill_kv_cache(cfg, lp, hn, positions, window=W, pad_to=pad_to)
-        h = _mlp_residual(cfg, lp, h + attn.attention_block(cfg, lp, hn, positions))
+        h = _mlp_residual(cfg, lp, h + attn.attention_block(cfg, lp, hn, positions,
+                                                            impl=impl))
         ks.append(kv.k)
         vs.append(kv.v)
         ps_.append(kv.pos)

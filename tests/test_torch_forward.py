@@ -1,0 +1,147 @@
+"""The port's dense forward, loss and prefill against the JAX package, for
+each attention path, on params carried across with ``repro_torch.bridge``.
+
+Reduced StarCoder2 (window 64) runs at S = 96 > W, so the window bites;
+reduced Qwen1.5 has no window. Bars: logits and losses 2e-4 (the JAX
+package's own pallas-vs-direct bar at model level,
+tests/test_kernels.py::test_flash_attention_is_model_attention); the
+cross entropy 1e-6; prefill caches at the prefill tolerance of
+tests/test_torch_model.py (atol 1e-5, rtol 1e-4) against the JAX prefill.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as jlayers
+from repro.models import transformer as jtransformer
+from repro.models.model import build_model_by_name as jax_build
+from repro_torch import bridge
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttransformer
+from repro_torch.models.model import build_model_by_name as torch_build
+
+torch.set_num_threads(2)
+
+IMPLS = ["direct", "chunked", "pallas"]
+
+
+def _pair(arch):
+    jm = jax_build(arch, reduced=True)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = torch_build(arch, reduced=True, device="cpu")
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jm, jp, tm, tp
+
+
+def _batch(cfg, B, S, seed, mask=False):
+    r = np.random.RandomState(seed)
+    b = {"tokens": r.randint(0, cfg.vocab_size, (B, S)).astype(np.int32),
+         "targets": r.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if mask:
+        b["loss_mask"] = (r.rand(B, S) < 0.7).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(v) for k, v in b.items()})
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_cross_entropy_matches_jax(with_mask):
+    r = np.random.RandomState(4)
+    logits = (3 * r.randn(3, 7, 50)).astype(np.float32)
+    targets = r.randint(0, 50, (3, 7)).astype(np.int32)
+    mask = (r.rand(3, 7) < 0.5).astype(np.float32) if with_mask else None
+    want = jlayers.cross_entropy(jnp.asarray(logits), jnp.asarray(targets),
+                                 None if mask is None else jnp.asarray(mask))
+    got = tlayers.cross_entropy(torch.from_numpy(logits), torch.from_numpy(targets),
+                                None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-6, rtol=1e-6)
+    # an all-zero mask: the sum is clamped at 1, the loss is 0
+    zero = tlayers.cross_entropy(torch.from_numpy(logits), torch.from_numpy(targets),
+                                 torch.zeros(3, 7))
+    assert zero.item() == 0.0
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen1.5-32b"])
+def test_forward_and_loss_match_jax(arch, impl):
+    jm, jp, tm, tp = _pair(arch)
+    cfg = jm.config
+    S = 96
+    assert cfg.sliding_window in (0, 64)  # S > W where there is a window
+    jb, tb = _batch(cfg, 2, S, seed=11, mask=True)
+    jl, jaux = jtransformer.forward(cfg, jp, jb, impl=impl)
+    tl, taux = tm.forward(tp, tb, impl=impl)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=2e-4, rtol=2e-4)
+    assert float(taux) == float(jaux) == 0.0
+    jloss, jm_ = jtransformer.loss_fn(cfg, jp, jb, impl=impl)
+    tloss, tm_ = tm.loss(tp, tb, impl=impl)
+    np.testing.assert_allclose(_np(tloss), np.asarray(jloss), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(tm_["ce"]), np.asarray(jm_["ce"]), atol=2e-4, rtol=2e-4)
+
+
+def test_impls_agree_and_auto_is_direct_at_short_s():
+    """Within the port: the three paths at the model-level bar, and "auto"
+    (S <= 2048) bitwise the direct path."""
+    _, _, tm, tp = _pair("starcoder2-3b")
+    _, tb = _batch(tm.config, 1, 100, seed=12)
+    outs = {impl: tm.forward(tp, tb, impl=impl)[0] for impl in IMPLS + ["auto"]}
+    assert torch.equal(outs["auto"], outs["direct"])
+    for impl in ("chunked", "pallas"):
+        torch.testing.assert_close(outs[impl], outs["direct"], atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen1.5-32b"])
+def test_pallas_prefill_matches_jax_prefill_within_window(arch):
+    """S <= W (reduced window 64): the JAX prefill's full attention equals
+    windowed attention, so the two prefills are held against each other."""
+    jm, jp, tm, tp = _pair(arch)
+    toks = np.random.RandomState(13).randint(0, jm.config.vocab_size, (2, 40)).astype(np.int32)
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, impl="pallas", pad_to=48)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, impl="pallas", pad_to=48)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(_np(tc.kv.k), np.asarray(jc.kv.k), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(_np(tc.kv.v), np.asarray(jc.kv.v), atol=1e-5, rtol=1e-4)
+    np.testing.assert_array_equal(tc.kv.pos.numpy(), np.asarray(jc.kv.pos))
+
+
+def test_pallas_prefill_beyond_window_matches_jax_forward():
+    """S > W: the JAX prefill attends fully there (ROADMAP C/R1), so the
+    port's windowed prefill is held against the JAX ``forward`` (C2's
+    rule), and against its own direct prefill's cache."""
+    jm, jp, tm, tp = _pair("starcoder2-3b")
+    cfg = jm.config
+    S = cfg.sliding_window + 29
+    toks = np.random.RandomState(14).randint(0, cfg.vocab_size, (1, S)).astype(np.int32)
+    jlogits, _ = jtransformer.forward(cfg, jp, {"tokens": jnp.asarray(toks)}, impl="pallas")
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, impl="pallas")
+    np.testing.assert_allclose(_np(tl), np.asarray(jlogits[:, -1]), atol=2e-4, rtol=2e-4)
+    _, dc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, impl="direct")
+    torch.testing.assert_close(tc.kv.k, dc.kv.k, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(tc.kv.v, dc.kv.v, atol=1e-5, rtol=1e-4)
+    assert torch.equal(tc.kv.pos, dc.kv.pos)
+
+
+def test_backward_through_pallas_raises_and_direct_has_grads():
+    _, _, tm, tp = _pair("starcoder2-3b")
+    _, tb = _batch(tm.config, 1, 32, seed=15)
+    params = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    loss, _ = tm.loss(params, tb, impl="pallas")
+    with pytest.raises(RuntimeError, match="no backward"):
+        loss.backward()
+    loss, _ = tm.loss(params, tb, impl="direct")
+    loss.backward()
+    assert params["layers/attn/w_q"].grad is not None
+
+
+def test_non_dense_forward_raises_naming_a13():
+    from dataclasses import replace
+
+    cfg = replace(torch_build("starcoder2-3b", reduced=True, device="cpu").config,
+                  family="moe", num_experts=4, experts_per_token=2)
+    with pytest.raises(NotImplementedError, match="A13"):
+        ttransformer.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})

@@ -46,7 +46,9 @@ def test_port_modules_found():
                  "repro_torch.models.simple", "repro_torch.core.strategy",
                  "repro_torch.core.fedveca", "repro_torch.core.controller",
                  "repro_torch.core.engine", "repro_torch.core.driver",
-                 "repro_torch.fed.simulator", "repro_torch.fed.__main__"):
+                 "repro_torch.fed.simulator", "repro_torch.fed.__main__",
+                 "repro_torch.kernels.flash_attention.ref",
+                 "repro_torch.kernels.flash_attention.ops"):
         assert want in mods
 
 

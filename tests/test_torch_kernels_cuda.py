@@ -8,12 +8,16 @@ Without a card every test skips (the kernels have no CPU mode). Bars:
 pools bitwise; outputs 1e-5 in float32, 2e-2 in bf16 (the plain version
 rounds logits and probabilities to bf16, the kernel keeps float32);
 vecavg 1e-6 in float32 and 2e-2 in bf16 with norms at rtol 1e-4 (the bars
-of tests/test_kernels.py), and two launches on one input bitwise equal.
+of tests/test_kernels.py), and two launches on one input bitwise equal;
+flash attention 2e-5 in float32 and 3e-2 in bf16 (tests/test_kernels.py's
+flash bars), rows with no live key exactly 0.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as tref
 from repro_torch.kernels.vecavg import ops as va_ops
@@ -161,3 +165,81 @@ def test_round_reduces_launch_the_kernel_on_card(cuda):
     for k in params:
         assert torch.equal(outs["auto"][0][k], outs["pallas"][0][k])
         torch.testing.assert_close(outs["auto"][0][k], outs["fallback"][0][k], atol=1e-6, rtol=0)
+
+
+# tests/test_kernels.py's flash shapes, plus rows with no live key
+FLASH_SHAPES = [
+    (1, 128, 128, 4, 2, 32, True, 0, 0),
+    (2, 200, 200, 4, 4, 16, True, 64, 0),
+    (1, 64, 256, 2, 1, 32, True, 0, 192),  # q_offset, Sq < Sk
+    (2, 128, 128, 8, 2, 64, False, 0, 0),
+    (1, 257, 257, 2, 2, 128, True, 100, 0),  # ragged block edges
+    (1, 16, 16, 2, 1, 16, False, 4, 10),  # rows past position 18 have no live key
+    (1, 96, 96, 4, 2, 32, True, 0, 0),  # tests/test_kernels.py::test_flash_attention_dtypes
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,qoff", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, Hq, Hkv, hd, causal,
+                                            window, qoff):
+    g = torch.Generator().manual_seed(Sq + Sk)
+    q, k, v = (torch.randn(B, S, H, hd, generator=g).to(cuda, dtype)
+               for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    fa_ops.reset_launches()
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.launches["flash_attention"] == 1
+    o_r = fa_ref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(o.float(), o_r.float(), atol=tol, rtol=0)
+    empty = ~fa_ref.live_mask(Sq, Sk, device=cuda, **kw).any(1)
+    assert (o[:, empty] == 0).all()
+
+
+def test_flash_kernel_reads_strided_layout_and_counts_launches(cuda):
+    """q, k, v as views into one fused [B, S, Hq + 2 Hkv, hd] projection:
+    the kernel reads the strides in place and equals the contiguous call."""
+    g = torch.Generator().manual_seed(3)
+    fused = torch.randn(2, 150, 8 + 2 * 2, 64, generator=g).to(cuda)
+    q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    assert not q.is_contiguous()
+    fa_ops.reset_launches()
+    o = fa_ops.flash_attention(q, k, v, window=40)
+    o_c = fa_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=40)
+    torch.cuda.synchronize()
+    assert fa_ops.launches["flash_attention"] == 2
+    assert torch.equal(o, o_c)
+
+
+def test_flash_kernel_raises_rather_than_falls_back(cuda):
+    q = torch.zeros(1, 8, 2, 48, device=cuda)  # head_dim 48 has no kernel
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, q, q)
+    x = torch.zeros(1, 8, 2, 64, dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(x, x, x)
+    q = torch.zeros(1, 8, 2, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention(q, q.detach(), q.detach()).sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen1.5-32b"])
+def test_pallas_forward_matches_direct_on_card(cuda, arch):
+    """Reduced models in float32 on the card, S past the reduced window:
+    forward through the kernel against the direct path, one launch a layer."""
+    from repro_torch import strict_fp32
+    from repro_torch.models.model import build_model_by_name
+
+    model = build_model_by_name(arch, reduced=True, device=cuda)
+    params = model.init(0)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, model.config.vocab_size, (2, 150), generator=g).to(cuda)}
+    with strict_fp32():
+        fa_ops.reset_launches()
+        lp, _ = model.forward(params, batch, impl="pallas")
+        assert fa_ops.launches["flash_attention"] == model.config.num_layers
+        ld, _ = model.forward(params, batch, impl="direct")
+    torch.testing.assert_close(lp, ld, atol=2e-4, rtol=2e-4)
