@@ -18,6 +18,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bf16 at StarCoder2-3B's [1, 8192, 24/2, 128] (causal, window 4096) and
      at S 4096, Qwen1.5-32B's [1, 2048, 40/40, 128], a q_offset case with
      Sq < Sk, a ragged edge, and rows with no live key (exactly 0);
+     rmsnorm in float32 and bf16 at the LM step's [2048, 1024], Qwen1.5-32B's
+     [2048, 5120], DeepSeek-Coder-33B's [8192, 7168], d 8192, ragged row
+     counts and the grouped [4, 512, 1024] with scale [4, 1024], each
+     launched twice and held bitwise against itself, and the gradient of
+     ``torch.func.vmap(grad(...))`` through the op against the plain op;
   4. serve   — full-config StarCoder2-3B (random bf16 weights from seed 0)
      serves a 16-request Poisson trace through
      ``PagedServeLoop(cache_update="kernel")``; the paged launch counters,
@@ -45,9 +50,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (loss); the flash counter, zeroed just before each call, must read 30
      (one a layer); ms and peak memory of each; ``prefill(impl="pallas")``
      at S 1024 against ``impl="direct"``; Qwen1.5-32B at full width cut to
-     4 of its 64 layers, S 2048, ``pallas`` against ``auto``; backward
+     4 of its 64 layers, S 2048, ``pallas`` against ``auto``, with exactly
+     9 rmsnorm launches a forward (2 a layer and the final norm); backward
      through ``impl="pallas"`` raises; torch.profiler over one bf16
-     forward (flash / GEMM / other); the flash timing rows.
+     forward (flash / GEMM / other); the flash timing rows;
+  9. lm      — federated LM training through ``FederatedSimulator`` with the
+     JAX example's traffic (examples/train_lm_federated.py: 4 clients, one
+     topic each, S 128, batch 4, tau_max 4, eta 0.05, FedVeca, evaluation
+     of 64 sequences every round), 5 rounds of each of two models: the
+     example's own ``--preset 100m`` (StarCoder2 family, layernorm) and
+     Qwen1.5-0.5B's published widths on the repo's Qwen1.5 family
+     (rmsnorm, 464 M float32 parameters; 2 of the 4 clients, which is what
+     fits the card's 80 GB); ms a round, train and test
+     cross entropy each round, peak memory; the vecavg counter must read 2
+     a round and the rmsnorm counter exactly tau_max * (2L + 1) a round for
+     the local steps plus 2L + 1 an evaluation chunk; one round through
+     the rmsnorm kernel against the same round through the plain op; a
+     torch.profiler breakdown of one round of each model; a
+     checkpoint saved and restored bitwise on the card, with a bf16 leaf;
+     rmsnorm's parity (phase 3) and timing rows.
 
 Prints, before the last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -57,9 +78,11 @@ Needs one card and no network; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -69,20 +92,26 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import strict_fp32  # noqa: E402
+from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.core.controller import ControllerConfig, ControllerCore  # noqa: E402
 from repro_torch.core.engine import EngineConfig, RoundEngine  # noqa: E402
 from repro_torch.data.device import DeviceShards, host_stacked_batches  # noqa: E402
 from repro_torch.data.partition import partition_case3  # noqa: E402
-from repro_torch.data.synthetic import Dataset, make_classification  # noqa: E402
+from repro_torch.data.synthetic import Dataset, make_classification, make_lm_tokens  # noqa: E402
 from repro_torch.fed import FederatedSimulator, FedSimConfig, fair_fixed_tau  # noqa: E402
+from repro_torch.fed.train_lm import lm_config  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 from repro_torch.kernels.vecavg import ops as va_ops  # noqa: E402
 from repro_torch.kernels.vecavg import ref as va_ref  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.models.layers import cross_entropy  # noqa: E402
 from repro_torch.models.model import build_model, build_model_by_name  # noqa: E402
 from repro_torch.serve import PagedServeLoop, poisson_trace  # noqa: E402
 from repro_torch.serve.slots import RequestQueue  # noqa: E402
@@ -148,6 +177,65 @@ FWD_S, PREFILL_S, QWEN_S, QWEN_LAYERS = 8192, 1024, 2048, 4
 # (tests/test_kernels.py::test_flash_attention_is_model_attention) on the
 # float32 logits; in bf16 the mean loss over 8192 tokens, 1e-3.
 FWD_LOGITS_ATOL, FWD_BF16_LOSS_ATOL = 2e-4, 1e-3
+RMSNORM_SRC = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+# rmsnorm kernel vs its plain version: 1e-5 in float32, the JAX package's
+# kernel-vs-oracle bar (tests/test_kernels.py); in bf16 one bf16 ulp of the
+# output (each rounds its own float32 result to bf16, and those may differ
+# in the last float32 bit: the sums of squares run in other orders).
+RMSNORM_F32_ATOL = 1e-5
+# (name, shape of x, groups); scale is [d] or [groups, d]
+RMSNORM_CASES = [
+    ("LM step rows, Qwen1.5-0.5B width", (2048, 1024), 1),
+    ("Qwen1.5-32B width", (2048, 5120), 1),
+    ("DeepSeek-Coder-33B width", (8192, 7168), 1),
+    ("d 8192", (1024, 8192), 1),
+    ("ragged rows, warp a row", (1001, 1024), 1),
+    ("ragged rows, block a row", (999, 5120), 1),
+    ("grouped, 4 clients", (4, 512, 1024), 4),
+]
+# gradients through the op vs autograd of the plain op: the CPU test's bar
+# against jax.grad (tests/test_torch_rmsnorm.py)
+RMSNORM_GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
+# Federated LM training: the JAX example's traffic
+# (examples/train_lm_federated.py defaults; evaluation every round here)
+LM = dict(clients=4, n_seq=256, seq=128, batch=4, tau_max=4, eta=0.05, rounds=5,
+          n_test=64, test_seed=99, mode="fedveca")
+EVAL_MAX_BATCH = 2048  # core/driver.make_dataset_evaluator's default chunk
+# One LM round through the rmsnorm kernel vs through the plain op, same
+# params and batches: the two differ in float32 rounding of every norm's
+# forward (sums in another order) and backward (the op's formula vs
+# autograd of the plain one), carried through 24 layers and 4 local steps;
+# the card-vs-CPU round bar of the CNN phase (params 1e-5, beta/delta rel
+# 1e-3), for the same reason.
+LM_ROUND_PARAMS_ATOL, LM_ROUND_STAT_RTOL = 1e-5, 1e-3
+# Clients of the Qwen1.5-0.5B-width run, cut from the example's 4: the round
+# holds each client's params, g0, cum_g and gradient, the new params and the
+# parameter drift as [C, 464 M] float32 stacks (7.4 GB each at C 4) beside
+# the vmapped backward's activations and [C, 151936, 1024] embedding
+# gradients; at C 4 the round needs more than the card's 80 GB (at C 2 it
+# peaks near 49 GB).
+QWEN05_CLIENTS = 2
+# (name, shape of x, dtype) of the rmsnorm timing rows: the Qwen1.5-0.5B
+# run's local step (C * batch * seq rows; the main row), the same step at
+# the example's 4 clients, its evaluation chunk (64 x 128 rows), then
+# Qwen1.5-32B's width in float32 and bf16
+RMSNORM_TIMING = [
+    ("LM step f32", (QWEN05_CLIENTS * LM["batch"] * LM["seq"], 1024), torch.float32),
+    ("LM step at 4 clients f32", (LM["clients"] * LM["batch"] * LM["seq"], 1024),
+     torch.float32),
+    ("LM evaluation chunk f32", (LM["n_test"] * LM["seq"], 1024), torch.float32),
+    ("Qwen1.5-32B width f32", (2048, 5120), torch.float32),
+    ("Qwen1.5-32B width bf16", (8192, 5120), torch.bfloat16)]
+
+
+def qwen05_config():
+    """Qwen1.5-0.5B's published widths (hf:Qwen/Qwen1.5-0.5B config.json) on
+    the repo's Qwen1.5 family, in float32; weights are random."""
+    return dataclasses.replace(
+        get_arch("qwen1.5-32b"), name="qwen1.5-0.5b", num_layers=24, d_model=1024,
+        num_heads=16, num_kv_heads=16, head_dim=64, d_ff=2816, vocab_size=151936,
+        tie_embeddings=True, rope_theta=1_000_000.0, param_dtype="float32",
+        compute_dtype="float32")
 
 
 class SmokeFailure(RuntimeError):
@@ -361,6 +449,73 @@ def phase_flash_parity(dev):
                       + (f", {n_empty} rows with no live key exactly 0" if n_empty else ""))
                 del q, k, v, o, o_r
     torch.cuda.empty_cache()
+    return worst
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at each element of ``t`` (float32 view)."""
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def phase_rmsnorm_parity(dev):
+    """rmsnorm kernel against its plain version at the paths' widths, both
+    types, and the vmapped gradient through it. Returns the largest float32
+    error (the LM path's type)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, groups in RMSNORM_CASES:
+            x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+            s_shape = (shape[-1],) if groups == 1 else (groups, shape[-1])
+            s = 0.1 * torch.randn(*s_shape, generator=gen, device=dev)
+            o = rn_ops.rmsnorm(x, s, groups=groups)
+            o2 = rn_ops.rmsnorm(x, s, groups=groups)
+            o_r = rn_ref.rmsnorm(x, s, groups=groups)
+            sync()
+            tag = f"{name} {list(shape)} {str(dtype).replace('torch.', '')}"
+            require(o.dtype == dtype and o.shape == x.shape, f"[parity] rmsnorm {tag}: {o.shape}")
+            require(torch.equal(o, o2), f"[parity] rmsnorm {tag}: two launches differ")
+            require(bool(torch.isfinite(o.float()).all()), f"[parity] rmsnorm {tag}: non-finite")
+            diff = (o.float() - o_r.float()).abs()
+            err = diff.max().item()
+            if dtype == torch.float32:
+                require(err <= RMSNORM_F32_ATOL,
+                        f"[parity] rmsnorm {tag}: max|kernel - plain| {err} > {RMSNORM_F32_ATOL}")
+                worst = max(worst, err)
+                bar = f"tol {RMSNORM_F32_ATOL}"
+            else:
+                n_ulp = int((diff > 0).sum())
+                require(bool((diff <= bf16_ulp(o_r)).all()),
+                        f"[parity] rmsnorm {tag}: an element differs by more than one bf16 ulp")
+                bar = f"within one bf16 ulp; {n_ulp} of {o.numel()} elements one ulp apart"
+            print(f"[parity] rmsnorm {tag}: bitwise across launches; max|o - plain| "
+                  f"{err:.3e} ({bar})")
+            del x, o, o2, o_r, diff
+    # the round's use: vmap over clients of the gradient, scale per client
+    C, Bt, S, d = LM["clients"], LM["batch"], LM["seq"], 1024
+    x = torch.randn(C, Bt, S, d, generator=gen, device=dev)
+    s = 0.1 * torch.randn(C, d, generator=gen, device=dev)
+    w = torch.randn(C, Bt, S, d, generator=gen, device=dev)
+
+    def loss(pallas):
+        return lambda s_, x_, w_: (rn_ops.rmsnorm(x_, s_, use_pallas=pallas) * w_).sum()
+
+    rn_ops.reset_launches()
+    gk = torch.func.vmap(torch.func.grad(loss(True), argnums=(0, 1)))(s, x, w)
+    sync()
+    n = rn_ops.launches["rmsnorm"]
+    gp = torch.func.vmap(torch.func.grad(loss(False), argnums=(0, 1)))(s, x, w)
+    sync()
+    require(n == 1, f"[parity] rmsnorm vmap-grad: {n} launches for {C} clients, expected 1")
+    errs = [(a - b).abs().max().item() for a, b in zip(gk, gp)]
+    for a, b, what in zip(gk, gp, ("dscale", "dx")):
+        require(torch.allclose(a, b, **RMSNORM_GRAD_TOL),
+                f"[parity] rmsnorm vmap-grad {what}: max|kernel - plain| {(a - b).abs().max()}")
+    print(f"[parity] rmsnorm vmap(grad) over {C} clients, x {list(x.shape)}: one launch; "
+          f"max|dscale - plain| {errs[0]:.3e}, max|dx - plain| {errs[1]:.3e} "
+          f"(atol {RMSNORM_GRAD_TOL['atol']}, rtol {RMSNORM_GRAD_TOL['rtol']})")
+    rn_ops.reset_launches()
     return worst
 
 
@@ -857,10 +1012,12 @@ def _f32(cfg, **kw):
 
 def timed_call(fn, dev):
     """-> (result, ms on the host clock ending in a sync, peak GB allocated
-    during the call, flash launches); the counter is zeroed just before."""
+    during the call, flash launches); the flash and rmsnorm counters are
+    zeroed just before."""
     sync()
     torch.cuda.reset_peak_memory_stats(dev)
     fa_ops.reset_launches()
+    rn_ops.reset_launches()
     t0 = time.perf_counter()
     out = fn()
     sync()
@@ -988,23 +1145,32 @@ def phase_forward_bf16(dev):
 
 def phase_forward_qwen(dev):
     """Qwen1.5-32B at full width, 4 of 64 layers, float32, S 2048: pallas vs
-    auto (direct at this length)."""
+    auto (direct at this length); both launch rmsnorm 2 a layer plus 1."""
     cfg = _f32(get_arch("qwen1.5-32b"), num_layers=QWEN_LAYERS)
     model = build_model(cfg, device=dev)
     params = model.init(0)
     batch = _lm_batch(torch.Generator(device=dev).manual_seed(9), cfg, 1, QWEN_S, dev)
+    want_rms = 2 * QWEN_LAYERS + 1
     with torch.inference_mode(), strict_fp32():
         model.forward(params, batch, impl="pallas")  # warm-up
         (lp, _), ms_p, mem_p, n = timed_call(lambda: model.forward(params, batch, impl="pallas"), dev)
         _check_launches("qwen forward", n, QWEN_LAYERS)
+        n_rms = rn_ops.launches["rmsnorm"]
+        require(n_rms == want_rms, f"[forward] qwen forward: rmsnorm launched {n_rms} times, "
+                f"expected {want_rms}")
         (la, _), ms_a, mem_a, _ = timed_call(lambda: model.forward(params, batch, impl="auto"), dev)
+        n_rms_a = rn_ops.launches["rmsnorm"]
+        require(n_rms_a == want_rms, f"[forward] qwen forward, impl auto: rmsnorm launched "
+                f"{n_rms_a} times, expected {want_rms}")
         require(bool(torch.isfinite(lp).all()), "[forward] qwen logits not finite")
         err = (lp - la).abs().max().item()
     require(err <= FWD_LOGITS_ATOL, f"[forward] qwen f32 logits pallas vs auto: {err}")
     out = dict(layers=QWEN_LAYERS, S=QWEN_S, logits_max_abs_pallas_vs_auto=err, pallas_ms=ms_p,
-               auto_ms=ms_a, pallas_peak_gb=mem_p, auto_peak_gb=mem_a, launches=n)
+               auto_ms=ms_a, pallas_peak_gb=mem_p, auto_peak_gb=mem_a, launches=n,
+               rmsnorm_launches=n_rms)
     print(f"[forward] qwen1.5-32b f32 {QWEN_LAYERS} layers S {QWEN_S}: logits max|pallas - auto| "
-          f"{err:.3e}; pallas {ms_p:.1f} ms, auto {ms_a:.1f} ms; flash launches {n}")
+          f"{err:.3e}; pallas {ms_p:.1f} ms, auto {ms_a:.1f} ms; flash launches {n}; "
+          f"rmsnorm launches {n_rms} a forward")
     return out
 
 
@@ -1044,6 +1210,249 @@ def flash_timing_row(dev, launches, errs):
                 blocks_per_sm=fa_ops.blocks_per_sm(torch.bfloat16, 128))
 
 
+# ---------------------------------------------------------------------------
+# 9. federated LM training
+# ---------------------------------------------------------------------------
+
+
+def lm_data(vocab, n_clients):
+    """The JAX example's clients (one topic each) and test set."""
+    clients = [make_lm_tokens(LM["n_seq"], LM["seq"], vocab, topic=i, seed=0)
+               for i in range(n_clients)]
+    test = make_lm_tokens(LM["n_test"], LM["seq"], vocab, topic=None, seed=LM["test_seed"])
+    return clients, test
+
+
+def expected_rmsnorm_launches(cfg, rounds: int) -> int:
+    """What the code implies for ``rounds`` simulator rounds: the local loop
+    runs tau_max trips whatever the taus (core/fedveca.make_local_update),
+    each one vmapped loss call whose 2L + 1 norm calls launch once for all
+    clients (the op's vmap rule); the evaluator makes one loss call a chunk
+    (core/driver.make_dataset_evaluator: floor(n / b) chunks of
+    b = min(n, 2048), plus one for a remainder). A layernorm model: 0."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    b = min(LM["n_test"], EVAL_MAX_BATCH)
+    k, rem = divmod(LM["n_test"], b)
+    return rounds * (LM["tau_max"] + k + int(rem > 0)) * (2 * cfg.num_layers + 1)
+
+
+def phase_lm(dev, name, cfg, n_clients):
+    """``FederatedSimulator`` on the card with the JAX example's traffic
+    (``n_clients`` of its clients)."""
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    n_params = sum(t.numel() for t in params.values())
+    clients, test = lm_data(cfg.vocab_size, n_clients)
+    R = LM["rounds"]
+    sim = FederatedSimulator(model, clients, FedSimConfig(
+        mode=LM["mode"], eta=LM["eta"], tau_max=LM["tau_max"], batch_size=LM["batch"],
+        rounds=R, seed=0, eval_every=1), test)
+    sim.run(params=params, rounds=1)  # warm-up (cuBLAS handles, allocator), not counted
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    va_ops.reset_launches()
+    rn_ops.reset_launches()
+    t0 = time.perf_counter()
+    log = sim.run(params=params, rounds=R)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(vecavg=va_ops.launches["vecavg"], rmsnorm=rn_ops.launches["rmsnorm"])
+    train, test_ce = log.column("train_loss"), log.column("test_loss")
+    require(bool(np.isfinite(train).all() and np.isfinite(test_ce).all()),
+            f"[lm] {name}: non-finite cross entropy")
+    taus = np.stack(log.column("tau"))
+    require(taus.shape == (R, n_clients) and taus.min() >= 1
+            and taus.max() <= LM["tau_max"], f"[lm] {name}: taus out of range")
+    require(train[-1] < train[0], f"[lm] {name}: train CE did not fall ({train[0]:.4f} -> "
+            f"{train[-1]:.4f})")
+    require(launches["vecavg"] == 2 * R,
+            f"[lm] {name}: vecavg launched {launches['vecavg']} times, expected {2 * R}")
+    want = expected_rmsnorm_launches(cfg, R)
+    require(launches["rmsnorm"] == want,
+            f"[lm] {name}: rmsnorm launched {launches['rmsnorm']} times, expected {want}")
+    for r in log.rows:
+        print(f"[lm] {name} round {r['round']}: train_ce {r['train_loss']:.4f} "
+              f"test_ce {r['test_loss']:.4f} tau {list(map(int, r['tau']))}")
+    out = dict(model=name, norm=cfg.norm, params_m=n_params / 1e6, clients=n_clients,
+               rounds=R, wall_s=wall,
+               ms_per_round=1e3 * wall / R, rounds_per_s=R / wall,
+               trained_tokens=int(log.tau_all) * LM["batch"] * LM["seq"],
+               train_ce=[float(v) for v in train], test_ce=[float(v) for v in test_ce],
+               launches=launches, rmsnorm_launches_expected=want,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               host_blocked_s=sim.driver.host_blocked_s, dispatch_s=sim.driver.dispatch_s)
+    print(f"[lm] {name}: {json.dumps(out)}")
+    return model, clients, log.params, out
+
+
+def _lm_engine(model, C, shards=None):
+    T = LM["tau_max"]
+    cc = ControllerConfig(eta=LM["eta"], alpha=0.95, tau_max=T)
+    return RoundEngine(model.loss, EngineConfig(eta=LM["eta"], tau_max=T, batch_size=LM["batch"]),
+                       shards=shards, controller=ControllerCore(cc, C))
+
+
+def phase_lm_round_check(dev, model, clients, params):
+    """One fused round from one state and batches, through the rmsnorm
+    kernel and through the plain op (``layers.rmsnorm`` swapped for
+    ``use_pallas=False`` for that call only)."""
+    C, T, L = len(clients), LM["tau_max"], model.config.num_layers
+    p = np.full(C, 1.0 / C, np.float32)  # equal shards
+    batches = host_stacked_batches(clients, np.random.default_rng(11), T, LM["batch"], device=dev)
+    eng = _lm_engine(model, C)
+    st0 = eng.init_controller_state(params, np.full(C, 2, np.int32))
+    plain = functools.partial(rn_ops.rmsnorm, use_pallas=False)
+    res = {}
+    for name, norm, want in (("kernel", layers.rmsnorm, T * (2 * L + 1)),
+                             ("plain", lambda x, s, eps=1e-6: plain(x, s, eps=eps), 0)):
+        kernel_norm, layers.rmsnorm = layers.rmsnorm, norm
+        rn_ops.reset_launches()
+        res[name] = eng.run_fused(params, st0, p, batches=batches)
+        sync()
+        layers.rmsnorm = kernel_norm
+        n = rn_ops.launches["rmsnorm"]
+        require(n == want, f"[lm] {name} round: rmsnorm launched {n} times, expected {want}")
+    (pk, _, _, dk), (pp, _, _, dp) = res["kernel"], res["plain"]
+    err = max((pk[k] - pp[k]).abs().max().item() for k in pk)
+    stat = max(((dk[k] - dp[k]).abs() / dp[k].abs().clamp_min(1e-30)).max().item()
+               for k in ("beta", "delta", "train_loss"))
+    tk, tp = dk["tau_next"].cpu(), dp["tau_next"].cpu()
+    require(err <= LM_ROUND_PARAMS_ATOL, f"[lm] kernel vs plain round: params differ by {err}")
+    require(stat <= LM_ROUND_STAT_RTOL, f"[lm] kernel vs plain round: statistics rel err {stat}")
+    require(torch.equal(tk, tp), f"[lm] kernel vs plain round: tau_next {tk} vs {tp}")
+    out = dict(max_abs_params=err, stats_rel=stat, tau_next=tk.tolist(),
+               train_loss=[float(dk["train_loss"]), float(dp["train_loss"])])
+    print(f"[lm] round through the rmsnorm kernel vs the plain op: max|params| {err:.3e} "
+          f"(tol {LM_ROUND_PARAMS_ATOL}), beta/delta/train_loss rel {stat:.3e} "
+          f"(tol {LM_ROUND_STAT_RTOL}), tau_next equal {tk.tolist()}")
+    return out
+
+
+def _part(key: str) -> str:
+    k = key.lower()
+    if any(w in k for w in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    for part in ("rmsnorm", "vecavg"):
+        if part in k:
+            return part
+    if "reduce" in k:
+        return "reduce"
+    if "elementwise" in k:
+        return "elementwise"
+    if any(w in k for w in ("index", "gather", "scatter")):
+        return "index"
+    return "other"
+
+
+def phase_lm_profile(dev, model, clients, params):
+    """torch.profiler over one fused round (device data path, no
+    evaluation), the same round unprofiled, and the cross entropy's
+    vmapped gradient alone at the round's logits shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    C, cfg = len(clients), model.config
+    eng = _lm_engine(model, C, DeviceShards.from_datasets(clients, device=dev))
+    st0 = eng.init_controller_state(params, np.full(C, 2, np.int32))
+    p = torch.full((C,), 1.0 / C, device=dev)
+    eng.run_fused(params, st0, p, key=1)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    eng.run_fused(params, st0, p, key=2)
+    sync()
+    plain_us = 1e6 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_fused(params, st0, p, key=2)
+        sync()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    by_kernel = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
+                       key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in by_kernel)
+    split = {}
+    for k, t, _ in by_kernel:
+        split[_part(k)] = split.get(_part(k), 0.0) + t / 1e3
+    logits = torch.randn(C, LM["batch"], LM["seq"], cfg.vocab_size, device=dev)
+    targets = torch.randint(0, cfg.vocab_size, (C, LM["batch"], LM["seq"]), device=dev)
+    ce_grad = torch.func.vmap(torch.func.grad(cross_entropy))
+    ce_ms = time_ms(lambda: ce_grad(logits, targets), n=10, warmup=2)
+    del logits, targets
+    out = dict(wall_ms_unprofiled=plain_us / 1e3, wall_ms=wall_us / 1e3,
+               device_busy_ms=busy / 1e3,
+               device_busy_share_unprofiled=busy / plain_us if busy else None,
+               kernel_launches=sum(c for _, _, c in by_kernel),
+               device_ms_by_part={k: round(v, 3) for k, v in split.items()},
+               cross_entropy_grad_ms_a_step=ce_ms,
+               top=[(k[:60], round(t / 1e3, 3), c) for k, t, c in by_kernel[:12]])
+    if busy == 0:
+        print("[lm-profile] the profiler recorded no device time")
+    print(f"[lm-profile] {cfg.name} one round: {json.dumps(out)}")
+    return out
+
+
+def phase_checkpoint(dev, params):
+    """save then restore on the card, bitwise, with a bf16 leaf added."""
+    tree = dict(params)
+    tree["extra/embed_bf16"] = params["embed"].to(torch.bfloat16)
+    meta = {"round": LM["rounds"]}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(d, tree, meta)
+        save_s = time.perf_counter() - t0
+        like = {k: torch.empty_like(v) for k, v in tree.items()}
+        t0 = time.perf_counter()
+        back, meta_back = ckpt.restore(d, like)
+        sync()
+        restore_s = time.perf_counter() - t0
+    require(meta_back == meta, f"[ckpt] meta {meta_back} != {meta}")
+    for k, v in tree.items():
+        b = back[k]
+        require(b.device == v.device and b.dtype == v.dtype and b.shape == v.shape
+                and torch.equal(b.contiguous().view(torch.uint8), v.contiguous().view(torch.uint8)),
+                f"[ckpt] leaf {k} did not come back bitwise")
+    out = dict(leaves=len(tree), gb=sum(t.numel() * t.element_size() for t in tree.values()) / 1e9,
+               save_s=save_s, restore_s=restore_s)
+    print(f"[ckpt] save + restore on the card, bitwise incl. a bf16 leaf: {json.dumps(out)}")
+    return out
+
+
+def rmsnorm_timing_row(dev, launches, err):
+    """rmsnorm at the LM step's shape (the main row) and two wider ones:
+    kernel, plain version, the byte bound, and ``F.rms_norm`` with weight
+    ``1 + scale`` (timed only; the port never calls it; its weight in x's
+    dtype so that torch takes its fused kernel)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = []
+    for name, (N, d), dtype in RMSNORM_TIMING:
+        x = torch.randn(N, d, generator=gen, device=dev).to(dtype)
+        s = 0.1 * torch.randn(d, generator=gen, device=dev)
+        w = (1.0 + s).to(dtype)
+        n_bytes = 2 * N * d * x.element_size() + d * 4  # x in, y out, scale in
+        n_ops = 4 * N * d  # square and add, then two products
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+        rows.append(dict(
+            shape=f"{name} {[N, d]}", ms=time_ms(lambda: rn_ops.rmsnorm(x, s)),
+            plain_ms=time_ms(lambda: rn_ref.rmsnorm(x, s)),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), weight=w,
+                                                                    eps=1e-6))))
+        print(f"[timing] rmsnorm {name}: {n_bytes} bytes, {json.dumps(rows[-1])}")
+        del x
+    main_row = rows[0]
+    return dict(name="rmsnorm", route="cuda", source=RMSNORM_SRC,
+                replaces="src/repro/kernels/rmsnorm/kernel.py:13", launches=launches,
+                max_abs_err=err,
+                **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")},
+                shape=main_row["shape"], other_shapes=rows[1:])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -1055,6 +1464,7 @@ def main() -> int:
     errs = phase_parity(dev)
     errs["vecavg"] = phase_vecavg_parity(dev)
     flash_errs = phase_flash_parity(dev)
+    errs["rmsnorm"] = phase_rmsnorm_parity(dev)
     model, params, loop, reqs, state, serve = phase_serve(dev)
     prof = phase_profile(loop, reqs)
     rows = phase_timing(model, loop, state, serve["launches"], errs)
@@ -1073,10 +1483,28 @@ def main() -> int:
     fwd["qwen_f32"] = phase_forward_qwen(dev)
     torch.cuda.empty_cache()
     rows.append(flash_timing_row(dev, fwd["bf16"]["launches"], flash_errs))
+    torch.cuda.empty_cache()
+    lm = {}
+    m100, c100, p100, lm["100m"] = phase_lm(dev, "starcoder2-100m", lm_config("100m"),
+                                            LM["clients"])
+    lm["checkpoint"] = phase_checkpoint(dev, p100)
+    lm["profile_100m"] = phase_lm_profile(dev, m100, c100, p100)
+    del m100, c100, p100
+    torch.cuda.empty_cache()
+    qwen, qclients, qparams, lm["qwen1.5-0.5b"] = phase_lm(dev, "qwen1.5-0.5b", qwen05_config(),
+                                                           QWEN05_CLIENTS)
+    lm["kernel_vs_plain_round"] = phase_lm_round_check(dev, qwen, qclients, qparams)
+    torch.cuda.empty_cache()
+    lm["profile_qwen1.5-0.5b"] = phase_lm_profile(dev, qwen, qclients, qparams)
+    del qwen, qclients, qparams
+    torch.cuda.empty_cache()
+    rows.append(rmsnorm_timing_row(dev, lm["qwen1.5-0.5b"]["launches"]["rmsnorm"],
+                                   errs["rmsnorm"]))
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
-    print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "card": smi}))
+    print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
+                      "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

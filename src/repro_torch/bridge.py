@@ -56,11 +56,15 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return t.to(device)
 
 
-def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+def tensor_to_numpy(t: torch.Tensor, bf16_bits: bool = False) -> np.ndarray:
     """torch -> numpy; bf16 comes back as ``ml_dtypes.bfloat16`` (the dtype
-    JAX hands out), other dtypes as themselves."""
+    JAX hands out), or with ``bf16_bits`` as its ``uint16`` bit pattern,
+    which needs no ``ml_dtypes`` (the checkpoint writer's choice); other
+    dtypes come back as themselves."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
+        if bf16_bits:
+            return t.view(torch.uint16).numpy()
         import ml_dtypes  # installed with numpy-side bf16 users; torch-free
 
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)

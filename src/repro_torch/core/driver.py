@@ -41,20 +41,23 @@ from repro_torch.metrics.logger import RunLogger
 def make_dataset_evaluator(loss_fn, data: Dataset, max_batch: int = 2048,
                            device="cpu") -> Callable:
     """Whole-dataset eval that only queues device work: params -> dict of
-    device scalars (``test_loss``, ``test_acc``).
+    device scalars (``test_loss``, and ``test_acc`` where the loss reports
+    an accuracy; an LM's does not).
 
     The set is cut into equal [k, b, ...] chunks (plus one remainder
     batch) once and uploaded; each call evaluates the chunks and weights
     them by sample count exactly like the JAX package's evaluator (sum of
-    per-chunk loss * chunk size / n).
+    per-chunk loss * chunk size / n). Integer ``data.x`` is an LM token
+    set: its chunks are (tokens, targets) batches and ``data.y`` is unused.
     """
     n = len(data)
     b = min(n, max_batch)
     k, rem = divmod(n, b)
+    lm = np.issubdtype(data.x.dtype, np.integer)
 
     def fmt(sl, shape):
-        x, y = data.x[sl], data.y[sl]
-        return format_batch(x.reshape(shape + x.shape[1:]), y.reshape(shape), device=device)
+        x = data.x[sl].reshape(shape + data.x.shape[1:])
+        return format_batch(x, None if lm else data.y[sl].reshape(shape), device=device)
 
     main = fmt(slice(0, k * b), (k, b))
     tail = fmt(slice(k * b, n), (rem,)) if rem else None

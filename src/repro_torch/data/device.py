@@ -14,12 +14,16 @@ streams; cross-framework tests draw their batches with
 ``host_stacked_batches`` instead, which both packages implement with the
 same numpy calls.
 
-Batches are vision batches ``dict(x=[.., b, *obs] float32, y=[.., b]
-int32)``; LM token batches come with the federated LM slice (ROADMAP A14).
+Two batch layouts, as in the JAX package:
+
+  * vision: ``dict(x=[.., b, *obs] float32, y=[.., b] int32)``;
+  * LM: raw integer token sequences ``[.., b, L+1]`` split into
+    ``dict(tokens=seqs[.., :-1], targets=seqs[.., 1:])``, both int32. LM
+    shards carry no ``y``.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,8 +31,21 @@ import torch
 from repro_torch.data.synthetic import Dataset
 
 
-def format_batch(x, y, device="cpu") -> dict:
-    """Raw (x, y) arrays or tensors -> the model batch dict on ``device``."""
+def _is_tokens(x) -> bool:
+    dt = x.dtype
+    if isinstance(dt, torch.dtype):
+        return not (dt.is_floating_point or dt.is_complex or dt == torch.bool)
+    return np.issubdtype(dt, np.integer)
+
+
+def format_batch(x, y=None, device="cpu") -> dict:
+    """Raw (x[, y]) arrays or tensors -> the model batch dict on ``device``.
+
+    Integer ``x`` is an LM token stream [*, L+1] -> (tokens, targets);
+    float ``x`` is a vision batch -> (x, y)."""
+    if _is_tokens(x):
+        x = torch.as_tensor(x, device=device)
+        return dict(tokens=x[..., :-1].to(torch.int32), targets=x[..., 1:].to(torch.int32))
     return dict(x=torch.as_tensor(x, device=device).to(torch.float32),
                 y=torch.as_tensor(y, device=device).to(torch.int32))
 
@@ -45,9 +62,10 @@ def round_key(seed: int, k: int) -> int:
 
 class DeviceShards:
     """Client shards resident on one device: x [C, N_max, ...], y [C, N_max]
-    and the true sizes (host ints)."""
+    (None for LM token shards, whose x is [C, N_max, L+1] int) and the true
+    sizes (host ints)."""
 
-    def __init__(self, x: torch.Tensor, y: torch.Tensor, sizes: Sequence[int]):
+    def __init__(self, x: torch.Tensor, y: Optional[torch.Tensor], sizes: Sequence[int]):
         self.x = x
         self.y = y
         self.sizes = [int(s) for s in sizes]
@@ -72,8 +90,9 @@ class DeviceShards:
                 out[i, : len(a)] = a
             return torch.from_numpy(out).to(device)
 
+        lm = _is_tokens(datasets[0].x)
         return DeviceShards(pad_stack([d.x for d in datasets]),
-                            pad_stack([d.y for d in datasets]), sizes)
+                            None if lm else pad_stack([d.y for d in datasets]), sizes)
 
     def sample(self, key: int, tau_max: int, batch: int) -> dict:
         """Draw leaves [C, tau_max, batch, ...] on the device; client i's
@@ -84,7 +103,8 @@ class DeviceShards:
                           generator=torch.Generator(device=dev).manual_seed(_seed(key, i)))
             for i, size in enumerate(self.sizes)])
         ids = torch.arange(self.num_clients, device=dev)[:, None, None]
-        return format_batch(self.x[ids, idx], self.y[ids, idx], device=dev)
+        y = None if self.y is None else self.y[ids, idx]
+        return format_batch(self.x[ids, idx], y, device=dev)
 
 
 def host_stacked_batches(datasets: List[Dataset], rng, tau_max: int, batch: int,

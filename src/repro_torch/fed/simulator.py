@@ -15,6 +15,11 @@ defaults to the card). The server reduce is the vecavg kernel unless
 ``aggregator="fallback"`` is named. Float32 work runs in full float32
 (``repro_torch.strict_fp32``: no TF32 convolutions).
 
+Client and test sets are vision datasets (float ``x``, labels ``y``) or LM
+token sets (integer ``x`` of ``[n, L+1]`` sequences, from
+``data.synthetic.make_lm_tokens``); rows carry ``train_loss`` and
+``test_loss`` either way, and ``test_acc`` for the vision models.
+
 ``run(params=...)`` and ``centralized_sgd(..., params=...)`` take a params
 tree (e.g. carried over from the JAX package with ``repro_torch.bridge``,
 whose ``jax.random`` init cannot be reproduced here); without one they
@@ -27,9 +32,10 @@ item: ``cohort_size`` (A16), ``wire`` (A17), ``buffered`` (A17), ``mesh``
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 from torch.func import grad_and_value
 
 from repro_torch import strict_fp32
@@ -107,6 +113,29 @@ class FederatedSimulator:
         """Host path: leaves [C, tau_max, b, ...] drawn with numpy."""
         return host_stacked_batches(self.client_data, rng, self.cfg.tau_max,
                                     self.cfg.batch_size, device=self.device)
+
+    def evaluate(self, params, max_batch: int = 2048) -> Dict[str, float]:
+        """Blocking whole-test-set evaluation -> host floats (``test_loss``,
+        and ``test_acc`` where the loss reports one), chunked at
+        ``max_batch`` and weighted by chunk size as the JAX package's."""
+        if self.test_data is None:
+            return {}
+        d = self.test_data
+        losses, accs, n = [], [], 0
+        with torch.no_grad(), strict_fp32():
+            for s in range(0, len(d), max_batch):
+                sl = slice(s, s + max_batch)
+                batch = format_batch(d.x[sl], d.y[sl], device=self.device)
+                loss, mets = self.model.loss(params, batch)
+                bs = len(next(iter(batch.values())))
+                losses.append(float(loss) * bs)
+                if "acc" in mets:
+                    accs.append(float(mets["acc"]) * bs)
+                n += bs
+        out = {"test_loss": sum(losses) / n}
+        if accs:
+            out["test_acc"] = sum(accs) / n
+        return out
 
     # -- main loop ----------------------------------------------------------
     def init_taus(self) -> np.ndarray:

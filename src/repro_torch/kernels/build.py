@@ -33,6 +33,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "paged_attention": "paged_attention/csrc/paged_attention.cu",
+    "rmsnorm": "rmsnorm/csrc/rmsnorm.cu",
     "vecavg": "vecavg/csrc/vecavg.cu",
 }
 

@@ -12,6 +12,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rmsnorm import ops as rn_ops
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -46,10 +48,11 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype, device) -> tor
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
-    dt = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
-    return (x * (1.0 + scale.float())).to(dt)
+    """``kernels/rmsnorm``: the CUDA kernel for CUDA tensors (forward; the
+    backward is the plain formula's gradient in torch ops), the plain
+    formula for CPU tensors. The JAX package's ``layers.rmsnorm`` is plain
+    jnp and never launches its Pallas kernel (ROADMAP.md P5)."""
+    return rn_ops.rmsnorm(x, scale, eps=eps)
 
 
 def layernorm(x, scale, bias, eps: float = 1e-5):

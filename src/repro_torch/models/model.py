@@ -4,7 +4,7 @@
     params = model.init(seed)                          -> flat dict of tensors
     model.loss(params, batch[, impl=])                 -> (scalar, metrics)
     model.forward(params, batch[, impl=])              -> (logits, aux) / scores [toy]
-    model.prefill(params, batch, impl=, pad_to=, length=) -> (logits, DecodeCache)
+    model.prefill(params, batch, impl=, window=, pad_to=, length=) -> (logits, DecodeCache)
     model.init_paged_cache(n_slots, n_pages, page_size) -> PagedDecodeCache
     model.paged_decode_step(params, cache, page_table, token, pos, ...)
 

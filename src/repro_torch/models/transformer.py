@@ -135,21 +135,27 @@ class DecodeCache(NamedTuple):
     kv: attn.KVCache  # leaves stacked [L, B, W, ...]
 
 
-def prefill(cfg, p: Params, batch, *, impl: str = "auto", pad_to: int = 0, length=None):
+def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_to: int = 0,
+            unroll=1, length=None):
     """Whole-prompt forward -> (last-token logits [B, V], DecodeCache).
 
-    ``impl`` picks the attention, as in :func:`forward`. ``pad_to``:
-    full-attention cache capacity. ``length``: optional int [B] true prompt
-    lengths of right-padded prompts (full attention only): logits come from
-    position length-1 and padded cache slots get pos -1.
+    ``impl`` picks the attention, as in :func:`forward`. ``window``: ring
+    size of the cache, ``W = window or cfg.sliding_window``, so a
+    full-attention model can prefill into a ``window``-slot ring for ring
+    decode, as in the JAX package. ``pad_to``: full-attention cache
+    capacity. ``length``: optional int [B] true prompt lengths of
+    right-padded prompts (full attention only): logits come from position
+    length-1 and padded cache slots get pos -1. ``unroll`` is the JAX
+    package's scan-unrolling compile knob and is ignored here.
 
-    Attention applies the config's sliding window, as the JAX package's
-    ``forward`` does. (The JAX ``prefill`` passes window 0 and so attends
-    fully for prompts longer than the window, ROADMAP.md C/R1; for
-    S <= W the two agree.)
+    Attention applies ``window``, or the config's sliding window when it
+    is 0, as the JAX package's ``forward`` does. (The JAX ``prefill``
+    passes only ``window`` and so attends fully for prompts longer than
+    the config's window, ROADMAP.md P1/R1; for S <= W the two agree.)
     """
+    del unroll
     check_dense(cfg)
-    W = cfg.sliding_window
+    W = window or cfg.sliding_window
     if length is not None and W:
         raise ValueError(
             "prefill(length=) is full-attention only: the ring buffer keeps "
@@ -164,7 +170,7 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", pad_to: int = 0, lengt
         hn = apply_norm(cfg, lp, "norm1", h)
         kv = attn.prefill_kv_cache(cfg, lp, hn, positions, window=W, pad_to=pad_to)
         h = _mlp_residual(cfg, lp, h + attn.attention_block(cfg, lp, hn, positions,
-                                                            impl=impl))
+                                                            impl=impl, window=window or None))
         ks.append(kv.k)
         vs.append(kv.v)
         ps_.append(kv.pos)

@@ -145,3 +145,29 @@ def test_non_dense_forward_raises_naming_a13():
                   family="moe", num_experts=4, experts_per_token=2)
     with pytest.raises(NotImplementedError, match="A13"):
         ttransformer.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+
+
+@pytest.mark.parametrize("impl", ["direct", "pallas"])
+def test_prefill_window_rings_a_full_attention_model(impl):
+    """ROADMAP C3: ``prefill(window=W)`` on reduced Qwen1.5 (full attention)
+    with S = 40 > W = 16 lays the prompt into a W-slot ring and attends
+    with window W, as the JAX ``prefill(window=W)``: last-token logits
+    against the JAX ``forward(window=W)`` (2e-4), the ring of every layer
+    against the JAX prefill's cache (``pos`` exactly, K/V at the prefill
+    tolerance). ``unroll=`` is accepted and ignored."""
+    jm, jp, tm, tp = _pair("qwen1.5-32b")
+    cfg = jm.config
+    assert cfg.sliding_window == 0
+    W, S = 16, 40
+    toks = np.random.RandomState(16).randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    jlogits, _ = jtransformer.forward(cfg, jp, {"tokens": jnp.asarray(toks)}, window=W)
+    _, jc = jtransformer.prefill(cfg, jp, {"tokens": jnp.asarray(toks)}, window=W)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, impl=impl, window=W, unroll=2)
+    np.testing.assert_allclose(_np(tl), np.asarray(jlogits[:, -1]), atol=2e-4, rtol=2e-4)
+    assert tc.kv.k.shape[2] == W
+    np.testing.assert_array_equal(tc.kv.pos.numpy(), np.asarray(jc.kv.pos))
+    np.testing.assert_allclose(_np(tc.kv.k), np.asarray(jc.kv.k), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(_np(tc.kv.v), np.asarray(jc.kv.v), atol=1e-5, rtol=1e-4)
+    with pytest.raises(ValueError, match="full-attention only"):
+        tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, window=W,
+                   length=torch.tensor([S, S]))

@@ -48,7 +48,9 @@ def test_port_modules_found():
                  "repro_torch.core.engine", "repro_torch.core.driver",
                  "repro_torch.fed.simulator", "repro_torch.fed.__main__",
                  "repro_torch.kernels.flash_attention.ref",
-                 "repro_torch.kernels.flash_attention.ops"):
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.rmsnorm.ref", "repro_torch.kernels.rmsnorm.ops",
+                 "repro_torch.checkpoint.io", "repro_torch.fed.train_lm"):
         assert want in mods
 
 

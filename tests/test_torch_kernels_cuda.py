@@ -10,7 +10,11 @@ rounds logits and probabilities to bf16, the kernel keeps float32);
 vecavg 1e-6 in float32 and 2e-2 in bf16 with norms at rtol 1e-4 (the bars
 of tests/test_kernels.py), and two launches on one input bitwise equal;
 flash attention 2e-5 in float32 and 3e-2 in bf16 (tests/test_kernels.py's
-flash bars), rows with no live key exactly 0.
+flash bars), rows with no live key exactly 0; rmsnorm 1e-5 in float32
+(tests/test_kernels.py's bar) and one bf16 ulp of the output in bf16
+(kernel and plain version each round their own float32 result, which may
+differ in the last float32 bit: the sums of squares run in other orders),
+two launches on one input bitwise equal.
 """
 import numpy as np
 import pytest
@@ -20,6 +24,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as tref
+from repro_torch.kernels.rmsnorm import ops as rn_ops
+from repro_torch.kernels.rmsnorm import ref as rn_ref
 from repro_torch.kernels.vecavg import ops as va_ops
 from repro_torch.kernels.vecavg import ref as va_ref
 
@@ -243,3 +249,144 @@ def test_pallas_forward_matches_direct_on_card(cuda, arch):
         assert fa_ops.launches["flash_attention"] == model.config.num_layers
         ld, _ = model.forward(params, batch, impl="direct")
     torch.testing.assert_close(lp, ld, atol=2e-4, rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at each element of ``t`` (float32 view)."""
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _rmsnorm_close(o, o_r):
+    assert o.dtype == o_r.dtype and o.shape == o_r.shape
+    if o.dtype == torch.float32:
+        torch.testing.assert_close(o, o_r, atol=1e-5, rtol=0)
+    else:
+        assert bool(((o.float() - o_r.float()).abs() <= _bf16_ulp(o_r)).all())
+
+
+# tests/test_kernels.py's shapes, the LM step's rows, wide rows, and d that
+# takes the element-by-element path (not a multiple of the 16-byte vector)
+RMSNORM_SHAPES = [(4, 7, 128), (1000, 256), (3, 64), (2048, 1024), (33, 5120), (5, 8192),
+                  (9, 100), (7, 1030), (1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES)
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, dtype):
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(*shape, generator=g).to(cuda, dtype)
+    s = (0.1 * torch.randn(shape[-1], generator=g)).to(cuda)
+    rn_ops.reset_launches()
+    o, o2 = rn_ops.rmsnorm(x, s), rn_ops.rmsnorm(x, s)
+    o_r = rn_ref.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rn_ops.launches["rmsnorm"] == 2
+    assert torch.equal(o, o2)
+    _rmsnorm_close(o, o_r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_groups_strides_and_copies_on_card(cuda, dtype):
+    """Grouped scale [4, 1024] over x [4, 512, 1024]; rows read in place at
+    a stride (a view of a wider buffer, and a scale view of a stacked
+    [4, 3, d] leaf); a transposed x is copied once and gives the same."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 512, 1024, generator=g).to(cuda, dtype)
+    s = (0.1 * torch.randn(4, 3, 1024, generator=g)).to(cuda)[:, 1]
+    assert not s.is_contiguous()
+    rn_ops.reset_launches()
+    o = rn_ops.rmsnorm(x, s, groups=4)
+    _rmsnorm_close(o, rn_ref.rmsnorm(x, s, groups=4))
+    wide = torch.randn(300, 1024 + 64, generator=g).to(cuda, dtype)
+    view = wide[:, 32:32 + 1024]
+    assert view.stride(0) == 1024 + 64
+    torch.testing.assert_close(rn_ops.rmsnorm(view, s[0]), rn_ops.rmsnorm(view.contiguous(), s[0]),
+                               atol=0, rtol=0)
+    xt = torch.randn(1024, 300, generator=g).to(cuda, dtype).T
+    torch.testing.assert_close(rn_ops.rmsnorm(xt, s[1]), rn_ops.rmsnorm(xt.contiguous(), s[1]),
+                               atol=0, rtol=0)
+    torch.cuda.synchronize()
+    assert rn_ops.launches["rmsnorm"] == 5
+
+
+def test_rmsnorm_vmap_grad_through_kernel_on_card(cuda):
+    """The round's use: torch.func.vmap of grad over per-client scale and x.
+    One launch for all clients; gradients equal autograd of the plain
+    version (use_pallas=False) within 1e-5."""
+    g = torch.Generator().manual_seed(6)
+    C = 4
+    x = torch.randn(C, 3, 128, 1024, generator=g).to(cuda)
+    s = (0.1 * torch.randn(C, 1024, generator=g)).to(cuda)
+    w = torch.randn(C, 3, 128, 1024, generator=g).to(cuda)
+
+    def loss(pallas):
+        return lambda s_, x_, w_: (rn_ops.rmsnorm(x_, s_, use_pallas=pallas) * w_).sum()
+
+    rn_ops.reset_launches()
+    gk = torch.func.vmap(torch.func.grad(loss(True), argnums=(0, 1)))(s, x, w)
+    torch.cuda.synchronize()
+    assert rn_ops.launches["rmsnorm"] == 1
+    gp = torch.func.vmap(torch.func.grad(loss(False), argnums=(0, 1)))(s, x, w)
+    torch.cuda.synchronize()
+    assert rn_ops.launches["rmsnorm"] == 1
+    torch.testing.assert_close(gk[0], gp[0], atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(gk[1], gp[1], atol=1e-5, rtol=1e-4)
+
+
+def test_rmsnorm_kernel_raises_rather_than_falls_back(cuda):
+    with pytest.raises(ValueError, match="d="):
+        rn_ops.rmsnorm(torch.zeros(2, 8193, device=cuda), torch.zeros(8193, device=cuda))
+    with pytest.raises(TypeError):
+        rn_ops.rmsnorm(torch.zeros(2, 64, dtype=torch.float16, device=cuda),
+                       torch.zeros(64, device=cuda))
+    with pytest.raises(TypeError):
+        rn_ops.rmsnorm(torch.zeros(2, 64, device=cuda),
+                       torch.zeros(64, dtype=torch.bfloat16, device=cuda))
+
+
+def test_lm_round_launches_rmsnorm_per_norm_call_on_card(cuda):
+    """A reduced Qwen1.5 (rmsnorm) FedVeca round on the card: rmsnorm
+    launches once a norm call for all clients, tau_max * (2L + 1) a round,
+    vecavg twice; the round through the kernel equals the round through the
+    plain op within 1e-5 on the params."""
+    import functools
+
+    from repro_torch import strict_fp32
+    from repro_torch.core.fedveca import make_round_step
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_model_by_name
+
+    model = build_model_by_name("qwen1.5-32b", reduced=True, device=cuda)
+    cfg = model.config
+    params = model.init(0)
+    g = torch.Generator().manual_seed(2)
+    C, T, B, S = 3, 3, 2, 32
+    seqs = torch.randint(0, cfg.vocab_size, (C, T, B, S + 1), generator=g).to(cuda, torch.int32)
+    batches = {"tokens": seqs[..., :-1], "targets": seqs[..., 1:]}
+    tau = torch.tensor([3, 2, 3], dtype=torch.int32, device=cuda)
+    pw = torch.tensor([0.5, 0.2, 0.3], device=cuda)
+    step = make_round_step(model.loss, eta=0.05)
+    with strict_fp32():
+        rn_ops.reset_launches()
+        va_ops.reset_launches()
+        pk, sk, _ = step(params, batches, tau, pw, torch.tensor(0.05, device=cuda))
+        torch.cuda.synchronize()
+        assert rn_ops.launches["rmsnorm"] == T * (2 * cfg.num_layers + 1)
+        assert va_ops.launches["vecavg"] == 2
+        plain = functools.partial(rn_ops.rmsnorm, use_pallas=False)
+        orig, layers.rmsnorm = layers.rmsnorm, lambda x, s, eps=1e-6: plain(x, s, eps=eps)
+        try:
+            pp, sp, _ = step(params, batches, tau, pw, torch.tensor(0.05, device=cuda))
+        finally:
+            layers.rmsnorm = orig
+        torch.cuda.synchronize()
+    assert rn_ops.launches["rmsnorm"] == T * (2 * cfg.num_layers + 1)
+    for k in params:
+        torch.testing.assert_close(pk[k], pp[k], atol=1e-5, rtol=0)
+    torch.testing.assert_close(sk.loss0, sp.loss0, atol=1e-6, rtol=1e-5)
