@@ -8,6 +8,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``nvidia-smi`` prints them;
   2. build   — every CUDA kernel of the port, from the sources in this
      checkout, for sm_90a (nvcc, one process per source, all at once);
+     flash attention's and rmsnorm's registers, spills and static shared
+     memory from ptxas's report, flash's dynamic shared memory and blocks
+     an SM;
   3. parity  — each kernel against its plain PyTorch version on the card:
      paged decode and insert at full StarCoder2-3B widths in bf16 (B 8,
      Hq 24, Hkv 2, hd 128, page 16, 256 pages a slot; SWA window 4096 with
@@ -17,7 +20,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      twice and held bitwise against itself; flash attention in float32 and
      bf16 at StarCoder2-3B's [1, 8192, 24/2, 128] (causal, window 4096) and
      at S 4096, Qwen1.5-32B's [1, 2048, 40/40, 128], a q_offset case with
-     Sq < Sk, a ragged edge, and rows with no live key (exactly 0);
+     Sq < Sk, a ragged edge, and rows with no live key (exactly 0), each
+     launched twice and held bitwise against itself;
      rmsnorm in float32 and bf16 at the LM step's [2048, 1024], Qwen1.5-32B's
      [2048, 5120], DeepSeek-Coder-33B's [8192, 7168], d 8192, ragged row
      counts and the grouped [4, 512, 1024] with scale [4, 1024], each
@@ -53,7 +57,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      4 of its 64 layers, S 2048, ``pallas`` against ``auto``, with exactly
      9 rmsnorm launches a forward (2 a layer and the final norm); backward
      through ``impl="pallas"`` raises; torch.profiler over one bf16
-     forward (flash / GEMM / other); the flash timing rows;
+     forward (flash / GEMM / other); the flash timing rows: bf16 at the
+     three attention shapes and float32 at Qwen1.5-32B's, each timed in
+     turns with SDPA (kernel, SDPA, SDPA, kernel);
   9. lm      — federated LM training through ``FederatedSimulator`` with the
      JAX example's traffic (examples/train_lm_federated.py: 4 clients, one
      topic each, S 128, batch 4, tau_max 4, eta 0.05, FedVeca, evaluation
@@ -68,7 +74,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the rmsnorm kernel against the same round through the plain op; a
      torch.profiler breakdown of one round of each model; a
      checkpoint saved and restored bitwise on the card, with a bf16 leaf;
-     rmsnorm's parity (phase 3) and timing rows.
+     rmsnorm's parity (phase 3) and timing rows, in turns with
+     ``F.rms_norm``.
 
 Prints, before the last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -80,6 +87,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -158,6 +166,7 @@ ROUND_PARAMS_ATOL = 1e-6
 # (params 1e-6) scaled by ten for the accumulation over the local steps.
 CARD_CPU_PARAMS_ATOL = 1e-5
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+REBUILT = ("flash_attention", "rmsnorm")  # the kernels whose ptxas report phase 2 prints
 # Flash kernel vs its plain version: the JAX package's kernel-vs-oracle
 # bars (tests/test_kernels.py): 2e-5 in float32 (float32 sums in another
 # order), 3e-2 in bf16 (the plain version rounds logits and probabilities
@@ -271,14 +280,63 @@ def phase_device() -> str:
 # ---------------------------------------------------------------------------
 
 
+def ptxas_report(log_text: str):
+    """-> [(kernel, registers, spill store bytes, spill load bytes, static
+    shared memory bytes)] for each entry function of an ``nvcc -Xptxas -v``
+    log, and ptxas's performance notes (C75xx)."""
+    rows, notes, name = [], [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), *spills, int(smem.group(1)) if smem else 0))
+            name = None
+        if "(C75" in line:
+            notes.append(line.strip())
+    return rows, notes
+
+
+def demangle(names):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                             timeout=30).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return list(names)
+    return [re.sub(r"^void |\(anonymous namespace\)::", "", o).split("(")[0] for o in out]
+
+
 def phase_build():
+    """Builds every kernel; prints each rebuilt kernel's registers, spills
+    and static shared memory from ptxas, and flash's dynamic shared memory
+    and blocks an SM."""
     t0 = time.perf_counter()
     secs = build.build_all()
     print(f"[build] {json.dumps(secs)} in {time.perf_counter() - t0:.2f} s")
-    for log in sorted(build.BUILD_DIR.glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {log.stem}: {line.strip()}")
+    report = {}
+    for name in REBUILT:
+        rows, notes = ptxas_report(build.log_path(name).read_text())
+        for (fn, regs, st, ld, smem), pretty in zip(rows, demangle([r[0] for r in rows])):
+            print(f"[build] {name}: {pretty}: {regs} registers, spills {st} B stored / {ld} B "
+                  f"loaded, {smem} B static shared memory")
+        for n in notes:
+            print(f"[build] {name}: ptxas: {n}")
+        report[name] = dict(kernels=len(rows), max_registers=max(r[1] for r in rows),
+                            spill_bytes=sum(r[2] + r[3] for r in rows), notes=len(notes))
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in fa_ops.HEAD_DIMS:
+            print(f"[build] flash_attention {str(dt).replace('torch.', '')} hd {hd}: "
+                  f"{fa_ops.smem_bytes(dt, hd)} B dynamic shared memory, blocks an SM: "
+                  f"{fa_ops.blocks_per_sm(dt, hd)}")
+    print(f"[build] ptxas summary: {json.dumps(report)}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -429,11 +487,13 @@ def phase_flash_parity(dev):
                 q, k, v = _flash_inputs(gen, dev, dtype, B, Sq, Sk, Hq, Hkv, hd)
                 kw = dict(causal=causal, window=window, q_offset=qoff)
                 o = fa_ops.flash_attention(q, k, v, **kw)
+                o2 = fa_ops.flash_attention(q, k, v, **kw)
                 sync()
                 o_r = fa_ref.attention(q, k, v, **kw)
                 sync()
                 tag = f"{name} {str(dtype).replace('torch.', '')}"
                 require(o.dtype == dtype and o.shape == q.shape, f"[parity] flash {tag}: {o.shape}")
+                require(torch.equal(o, o2), f"[parity] flash {tag}: two launches differ")
                 require(bool(torch.isfinite(o.float()).all()), f"[parity] flash {tag}: non-finite")
                 err = (o.float() - o_r.float()).abs().max().item()
                 require(err <= FLASH_TOL[dtype],
@@ -445,9 +505,10 @@ def phase_flash_parity(dev):
                     require(bool((o[:, ~live] == 0).all() and (o_r[:, ~live] == 0).all()),
                             f"[parity] flash {tag}: a row with no live key is not 0")
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
-                print(f"[parity] flash {tag}: max|o - plain| {err:.3e} (tol {FLASH_TOL[dtype]})"
+                print(f"[parity] flash {tag}: bitwise across launches; max|o - plain| {err:.3e} "
+                      f"(tol {FLASH_TOL[dtype]})"
                       + (f", {n_empty} rows with no live key exactly 0" if n_empty else ""))
-                del q, k, v, o, o_r
+                del q, k, v, o, o2, o_r
     torch.cuda.empty_cache()
     return worst
 
@@ -1174,30 +1235,47 @@ def phase_forward_qwen(dev):
     return out
 
 
+def time_in_turns(kernel, library, **kw):
+    """``time_ms`` of the kernel and of a PyTorch call in turns (kernel,
+    library, library, kernel): -> (kernel ms, library ms, each pair)."""
+    k1 = time_ms(kernel, **kw)
+    l1, l2 = time_ms(library, **kw), time_ms(library, **kw)
+    k2 = time_ms(kernel, **kw)
+    return (k1 + k2) / 2, (l1 + l2) / 2, [k1, k2], [l1, l2]
+
+
 def flash_timing_row(dev, launches, errs):
-    """The flash kernel at the forward's shapes, bf16: kernel, plain version
-    and SDPA with the same mask (timed only; the port never calls it)."""
+    """The flash kernel at the forward's shapes in bf16 (the main path's
+    type), and the float32 instance at Qwen1.5-32B's shape (phase 8's
+    float32 forward): kernel, plain version and SDPA with the same mask
+    (timed only; the port never calls it), kernel and SDPA in turns."""
     gen = torch.Generator(device=dev).manual_seed(21)
     rows = []
-    for name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff in FLASH_CASES[:3]:
-        q, k, v = _flash_inputs(gen, dev, torch.bfloat16, B, Sq, Sk, Hq, Hkv, hd)
+    shapes = [(c, torch.bfloat16) for c in FLASH_CASES[:3]] + [(FLASH_CASES[2], torch.float32)]
+    for (name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff), dtype in shapes:
+        q, k, v = _flash_inputs(gen, dev, dtype, B, Sq, Sk, Hq, Hkv, hd)
         kw = dict(causal=causal, window=window, q_offset=qoff)
         mask = fa_ref.live_mask(Sq, Sk, device=dev, **kw)
         pairs = int(mask.sum()) * B * Hq
-        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v in; o out
+        el = q.element_size()
+        n_bytes = el * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v in; o out
         n_ops = 4 * hd * pairs
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
         qt, kt, vt = (x.transpose(1, 2).repeat_interleave(Hq // x.shape[2], dim=1).contiguous()
                       for x in (q, k, v))
+        with strict_fp32():
+            ms, lib_ms, ms_pair, lib_pair = time_in_turns(
+                lambda: fa_ops.flash_attention(q, k, v, **kw),
+                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                         attn_mask=mask))
+            plain = time_ms(lambda: fa_ref.attention(q, k, v, **kw), n=20)
         rows.append(dict(
-            shape=name, live_pairs=pairs,
-            ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw)),
-            plain_ms=time_ms(lambda: fa_ref.attention(q, k, v, **kw), n=20),
-            bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask))))
-        print(f"[timing] flash {name}: {json.dumps(rows[-1])}")
+            shape=f"{name} {str(dtype).replace('torch.', '')}", live_pairs=pairs, ms=ms,
+            plain_ms=plain, bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib_ms,
+            ms_in_turns=ms_pair, library_ms_in_turns=lib_pair))
+        print(f"[timing] flash {rows[-1]['shape']}: {json.dumps(rows[-1])}")
         del q, k, v, qt, kt, vt
     main_row = rows[0]
     return dict(name="flash_attention", route="cuda", source=FLASH_SRC,
@@ -1207,7 +1285,8 @@ def flash_timing_row(dev, launches, errs):
                 **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms", "live_pairs")},
                 shape=main_row["shape"], other_shapes=rows[1:],
-                blocks_per_sm=fa_ops.blocks_per_sm(torch.bfloat16, 128))
+                blocks_per_sm=fa_ops.blocks_per_sm(torch.bfloat16, 128),
+                smem_bytes=fa_ops.smem_bytes(torch.bfloat16, 128))
 
 
 # ---------------------------------------------------------------------------
@@ -1422,10 +1501,11 @@ def phase_checkpoint(dev, params):
 
 
 def rmsnorm_timing_row(dev, launches, err):
-    """rmsnorm at the LM step's shape (the main row) and two wider ones:
-    kernel, plain version, the byte bound, and ``F.rms_norm`` with weight
+    """rmsnorm at the LM step's shape (the main row) and wider ones: kernel,
+    plain version, the byte bound, and ``F.rms_norm`` with weight
     ``1 + scale`` (timed only; the port never calls it; its weight in x's
-    dtype so that torch takes its fused kernel)."""
+    dtype so that torch takes its fused kernel), kernel and ``F.rms_norm``
+    in turns."""
     gen = torch.Generator(device=dev).manual_seed(23)
     rows = []
     for name, (N, d), dtype in RMSNORM_TIMING:
@@ -1435,13 +1515,14 @@ def rmsnorm_timing_row(dev, launches, err):
         n_bytes = 2 * N * d * x.element_size() + d * 4  # x in, y out, scale in
         n_ops = 4 * N * d  # square and add, then two products
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+        ms, lib_ms, ms_pair, lib_pair = time_in_turns(
+            lambda: rn_ops.rmsnorm(x, s),
+            lambda: torch.nn.functional.rms_norm(x, (d,), weight=w, eps=1e-6))
         rows.append(dict(
-            shape=f"{name} {[N, d]}", ms=time_ms(lambda: rn_ops.rmsnorm(x, s)),
-            plain_ms=time_ms(lambda: rn_ref.rmsnorm(x, s)),
+            shape=f"{name} {[N, d]}", ms=ms, plain_ms=time_ms(lambda: rn_ref.rmsnorm(x, s)),
             bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), weight=w,
-                                                                    eps=1e-6))))
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib_ms,
+            ms_in_turns=ms_pair, library_ms_in_turns=lib_pair))
         print(f"[timing] rmsnorm {name}: {n_bytes} bytes, {json.dumps(rows[-1])}")
         del x
     main_row = rows[0]
@@ -1460,7 +1541,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     errs = phase_parity(dev)
     errs["vecavg"] = phase_vecavg_parity(dev)
     flash_errs = phase_flash_parity(dev)
@@ -1504,7 +1585,7 @@ def main() -> int:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
     print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
-                      "card": smi}))
+                      "ptxas": ptxas, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -60,6 +60,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h}.so"
 
 
+def log_path(name: str) -> Path:
+    """ptxas's report (``-Xptxas -v``) of ``name``'s last build."""
+    return _target(name).with_suffix(".log")
+
+
 def build_all(names: List[str] | None = None) -> Dict[str, float]:
     """Compile every stale library in parallel (one nvcc each); returns the
     seconds each build took (0.0 for a library already built). ptxas's
@@ -82,7 +87,7 @@ def build_all(names: List[str] | None = None) -> Dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
+        log_path(name).write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "flash_attention_launch": ([_I, _I] + [_P] * 4 + [_I] * 5 + [_L] * 9
                                + [_I] * 3 + [ctypes.c_float, _P], _I),
     "flash_attention_blocks_per_sm": ([_I, _I], _I),
+    "flash_attention_smem_bytes": ([_I, _I], _I),
 }
 
 
@@ -51,6 +52,23 @@ def blocks_per_sm(dtype, hd: int) -> int:
     """Blocks of the kernel that fit on one SM at once (the card's
     occupancy for this type and head dim)."""
     return _lib().flash_attention_blocks_per_sm(_DTYPE_CODE[dtype], hd)
+
+
+def smem_bytes(dtype, hd: int) -> int:
+    """Dynamic shared memory a block of the kernel takes, in bytes."""
+    return _lib().flash_attention_smem_bytes(_DTYPE_CODE[dtype], hd)
+
+
+def tma_misfits(t: torch.Tensor) -> list:
+    """What keeps TMA from reading ``t`` [B, S, H, hd] in place: a base
+    address or a batch, sequence or head stride (of an axis longer than 1)
+    that is not a multiple of 16 bytes. Empty when it fits."""
+    el = t.element_size()
+    bad = [] if t.data_ptr() % 16 == 0 else ["the base address"]
+    bad += [f"the {axis} stride ({t.stride(i)} elements)"
+            for i, axis in enumerate(("batch", "sequence", "head"))
+            if t.shape[i] > 1 and (t.stride(i) * el) % 16]
+    return bad
 
 
 def _launch(q, k, v, causal: bool, window: int, q_offset: int):
@@ -74,6 +92,11 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int):
                              f"expected {dt} on {dev}")
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s head_dim axis must have stride 1")
+        # the bf16 kernel reads q, k, v by TMA, which takes 16-byte aligned rows only
+        bad = tma_misfits(t) if dt == torch.bfloat16 else []
+        if bad:
+            raise ValueError(f"flash_attention: {name} cannot be read by TMA: "
+                             f"{', '.join(bad)} not a multiple of 16 bytes")
     out = torch.empty((B, Sq, Hq, hd), dtype=dt, device=dev)
     if out.numel() == 0:
         return out
@@ -115,7 +138,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     ``use_pallas=False`` selects the plain version on any device (named
     only, as in the JAX ops). ``block_q``/``block_k`` keep the JAX
     signature: they tile the TPU grid there; the CUDA kernel's tiles are
-    fixed (64 x 64) and no result depends on them.
+    fixed (bf16 128 x 128, float32 64 x 64) and no result depends on them.
+    In bf16 the kernel reads q, k, v by TMA: each must have a 16-byte
+    aligned base and batch, sequence and head strides, or the call raises.
     """
     del block_q, block_k
     if not use_pallas:

@@ -11,20 +11,30 @@
 //
 // Bound on an H100 SXM (3.35 TB/s; ~4 float32 operations an element, far
 // below the card's rate): x read once, y written once, scale read once,
-// 2*N*d*sizeof(x) + G*d*4 bytes. At [2048, 5120] float32 that is 84 MB,
-// about 25 us, so the kernel is bound by bytes.
+// 2*N*d*sizeof(x) + G*d*4 bytes. At [8192, 5120] bf16 that is 168 MB,
+// about 50 us; at the LM step's [1024, 1024] float32, 8.4 MB or 2.5 us, so
+// there a row's latency (one trip to memory for x and scale, the
+// reduction, the store) and the launch bound it, not the bytes.
 //
 // Design. The Pallas kernel tiles 256 rows a grid step with d whole in
-// VMEM. Here a row belongs to one warp when d <= 1024 (8 rows a 256-thread
-// block) and to one block up to d = 8192. The row is read once into
-// registers, in 16-byte vectors (float4, or 8 bf16) where d, the row
-// stride and the pointer allow it and element by element otherwise. The
-// sum of squares runs in a fixed order: each thread's elements in turn, an
-// xor-butterfly warp shuffle (every lane ends with the same bits), and for
-// a block the warps' sums from shared memory in warp order; two launches
-// on one input give the same bits. The row is then scaled from registers
-// and written: nothing is read twice from device memory. Rows may carry a
-// stride (the last dim must be contiguous); the output is contiguous.
+// VMEM. Here RT threads of a 256-thread block own a row (32, 64, 128 or
+// 256: 256 / RT rows a block), and each holds NP whole 16-byte packs of it
+// (4 float32 or 8 bf16) in registers. The host picks (RT, NP) from d and
+// the type so that RT * NP packs are exactly the row at the repo's widths
+// (1024, 5120, 7168, 8192): d 5120 in bf16 is 640 packs, 128 threads x 5,
+// where one 256-thread row would leave its threads 2.5 packs each and the
+// last pass half empty. Other widths take a guarded instance. The scale
+// row is read with 16-byte loads in the same pass as x, before the
+// reduction, so no row waits for a second trip to memory after its sum of
+// squares. The sum runs in a fixed order: each thread's elements in turn,
+// an xor-butterfly warp shuffle (every lane ends with the same bits), and
+// across a row's warps their sums from shared memory in warp order; two
+// launches on one input give the same bits. The row is then scaled from
+// registers and written with 16-byte stores: nothing is read twice from
+// device memory. Rows may carry a stride (the last dim must be
+// contiguous); x, d or a stride that does not allow 16-byte packs takes an
+// element-by-element instance, and a scale row that is not 16-byte aligned
+// is read by scalar loads. The output is contiguous.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,7 +44,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 8192;
-constexpr int kWarpRowMaxD = 1024;  // up to here a warp owns a row
+constexpr int kWarpRowMaxD = 1024;  // up to here a warp owns a row in the guarded instances
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -59,33 +69,65 @@ __device__ __forceinline__ float warp_allsum(float x) {
   return x;
 }
 
-// WPR warps own a row, kWarps / WPR rows a block; a thread holds up to NV
-// packs of VEC elements of its row.
-template <typename T, int VEC, int WPR, int NV>
+// RT threads own a row, kThreads / RT rows a block; a thread holds NP
+// packs of VEC elements of its row: pack t + i * RT for i < NP. EXACT: the
+// row is exactly RT * NP packs (no guard).
+template <typename T, int VEC, int RT, int NP, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_kernel(const T* __restrict__ x, long long x_stride, const float* __restrict__ scale,
                long long s_stride, long long rows_per_group, T* __restrict__ y,
                long long n_rows, int d, float eps) {
-  constexpr int kRowThreads = 32 * WPR;
-  constexpr int kRowsPerBlock = kWarps / WPR;
+  constexpr int kRowsPerBlock = kThreads / RT;
+  constexpr int kWPR = RT / 32;  // warps a row
   using P = Pack<T, VEC>;
   __shared__ float part[kWarps];
 
   const int warp = threadIdx.x >> 5;
-  const int t = threadIdx.x % kRowThreads;
-  const long long row = static_cast<long long>(blockIdx.x) * kRowsPerBlock + warp / WPR;
+  const int t = threadIdx.x % RT;
+  const long long row = static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / RT;
   const bool live = row < n_rows;  // uniform over the row's warps
-  const int nvec = d / VEC;
+  const int nvec = EXACT ? RT * NP : d / VEC;
 
-  P buf[NV];
+  P buf[NP];
+  float one_plus_s[NP][VEC];  // 1 + scale, loaded beside x
   float ss = 0.f;
   if (live) {
     const P* xr = reinterpret_cast<const P*>(x + row * x_stride);
+    const float* sr = scale + (row / rows_per_group) * s_stride;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int j = t + i * kRowThreads;
-      if (j < nvec) {
-        buf[i] = xr[j];
+    for (int i = 0; i < NP; ++i) {
+      const int j = t + i * RT;
+      if (EXACT || j < nvec) buf[i] = xr[j];
+    }
+    if (VEC % 4 == 0 && reinterpret_cast<uintptr_t>(sr) % 16 == 0) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int j = t + i * RT;
+        if (EXACT || j < nvec) {
+#pragma unroll
+          for (int q = 0; q < VEC / 4; ++q) {
+            const float4 f = __ldg(reinterpret_cast<const float4*>(sr + j * VEC) + q);
+            one_plus_s[i][4 * q] = 1.f + f.x;
+            one_plus_s[i][4 * q + 1] = 1.f + f.y;
+            one_plus_s[i][4 * q + 2] = 1.f + f.z;
+            one_plus_s[i][4 * q + 3] = 1.f + f.w;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int j = t + i * RT;
+        if (EXACT || j < nvec) {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) one_plus_s[i][k] = 1.f + __ldg(sr + j * VEC + k);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int j = t + i * RT;
+      if (EXACT || j < nvec) {
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           const float f = to_f(buf[i].v[k]);
@@ -95,40 +137,38 @@ rmsnorm_kernel(const T* __restrict__ x, long long x_stride, const float* __restr
     }
   }
   ss = warp_allsum(ss);
-  if constexpr (WPR > 1) {
-    const int first = (warp / WPR) * WPR;
+  if constexpr (kWPR > 1) {
+    const int first = (warp / kWPR) * kWPR;
     if ((threadIdx.x & 31) == 0) part[warp] = ss;
     __syncthreads();
     ss = 0.f;
 #pragma unroll
-    for (int w = 0; w < WPR; ++w) ss += part[first + w];
+    for (int w = 0; w < kWPR; ++w) ss += part[first + w];
   }
   if (!live) return;
 
   const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-  const float* sr = scale + (row / rows_per_group) * s_stride;
   P* yr = reinterpret_cast<P*>(y + row * static_cast<long long>(d));
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int j = t + i * kRowThreads;
-    if (j < nvec) {
+  for (int i = 0; i < NP; ++i) {
+    const int j = t + i * RT;
+    if (EXACT || j < nvec) {
       P o;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        o.v[k] = from_f<T>(to_f(buf[i].v[k]) * r * (1.f + sr[j * VEC + k]));
+      for (int k = 0; k < VEC; ++k) o.v[k] = from_f<T>(to_f(buf[i].v[k]) * r * one_plus_s[i][k]);
       yr[j] = o;
     }
   }
 }
 
-template <typename T, int VEC, int WPR, int NV>
+template <typename T, int VEC, int RT, int NP, bool EXACT>
 cudaError_t launch_cfg(const void* x, long long x_stride, const float* scale,
                        long long s_stride, long long rows_per_group, void* y,
                        long long n_rows, int d, float eps, cudaStream_t s) {
-  constexpr int kRowsPerBlock = kWarps / WPR;
+  constexpr int kRowsPerBlock = kThreads / RT;
   const long long blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  rmsnorm_kernel<T, VEC, WPR, NV><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+  rmsnorm_kernel<T, VEC, RT, NP, EXACT><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       static_cast<const T*>(x), x_stride, scale, s_stride, rows_per_group,
       static_cast<T*>(y), n_rows, d, eps);
   return cudaGetLastError();
@@ -139,20 +179,39 @@ cudaError_t launch(const void* x, long long n_rows, int d, long long x_stride,
                    const float* scale, long long s_stride, long long rows_per_group, void* y,
                    float eps, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
-  // kVec * NV * 32 * WPR covers kWarpRowMaxD (one warp) and kMaxD (a block)
-  // for both types; element by element, NV = 32 covers them at VEC = 1.
   const bool vec = d % kVec == 0 && x_stride % kVec == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool warp_row = d <= kWarpRowMaxD;
-  if (vec)
-    return warp_row ? launch_cfg<T, kVec, 1, 8>(x, x_stride, scale, s_stride, rows_per_group,
-                                                 y, n_rows, d, eps, s)
-                    : launch_cfg<T, kVec, kWarps, 8>(x, x_stride, scale, s_stride,
-                                                      rows_per_group, y, n_rows, d, eps, s);
-  return warp_row ? launch_cfg<T, 1, 1, 32>(x, x_stride, scale, s_stride, rows_per_group, y,
-                                            n_rows, d, eps, s)
-                  : launch_cfg<T, 1, kWarps, 32>(x, x_stride, scale, s_stride, rows_per_group,
-                                                 y, n_rows, d, eps, s);
+#define RMSNORM_LAUNCH(V, RT, NP, EXACT)                                                     \
+  return launch_cfg<T, V, RT, NP, EXACT>(x, x_stride, scale, s_stride, rows_per_group, y, \
+                                         n_rows, d, eps, s)
+  if (vec) {
+    // the repo's widths: RT threads a row, NP whole packs a thread
+    if constexpr (sizeof(T) == 4) {
+      switch (d) {
+        case 1024: RMSNORM_LAUNCH(kVec, 64, 4, true);   // 256 packs
+        case 5120: RMSNORM_LAUNCH(kVec, 256, 5, true);  // 1280
+        case 7168: RMSNORM_LAUNCH(kVec, 256, 7, true);  // 1792
+        case 8192: RMSNORM_LAUNCH(kVec, 256, 8, true);  // 2048
+        default: break;
+      }
+    } else {
+      switch (d) {
+        case 1024: RMSNORM_LAUNCH(kVec, 32, 4, true);   // 128 packs
+        case 5120: RMSNORM_LAUNCH(kVec, 128, 5, true);  // 640
+        case 7168: RMSNORM_LAUNCH(kVec, 128, 7, true);  // 896
+        case 8192: RMSNORM_LAUNCH(kVec, 256, 4, true);  // 1024
+        default: break;
+      }
+    }
+    // any other width: kVec * 8 * RT covers kWarpRowMaxD (a warp) and kMaxD
+    // (a block) for both types
+    if (d <= kWarpRowMaxD) RMSNORM_LAUNCH(kVec, 32, 8, false);
+    RMSNORM_LAUNCH(kVec, kThreads, 8, false);
+  }
+  // element by element: 32 elements a thread cover both limits
+  if (d <= kWarpRowMaxD) RMSNORM_LAUNCH(1, 32, 32, false);
+  RMSNORM_LAUNCH(1, kThreads, 32, false);
+#undef RMSNORM_LAUNCH
 }
 
 }  // namespace

@@ -107,6 +107,25 @@ def test_backward_through_flash_raises_on_cpu():
         o.sum().backward()
 
 
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: _bf16(2, 8, 4, 64), []),
+    (lambda: _bf16(2, 8, 2 + 2 * 1, 64)[:, :, :2], []),  # q of a fused projection
+    (lambda: _bf16(1, 5, 1, 68)[..., :64], ["sequence"]),  # size-1 axes: stride not read
+    (lambda: _bf16(2, 5, 3, 68)[..., :64], ["batch", "sequence", "head"]),
+    (lambda: _bf16(1, 5, 3, 4), ["sequence", "head"]),
+    (lambda: _bf16(1 + 8 * 2 * 64)[1:].view(1, 8, 2, 64), ["base address"]),
+])
+def test_tma_check_names_each_misaligned_stride(make, want):
+    """The bf16 kernel's TMA needs 16-byte aligned rows: the wrapper's check
+    names what does not fit (on the card the call then raises)."""
+    bad = fa_ops.tma_misfits(make())
+    assert len(bad) == len(want) and all(w in b for w, b in zip(want, bad))
+
+
 def test_wrapper_refuses_a_device_without_kernel():
     """A tensor that is not on the CPU never takes the plain version."""
     meta = torch.empty(1, 8, 2, 16, device="meta")

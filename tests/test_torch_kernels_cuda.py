@@ -10,7 +10,7 @@ rounds logits and probabilities to bf16, the kernel keeps float32);
 vecavg 1e-6 in float32 and 2e-2 in bf16 with norms at rtol 1e-4 (the bars
 of tests/test_kernels.py), and two launches on one input bitwise equal;
 flash attention 2e-5 in float32 and 3e-2 in bf16 (tests/test_kernels.py's
-flash bars), rows with no live key exactly 0; rmsnorm 1e-5 in float32
+flash bars), rows with no live key exactly 0, two launches bitwise equal; rmsnorm 1e-5 in float32
 (tests/test_kernels.py's bar) and one bf16 ulp of the output in bf16
 (kernel and plain version each round their own float32 result, which may
 differ in the last float32 bit: the sums of squares run in other orders),
@@ -173,7 +173,8 @@ def test_round_reduces_launch_the_kernel_on_card(cuda):
         torch.testing.assert_close(outs["auto"][0][k], outs["fallback"][0][k], atol=1e-6, rtol=0)
 
 
-# tests/test_kernels.py's flash shapes, plus rows with no live key
+# tests/test_kernels.py's flash shapes, plus rows with no live key, plus
+# cases across the bf16 kernel's 128 x 128 tiles
 FLASH_SHAPES = [
     (1, 128, 128, 4, 2, 32, True, 0, 0),
     (2, 200, 200, 4, 4, 16, True, 64, 0),
@@ -182,6 +183,15 @@ FLASH_SHAPES = [
     (1, 257, 257, 2, 2, 128, True, 100, 0),  # ragged block edges
     (1, 16, 16, 2, 1, 16, False, 4, 10),  # rows past position 18 have no live key
     (1, 96, 96, 4, 2, 32, True, 0, 0),  # tests/test_kernels.py::test_flash_attention_dtypes
+    (1, 300, 450, 4, 2, 128, True, 0, 150),  # Sq, Sk not multiples of 128
+    (2, 333, 333, 6, 2, 64, True, 0, 0),
+    (1, 512, 512, 2, 1, 128, True, 200, 0),  # the window's edge cuts KV tiles mid-way
+    (1, 1024, 1024, 2, 1, 128, True, 700, 0),  # q tiles with KV tiles wholly inside the window
+    (1, 640, 640, 24, 2, 128, True, 256, 0),  # G 12, as StarCoder2-3B
+    (1, 200, 200, 4, 2, 16, False, 0, 0),  # each head dim without a mask
+    (1, 200, 200, 4, 2, 32, False, 0, 0),
+    (1, 200, 200, 4, 2, 64, False, 0, 0),
+    (1, 200, 200, 4, 2, 128, False, 0, 0),
 ]
 
 
@@ -218,6 +228,34 @@ def test_flash_kernel_reads_strided_layout_and_counts_launches(cuda):
     torch.cuda.synchronize()
     assert fa_ops.launches["flash_attention"] == 2
     assert torch.equal(o, o_c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_two_launches_bitwise_equal(cuda, dtype):
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(1, 700, 12, 128, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(1, 700, 1, 128, generator=g).to(cuda, dtype) for _ in range(2))
+    o = fa_ops.flash_attention(q, k, v, window=300)
+    o2 = fa_ops.flash_attention(q, k, v, window=300)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+
+
+def test_flash_bf16_raises_where_tma_cannot_read(cuda):
+    """bf16 reads q, k, v by TMA: a head stride of 68 elements (136 bytes)
+    or a base address 2 bytes off raise; float32 (no TMA) takes both."""
+    g = torch.Generator().manual_seed(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        wide = torch.randn(1, 40, 2, 68, generator=g).to(cuda, dtype)[..., :64]
+        flat = torch.randn(1 + 40 * 2 * 64, generator=g).to(cuda, dtype)[1:].view(1, 40, 2, 64)
+        for q in (wide, flat):
+            k = torch.randn(1, 40, 2, 64, generator=g).to(cuda, dtype)
+            if dtype == torch.bfloat16:
+                with pytest.raises(ValueError, match="TMA"):
+                    fa_ops.flash_attention(q, k, k)
+            else:
+                o = fa_ops.flash_attention(q, k, k)
+                torch.testing.assert_close(o, fa_ref.attention(q, k, k), atol=2e-5, rtol=0)
 
 
 def test_flash_kernel_raises_rather_than_falls_back(cuda):
@@ -271,9 +309,11 @@ def _rmsnorm_close(o, o_r):
 
 
 # tests/test_kernels.py's shapes, the LM step's rows, wide rows, and d that
-# takes the element-by-element path (not a multiple of the 16-byte vector)
+# takes the element-by-element path (not a multiple of the 16-byte vector);
+# odd row counts at the instances that put 2 or 4 rows in a block (d 5120
+# and 7168 in bf16, d 1024 in float32)
 RMSNORM_SHAPES = [(4, 7, 128), (1000, 256), (3, 64), (2048, 1024), (33, 5120), (5, 8192),
-                  (9, 100), (7, 1030), (1, 1)]
+                  (9, 100), (7, 1030), (1, 1), (7, 7168), (1023, 1024), (2, 5, 8192)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -313,6 +353,24 @@ def test_rmsnorm_kernel_groups_strides_and_copies_on_card(cuda, dtype):
                                atol=0, rtol=0)
     torch.cuda.synchronize()
     assert rn_ops.launches["rmsnorm"] == 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1024, 5120, 7168, 8192])
+def test_rmsnorm_grouped_scale_rows_at_a_stride_on_card(cuda, d, dtype):
+    """Grouped scale [3, d] as rows of a stacked [3, 3, d] leaf (16-byte
+    aligned, read in packs) and as a view one float off (read element by
+    element), over an odd number of rows a group."""
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(3, 5, d, generator=g).to(cuda, dtype)
+    stacked = (0.1 * torch.randn(3, 3, d, generator=g)).to(cuda)[:, 1]
+    shifted = (0.1 * torch.randn(3, d + 1, generator=g)).to(cuda)[:, 1:]
+    for s in (stacked, shifted):
+        assert not s.is_contiguous()
+        o = rn_ops.rmsnorm(x, s, groups=3)
+        torch.cuda.synchronize()
+        assert torch.equal(o, rn_ops.rmsnorm(x, s, groups=3))
+        _rmsnorm_close(o, rn_ref.rmsnorm(x, s, groups=3))
 
 
 def test_rmsnorm_vmap_grad_through_kernel_on_card(cuda):
