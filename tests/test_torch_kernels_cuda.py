@@ -195,6 +195,13 @@ FLASH_SHAPES = [
 ]
 
 
+# bf16 kernel vs the plain version in float32 on the upcast inputs, each
+# element relative to s = sum_j p_j |v_j| / l: the kernel's two bf16
+# roundings (P before P V, the output) give at most 2^-7 s (chip_smoke.py's
+# FLASH_BF16_F32_REL).
+FLASH_BF16_F32_REL = 1e-2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,qoff", FLASH_SHAPES)
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, Hq, Hkv, hd, causal,
@@ -213,6 +220,14 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, Hq, Hkv, hd,
     torch.testing.assert_close(o.float(), o_r.float(), atol=tol, rtol=0)
     empty = ~fa_ref.live_mask(Sq, Sk, device=cuda, **kw).any(1)
     assert (o[:, empty] == 0).all()
+    if dtype == torch.bfloat16:
+        from repro_torch import strict_fp32
+        with strict_fp32():
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            o32 = fa_ref.attention(q32, k32, v32, **kw)
+            s = fa_ref.attention(q32, k32, v32.abs(), **kw).clamp_min(1e-30)
+        rel = ((o.float() - o32).abs() / s).max().item()
+        assert rel <= FLASH_BF16_F32_REL, rel
 
 
 def test_flash_kernel_reads_strided_layout_and_counts_launches(cuda):
