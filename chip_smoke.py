@@ -8,13 +8,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``nvidia-smi`` prints them;
   2. build   — every CUDA kernel of the port, from the sources in this
      checkout, for sm_90a (nvcc, one process per source, all at once);
-     flash attention's and rmsnorm's registers, spills and static shared
-     memory from ptxas's report;
+     flash attention's, paged attention's and rmsnorm's registers, spills
+     and static shared memory from ptxas's report;
   3. parity  — each kernel against its plain PyTorch version on the card:
      paged decode and insert at full StarCoder2-3B widths in bf16 (B 8,
      Hq 24, Hkv 2, hd 128, page 16, 256 pages a slot; SWA window 4096 with
      the ring wrapped and not, full attention, partly and wholly inactive
-     batches, unallocated pages); vecavg at the CNN's [5, 555178] in
+     batches, unallocated pages after and inside the live range, an active
+     slot with every page unallocated; decode launched twice and held
+     bitwise against itself); vecavg at the CNN's [5, 555178] in
      float32 and bf16, at C 1 and 32, and at a ragged D 513, each launched
      twice and held bitwise against itself; flash attention in float32 and
      bf16 at StarCoder2-3B's [1, 8192, 24/2, 128] (causal, window 4096) and
@@ -35,7 +37,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the plain versions and the two are compared;
   5. profile — torch.profiler over a few serving ticks: device time by
      kernel and the device's busy share, against the wall of those ticks
-     with the profiler on and of the same ticks replayed without it;
+     with the profiler on and of the same ticks replayed without it; paged
+     decode's device ms a tick and its share of the tick's device time;
   6. fed     — the paper's CNN experiment (benchmarks/common.py ``FULL``,
      CNN fields): cnn-cifar10 on 4000 synthetic CIFAR-10-shaped samples,
      Case 3 over 5 clients, batch 32, eta 0.01, alpha 0.95, tau_max 50, 40
@@ -166,7 +169,7 @@ ROUND_PARAMS_ATOL = 1e-6
 # (params 1e-6) scaled by ten for the accumulation over the local steps.
 CARD_CPU_PARAMS_ATOL = 1e-5
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
-REBUILT = ("flash_attention", "rmsnorm")  # the kernels whose ptxas report phase 2 prints
+REBUILT = ("flash_attention", "paged_attention", "rmsnorm")  # ptxas reports phase 2 prints
 # Flash kernel vs its plain version: the JAX package's kernel-vs-oracle
 # bars (tests/test_kernels.py): 2e-5 in float32 (float32 sums in another
 # order), 3e-2 in bf16 (the plain version rounds logits and probabilities
@@ -349,13 +352,21 @@ def _page_table(gen, n_pages, pages_needed):
     return perm
 
 
-def decode_case(gen, dev, pos, active, window, tag):
+def decode_case(gen, dev, pos, active, window, tag, holes=(), empty=()):
+    """Kernel twice on fresh clones (bitwise to itself) and the plain
+    version on one input; each (slot, page) of ``holes`` and every page of
+    each slot in ``empty`` is unallocated."""
     n_pages = B * P + 3
     need = []
     for p in pos:
         rows = min(p + 64, window) if window else min(p + 64, P * PS)
         need.append(-(-rows // PS))
     pt = _page_table(gen, n_pages, need)
+    for b, p in holes:
+        require(p < need[b], f"[parity] decode {tag}: hole ({b}, {p}) past the live range")
+        pt[b, p] = -1
+    for b in empty:
+        pt[b] = -1
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -364,25 +375,35 @@ def decode_case(gen, dev, pos, active, window, tag):
     kp, vp = rnd(n_pages, PS, HKV, HD), rnd(n_pages, PS, HKV, HD)
     posd = torch.tensor(pos, dtype=torch.int32, device=dev)
     act = torch.tensor(active, dtype=torch.bool, device=dev)
-    kk, vk, kr, vr = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    kk, vk, kk2, vk2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    kr, vr = kp.clone(), vp.clone()
     o_k = pa_ops.paged_decode_attention(q, kk, vk, kn, vn, pt, posd, window=window,
                                         active=act)
+    o_k2 = pa_ops.paged_decode_attention(q, kk2, vk2, kn, vn, pt, posd, window=window,
+                                         active=act)
+    splits = pa_ops.last_decode["splits"]
     sync()
     o_r = pa_ref.paged_decode_attention(q, kr, vr, kn, vn, pt, posd, act, window=window)
     o_32 = pa_ref.paged_decode_attention(q.float(), kp.float(), vp.float(), kn.float(),
                                          vn.float(), pt, posd, act, window=window)
     sync()
+    require(torch.equal(o_k, o_k2) and torch.equal(kk, kk2) and torch.equal(vk, vk2),
+            f"[parity] decode {tag}: two launches on one input differ")
     require(torch.equal(kk, kr) and torch.equal(vk, vr),
             f"[parity] decode {tag}: pools differ from the plain version")
     require(bool(torch.isfinite(o_k).all()), f"[parity] decode {tag}: non-finite output")
+    for b in empty:
+        require(bool((o_k[b] == 0).all()), f"[parity] decode {tag}: slot {b} with no live "
+                "key is not 0")
     err = (o_k.float() - o_r.float()).abs().max().item()
     err32 = (o_k.float() - o_32).abs().max().item()
     ok = torch.allclose(o_k.float(), o_r.float(), atol=DECODE_ATOL, rtol=DECODE_RTOL)
     require(ok, f"[parity] decode {tag}: max |kernel - plain| {err}")
     require(torch.allclose(o_k.float(), o_32, atol=DECODE_F32_ATOL, rtol=DECODE_F32_RTOL),
             f"[parity] decode {tag}: max |kernel - f32| {err32}")
-    print(f"[parity] decode {tag}: pools bitwise; max|o - plain| {err:.3e} "
-          f"max|o - plain f32| {err32:.3e}")
+    print(f"[parity] decode {tag}: {splits} splits, bitwise across launches; pools bitwise; "
+          f"max|o - plain| {err:.3e} max|o - plain f32| {err32:.3e}"
+          + (f"; slots {list(empty)} with no live key exactly 0" if empty else ""))
     return err
 
 
@@ -420,6 +441,13 @@ def phase_parity(dev):
                     "window 4096, all inactive"),
         decode_case(gen, dev, [15, 16, 31, 4111, 255, 8191, 4096, 12], [True] * B, W,
                     "window 4096, page edges, all active"),
+        decode_case(gen, dev, [200, 1500, 4095, 9000, 300, 2500, 6000, 64], part, W,
+                    "window 4096, unallocated pages inside the live ranges",
+                    holes=[(0, 3), (1, 20), (1, 50), (2, 100), (2, 200), (3, 0), (3, 17),
+                           (4, 10), (5, 77), (6, 128), (7, 2)]),
+        decode_case(gen, dev, [100, 2000, 700, 4000, 30, 1200, 3333, 16], [True] * B, 0,
+                    "full attention, an active slot with every page unallocated",
+                    empty=(2,)),
     ]
     ins = max(insert_case(gen, dev, 30, 72, "30 layers, 72 of 256 pages"),
               insert_case(gen, dev, 30, 0, "30 layers, no page allocated"))
@@ -747,11 +775,15 @@ def phase_profile(loop, reqs, n_ticks=8):
                         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
                        key=lambda r: -r[1])
     busy_us = sum(t for _, t, _ in by_kernel)
+    # paged decode's own rows: its page walk and its merge
+    decode_us = sum(t for k, t, _ in by_kernel if "paged_decode" in k)
     out = dict(ticks=n_ticks, prefills=loop.prefill_dispatches - prefills,
                prefills_unprofiled=prefills_plain,
                wall_ms_per_tick=wall_us / n_ticks / 1e3,
                wall_ms_per_tick_unprofiled=plain_wall_us / n_ticks / 1e3,
                device_busy_ms_per_tick=busy_us / n_ticks / 1e3,
+               decode_device_ms_per_tick=decode_us / n_ticks / 1e3,
+               decode_share_of_device=decode_us / busy_us if busy_us else None,
                device_busy_share=busy_us / wall_us if busy_us else None,
                device_busy_share_unprofiled=busy_us / plain_wall_us if busy_us else None,
                top=[(k[:60], round(t / n_ticks / 1e3, 4), c) for k, t, c in by_kernel[:10]])
@@ -1014,6 +1046,7 @@ def phase_timing(model, loop, st, launches, errs):
                                                 act, window=W)
     rows = []
     ms = time_ms(ker)
+    split = dict(pa_ops.last_decode)  # what the wrapper launched with
     plain = time_ms(pln)
     rows.append(dict(
         name="paged_decode", route="cuda", source=DECODE_SRC,
@@ -1023,9 +1056,10 @@ def phase_timing(model, loop, st, launches, errs):
         bound_ms=1e3 * max(dec_bytes / HBM_BYTES_PER_S, dec_ops / BF16_OPS_PER_S),
         bound_by="bytes" if dec_bytes / HBM_BYTES_PER_S >= dec_ops / BF16_OPS_PER_S
         else "operations",
-        library_ms=None))
+        library_ms=None, splits=split["splits"]))
     print(f"[timing] paged_decode: {n_rows} valid rows over {B} slots, {n_write} writes, "
-          f"{dec_bytes} bytes")
+          f"{dec_bytes} bytes; {split['splits']} splits a (slot, kv head) at "
+          f"{split['blocks_per_sm']} blocks an SM, workspace {split['workspace_bytes']} bytes")
 
     # insert: one admission of the trace's largest request (plen 1024 +
     # max_new 128 - 1 rows = 72 pages) into the serve pool

@@ -10,6 +10,7 @@ through the kernels. Both ops update the pools in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict
 
@@ -19,6 +20,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import ref
 
 launches: Dict[str, int] = {"paged_decode": 0, "paged_insert": 0}
+# the split count, blocks an SM and workspace bytes of the last decode launch
+last_decode: Dict[str, int] = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -30,9 +33,16 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+# csrc/paged_attention.cu's decode: the head dims it is built for, and G <=
+# 4 * (query rows a lane)
+_DECODE_HEAD_DIMS = (32, 64, 128)
+_DECODE_MAX_G = 16
+
 # csrc/paged_attention.cu's C interface; every launch returns a cudaError_t
 _SIGNATURES = {
-    "paged_decode_attention_launch": ([_I] + [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P], _I),
+    "paged_decode_attention_launch": ([_I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P],
+                                      _I),
+    "paged_decode_occupancy": ([_I] * 4 + [ctypes.POINTER(_I)] * 2, _I),
     "paged_insert_launch": ([_P] * 5 + [_I] * 3 + [ctypes.c_longlong, _P], _I),
 }
 
@@ -56,6 +66,34 @@ def _raise_on(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def decode_occupancy(dtype: torch.dtype, hd: int, G: int, ps: int, index: int):
+    """(shared memory bytes, blocks an SM holds) of the decode instance for
+    these shapes on card ``index``, from the kernel's own C side; 0 blocks
+    when one does not fit."""
+    smem, blocks = _I(), _I()
+    with torch.cuda.device(index):
+        err = _lib().paged_decode_occupancy(_DTYPE_CODE[dtype], hd, G, ps,
+                                            ctypes.byref(smem), ctypes.byref(blocks))
+    _raise_on(err, "paged_decode_occupancy")
+    return smem.value, blocks.value
+
+
+def decode_splits(B: int, Hkv: int, P: int, resident: int) -> int:
+    """Blocks that one (slot, kv head) splits its page walk into: as many
+    as the card holds at once over the grid (``resident`` = SMs x blocks an
+    SM, so the grid runs in one wave), and no more splits than the page
+    table feeds four warps each. From the shapes and the card alone: never
+    from ``pos``, which lives on the card."""
+    want = resident // (B * Hkv)
+    return max(1, min(want, -(-P // ref.DECODE_WARPS)))
 
 
 def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
@@ -83,9 +121,13 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
         raise TypeError(f"paged_decode_attention: dtype {dt} not supported")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if (hd * q.element_size()) % 16:
-        raise ValueError(f"head_dim {hd} x {q.element_size()} bytes is not a "
-                         "multiple of the kernel's 16-byte vector loads")
+    G = Hq // Hkv
+    if hd not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the decode kernel is built for "
+                         f"{_DECODE_HEAD_DIMS}")
+    if G > _DECODE_MAX_G:
+        raise ValueError(f"{G} query heads a kv head: the decode kernel takes at "
+                         f"most {_DECODE_MAX_G}")
     if k_pool.shape != v_pool.shape or k_pool.shape[3] != hd:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match head_dim {hd}")
@@ -98,20 +140,34 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("k_new", k_new), ("v_new", v_new)):
         _check_cuda_tensor(name, t, dev, dt)
+    # serve/loop.py hands page_table and pos over as int32 and active as
+    # bool, so these are no-ops (no conversion kernel) on the serving path;
+    # the kernel reads active as bool bytes
     pt = page_table.to(torch.int32).contiguous()
     pos32 = pos.to(torch.int32).contiguous()
-    act32 = active.to(torch.int32).contiguous()
-    for name, t in (("page_table", pt), ("pos", pos32), ("active", act32)):
+    act = active.to(torch.bool).contiguous()
+    for name, t in (("page_table", pt), ("pos", pos32)):
         _check_cuda_tensor(name, t, dev, align=4)
+    _check_cuda_tensor("active", act, dev, align=1)
+    smem, per_sm = decode_occupancy(dt, hd, G, ps, dev.index)
+    if per_sm == 0:
+        raise ValueError(f"page_size {ps} x head_dim {hd} in {dt}: a decode block would "
+                         f"need {smem} B of shared memory, more than an SM gives one")
+    splits = decode_splits(B, Hkv, P, _sm_count(dev.index) * per_sm)
+    # float32 partials (o [G, hd], then m and l) of every split; freed on
+    # return, the caching allocator hands it out again only to work queued
+    # after this launch on the same stream
+    work = torch.empty(B * Hkv * splits * G * (hd + 2), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.paged_decode_attention_launch(
         _DTYPE_CODE[dt], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), pt.data_ptr(), pos32.data_ptr(),
-        act32.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv, hd, ps, P,
+        act.data_ptr(), work.data_ptr(), out.data_ptr(), B, Hkv, G, hd, ps, P, splits,
         int(window), 1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "paged_decode_attention launch")
     launches["paged_decode"] += 1
+    last_decode.update(splits=splits, blocks_per_sm=per_sm, workspace_bytes=work.numel() * 4)
     return out
 
 

@@ -5,8 +5,10 @@ The same arithmetic as the JAX package's ``kernels/paged_attention/ref.py``
 full softmax), written for torch. ``ops.py`` takes these for tensors on the
 CPU; the CPU tests hold them against the Pallas kernels, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
+``paged_decode_attention_split`` mirrors the CUDA decode kernel's split
+walk and merge for the CPU tests only.
 
-Both functions update the pools IN PLACE (the JAX versions return new
+The decode and insert functions update the pools IN PLACE (the JAX versions return new
 pools; torch has no buffer donation, so the port writes where it reads).
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 import torch
 
 NEG_INF = -1e30
+DECODE_WARPS = 4  # warps of a CUDA decode block (csrc kDecodeWarps)
 
 
 def slot_valid(page_table, pos, page_size: int, window: int):
@@ -70,6 +73,68 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
     w = torch.where(valid, w, torch.zeros_like(w))
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-30)
     o = torch.einsum("bhgk,bkhd->bhgd", w.to(v.dtype), v)
+    return o.reshape(B, Hq, hd).to(q.dtype)
+
+
+def paged_decode_attention_split(q, k_pool, v_pool, k_new, v_new, page_table, pos,
+                                 active, *, window: int = 0, splits: int = 1):
+    """The CUDA decode kernel's split-and-merge arithmetic in plain torch,
+    float32 throughout, for the CPU tests (nothing on the card path calls
+    it). Same arguments, result and pool writes as
+    :func:`paged_decode_attention`.
+
+    Worker (s, w) of a (slot, kv head) owns logical pages p = s + splits *
+    (w + DECODE_WARPS * k) and keeps a softmax partial (m, l, o) over its valid
+    entries: m = -1e30, l = 0, o = 0 if it has none. The warps of a split
+    merge in warp order, then the splits in split order, each merge taking
+    M = max m, c = exp(m - M), l = sum c l, o = sum c o; the output is
+    o / max(l, 1e-30), so a slot with no live key gives 0."""
+    B, Hq, hd = q.shape
+    N, ps, Hkv, _ = k_pool.shape
+    P = page_table.shape[1]
+    G = Hq // Hkv
+    pt = page_table.to(torch.int64)
+
+    # the pool write, as paged_decode_attention does it
+    pos64 = pos.to(torch.int64)
+    idx = (pos64 % window) if window else pos64
+    phys = pt.gather(1, (idx // ps)[:, None])[:, 0]
+    ok = (phys >= 0) & active.to(torch.bool)
+    k_pool[phys[ok], idx[ok] % ps] = k_new[ok]
+    v_pool[phys[ok], idx[ok] % ps] = v_new[ok]
+
+    safe_pt = pt.clamp(min=0)
+    k = k_pool[safe_pt].float()  # [B, P, ps, Hkv, hd]
+    v = v_pool[safe_pt].float()
+    valid = slot_valid(page_table, pos, ps, window).reshape(B, 1, 1, P, ps)
+    qg = q.float().reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bpkhd->bhgpk", qg, k) * (1.0 / math.sqrt(hd))
+
+    page = torch.arange(P, device=q.device)
+    split_of, warp_of = page % splits, (page // splits) % DECODE_WARPS
+
+    def partial(pages):
+        live = valid & pages.reshape(1, 1, 1, P, 1)
+        sm = torch.where(live, s, torch.full_like(s, NEG_INF))
+        m = sm.amax(dim=(-2, -1))
+        e = torch.where(live, torch.exp(sm - m[..., None, None]), torch.zeros_like(sm))
+        return m, e.sum(dim=(-2, -1)), torch.einsum("bhgpk,bpkhd->bhgd", e, v)
+
+    def merge(parts):
+        M = parts[0][0]
+        for m, _, _ in parts[1:]:
+            M = torch.maximum(M, m)
+        l = torch.zeros_like(M)
+        o = torch.zeros_like(parts[0][2])
+        for m, li, oi in parts:
+            c = torch.exp(m - M)
+            l = l + c * li
+            o = o + c[..., None] * oi
+        return M, l, o
+
+    _, l, o = merge([merge([partial((split_of == si) & (warp_of == wi))
+                            for wi in range(DECODE_WARPS)]) for si in range(splits)])
+    o = o / l.clamp(min=1e-30)[..., None]
     return o.reshape(B, Hq, hd).to(q.dtype)
 
 

@@ -6,7 +6,8 @@ Imports torch and the port only (no JAX), so it runs on the card's machine:
 
 Without a card every test skips (the kernels have no CPU mode). Bars:
 pools bitwise; outputs 1e-5 in float32, 2e-2 in bf16 (the plain version
-rounds logits and probabilities to bf16, the kernel keeps float32);
+rounds logits and probabilities to bf16, the kernel keeps float32), and
+two decode launches on one input bitwise equal;
 vecavg 1e-6 in float32 and 2e-2 in bf16 with norms at rtol 1e-4 (the bars
 of tests/test_kernels.py), and two launches on one input bitwise equal;
 flash attention 2e-5 in float32 and 3e-2 in bf16 (tests/test_kernels.py's
@@ -76,6 +77,98 @@ def test_decode_kernel_matches_plain_on_card(cuda, dtype, window, G):
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(o_k[active.to(cuda)].float(), o_p[active.to(cuda)].float(),
                                atol=tol, rtol=tol)
+
+
+# (window, pos of the 4 slots): P 256 pages of 16 a slot, so the wrapper
+# splits each (slot, kv head) across ~33 blocks; the short slots leave most
+# splits with no live key, window 16 all but split 0, and window 4096 wraps
+# the ring of slots 2 and 3
+SPLIT_POS = {0: [5, 700, 2050, 4095], 16: [3, 15, 40, 1000],
+             4096: [5, 700, 5000, 9000]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 16, 4096])
+@pytest.mark.parametrize("G", [1, 12])
+def test_decode_split_kernel_matches_plain_on_card(cuda, dtype, window, G):
+    """The split page walk: -1 pages inside the live ranges (so inside
+    splits), an inactive slot, pools bitwise, outputs within the bars, and
+    two launches on fresh clones bitwise equal."""
+    B, Hkv, hd, ps, P = 4, 2, 128, 16, 256
+    arrs, pt = _scenario(300 + G + window, B, G * Hkv, Hkv, hd, B * P + 3, P, ps)
+    for b, p in ((1, 7), (2, 1), (2, 100), (3, 33)):
+        pt[b, p] = -1
+    pos = torch.tensor(SPLIT_POS[window], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, True, False, True], device=cuda)
+    dev = [torch.from_numpy(a).to(cuda, dtype) for a in arrs]
+    ptd = torch.from_numpy(pt).to(cuda)
+    outs, pools = [], []
+    for _ in range(2):
+        ker = [t.clone() for t in dev]
+        before = pa_ops.launches["paged_decode"]
+        outs.append(pa_ops.paged_decode_attention(*ker, ptd, pos, window=window,
+                                                  active=active))
+        assert pa_ops.launches["paged_decode"] == before + 1
+        pools.append(ker[1:3])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa_ops.last_decode["splits"] == pa_ops.decode_splits(
+        B, Hkv, P, sms * pa_ops.last_decode["blocks_per_sm"]) > 1
+    pln = [t.clone() for t in dev]
+    o_p = tref.paged_decode_attention(*pln, ptd, pos, active, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    for kp, vp in pools:
+        assert torch.equal(kp, pln[1]) and torch.equal(vp, pln[2])
+    assert bool(torch.isfinite(outs[0].float()).all())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(outs[0].float(), o_p.float(), atol=tol, rtol=tol)
+
+
+def test_decode_slot_with_no_live_key_is_zero_on_card(cuda):
+    """An active slot whose every page is -1 gives exactly 0; its
+    neighbours match the plain version."""
+    B, Hkv, hd, ps, P = 4, 2, 128, 16, 64
+    arrs, pt = _scenario(400, B, 12 * Hkv, Hkv, hd, B * P + 3, P, ps)
+    pt[2, :] = -1
+    pos = torch.tensor([100, 900, 500, 1023], dtype=torch.int32, device=cuda)
+    active = torch.ones(B, dtype=torch.bool, device=cuda)
+    ker = [torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrs]
+    pln = [t.clone() for t in ker]
+    ptd = torch.from_numpy(pt).to(cuda)
+    o = pa_ops.paged_decode_attention(*ker, ptd, pos, window=0, active=active)
+    o_p = tref.paged_decode_attention(*pln, ptd, pos, active, window=0)
+    torch.cuda.synchronize()
+    assert torch.equal(o[2], torch.zeros_like(o[2]))
+    assert torch.equal(ker[1], pln[1]) and torch.equal(ker[2], pln[2])
+    torch.testing.assert_close(o.float(), o_p.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_decode_occupancy_from_the_kernel_on_card(cuda):
+    """The kernel's C side reports its shared memory and blocks an SM: the
+    float32 hd-128 page buffers (128 KB) leave room for one block, a 64-row
+    page for none."""
+    index = torch.cuda.current_device()
+    smem, blocks = pa_ops.decode_occupancy(torch.float32, 128, 12, 16, index)
+    assert (smem, blocks) == (4 * 4 * 16 * 128 * 4, 1)
+    smem, blocks = pa_ops.decode_occupancy(torch.bfloat16, 128, 12, 16, index)
+    assert smem == 4 * 4 * 16 * 128 * 2 and blocks >= 1
+    assert pa_ops.decode_occupancy(torch.float32, 128, 12, 64, index)[1] == 0
+
+
+def test_decode_raises_on_shapes_the_kernel_cannot_take(cuda):
+    """A head_dim the kernel is not built for, more than 16 query heads a
+    kv head, or a page whose buffers do not fit an SM, raise before any
+    launch."""
+    pt = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for Hq, Hkv, hd, ps in ((4, 2, 80, 16), (34, 2, 128, 16), (4, 2, 128, 64)):
+        q = torch.zeros(2, Hq, hd, device=cuda)
+        pool = torch.zeros(3, ps, Hkv, hd, device=cuda)
+        new = torch.zeros(2, Hkv, hd, device=cuda)
+        before = pa_ops.launches["paged_decode"]
+        with pytest.raises(ValueError):
+            pa_ops.paged_decode_attention(q, pool, pool.clone(), new, new.clone(), pt, pos)
+        assert pa_ops.launches["paged_decode"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
