@@ -61,8 +61,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      9 rmsnorm launches a forward (2 a layer and the final norm); backward
      through ``impl="pallas"`` raises; torch.profiler over one bf16
      forward (flash / GEMM / other); the flash timing rows: bf16 at the
-     three attention shapes and float32 at Qwen1.5-32B's, each timed in
-     turns with SDPA (kernel, SDPA, SDPA, kernel);
+     three attention shapes and float32 at Qwen1.5-32B's and at
+     StarCoder2-3B's S 8192 window 4096, each timed in turns with SDPA on
+     the same boolean mask and, where the mask is plain causal, SDPA with
+     ``is_causal=True`` (kernel, SDPA calls, the same in reverse, kernel);
+     the float32 bound at the dense TF32 peak, three products a product
+     (the kernel's 3xTF32), the CUDA cores' figure beside it (the kernels
+     SDPA launches in float32 at the Qwen1.5-32B shape are named by
+     torch.profiler right after phase 3, the ``[sdpa]`` line);
   9. lm      — federated LM training through ``FederatedSimulator`` with the
      JAX example's traffic (examples/train_lm_federated.py: 4 clients, one
      topic each, S 128, batch 4, tau_max 4, eta 0.05, FedVeca, evaluation
@@ -130,6 +136,7 @@ from repro_torch.serve.slots import RequestQueue  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, same source
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+TF32_OPS_PER_S = 494.7e12  # dense TF32 tensor-core peak, same source
 SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock: the host's head start in time_ms
 B, HQ, HKV, HD, PS, P = 8, 24, 2, 128, 16, 256  # StarCoder2-3B serve shapes
 W = 4096
@@ -1288,23 +1295,66 @@ def phase_forward_qwen(dev):
     return out
 
 
-def time_in_turns(kernel, library, **kw):
-    """``time_ms`` of the kernel and of a PyTorch call in turns (kernel,
-    library, library, kernel): -> (kernel ms, library ms, each pair)."""
+def time_in_turns(kernel, *libraries, **kw):
+    """``time_ms`` of the kernel and of PyTorch calls in turns (kernel,
+    each library call, the same in reverse, kernel): -> (kernel ms, [ms of
+    each library call], the kernel's pair, [each call's pair])."""
     k1 = time_ms(kernel, **kw)
-    l1, l2 = time_ms(library, **kw), time_ms(library, **kw)
+    first = [time_ms(fn, **kw) for fn in libraries]
+    second = [time_ms(fn, **kw) for fn in reversed(libraries)][::-1]
     k2 = time_ms(kernel, **kw)
-    return (k1 + k2) / 2, (l1 + l2) / 2, [k1, k2], [l1, l2]
+    return ((k1 + k2) / 2, [(a + b) / 2 for a, b in zip(first, second)], [k1, k2],
+            [[a, b] for a, b in zip(first, second)])
+
+
+def sdpa_f32_kernels(dev):
+    """The device kernels that SDPA launches in float32 at Qwen1.5-32B's
+    flash shape, with the boolean mask and with ``is_causal=True``
+    (torch.profiler, one session each after a warm-up call). Runs before
+    any other profiler session of the process: after phases 5, 6 and 8's
+    sessions, these short ones came back with no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff = FLASH_CASES[2]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (x.transpose(1, 2).contiguous()
+               for x in _flash_inputs(gen, dev, torch.float32, B, Sq, Sk, Hq, Hkv, hd))
+    mask = fa_ref.live_mask(Sq, Sk, causal=causal, window=window, q_offset=qoff, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = {"sdpa_mask": lambda: sdpa(q, k, v, attn_mask=mask),
+             "sdpa_is_causal": lambda: sdpa(q, k, v, is_causal=True)}
+    names = {}
+    with strict_fp32():
+        for call, fn in calls.items():
+            fn()
+            sync()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                sync()
+            names[call] = sorted({e.key for e in prof.key_averages()
+                                  if e.device_type == torch.autograd.DeviceType.CUDA})
+    if not any(names.values()):
+        print("[sdpa] the profiler recorded no device kernel")
+    print(f"[sdpa] {name} float32: device kernels {json.dumps(names)}")
+    return names
 
 
 def flash_timing_row(dev, launches, errs):
     """The flash kernel at the forward's shapes in bf16 (the main path's
-    type), and the float32 instance at Qwen1.5-32B's shape (phase 8's
-    float32 forward): kernel, plain version and SDPA with the same mask
-    (timed only; the port never calls it), kernel and SDPA in turns."""
+    type), and the float32 instance at Qwen1.5-32B's shape and at
+    StarCoder2-3B's S 8192 window 4096 (phase 8's float32 forwards):
+    kernel, plain version and SDPA (timed only; the port never calls it)
+    with the same boolean mask and, where the mask is plain causal (Sq =
+    Sk, no window, no offset), with ``is_causal=True`` and no mask; kernel
+    and SDPA calls in turns. ``library_ms`` is the faster SDPA call,
+    ``library_call`` names it. The float32 bound counts three TF32
+    products a product at the TF32 peak (the kernel's 3xTF32), with the
+    CUDA cores' figure beside it as ``cuda_core_bound_ms``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(21)
     rows = []
-    shapes = [(c, torch.bfloat16) for c in FLASH_CASES[:3]] + [(FLASH_CASES[2], torch.float32)]
+    shapes = ([(c, torch.bfloat16) for c in FLASH_CASES[:3]]
+              + [(FLASH_CASES[2], torch.float32), (FLASH_CASES[0], torch.float32)])
     for (name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff), dtype in shapes:
         q, k, v = _flash_inputs(gen, dev, dtype, B, Sq, Sk, Hq, Hkv, hd)
         kw = dict(causal=causal, window=window, q_offset=qoff)
@@ -1313,23 +1363,31 @@ def flash_timing_row(dev, launches, errs):
         el = q.element_size()
         n_bytes = el * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v in; o out
         n_ops = 4 * hd * pairs
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        if dtype == torch.bfloat16:
+            t_ops, f32_bound = n_ops / BF16_OPS_PER_S, {}
+        else:
+            t_ops = 3 * n_ops / TF32_OPS_PER_S
+            f32_bound = dict(cuda_core_bound_ms=1e3 * max(t_bytes, n_ops / F32_OPS_PER_S))
         qt, kt, vt = (x.transpose(1, 2).repeat_interleave(Hq // x.shape[2], dim=1).contiguous()
                       for x in (q, k, v))
+        libs = {"sdpa_mask": lambda: sdpa(qt, kt, vt, attn_mask=mask)}
+        if causal and Sq == Sk and not window and not qoff:
+            libs["sdpa_is_causal"] = lambda: sdpa(qt, kt, vt, is_causal=True)
         with strict_fp32():
-            ms, lib_ms, ms_pair, lib_pair = time_in_turns(
-                lambda: fa_ops.flash_attention(q, k, v, **kw),
-                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                                         attn_mask=mask))
+            ms, lib_ms, ms_pair, lib_pairs = time_in_turns(
+                lambda: fa_ops.flash_attention(q, k, v, **kw), *libs.values())
             plain = time_ms(lambda: fa_ref.attention(q, k, v, **kw), n=20)
+        lib = dict(zip(libs, lib_ms))
+        best = min(lib, key=lib.get)
         rows.append(dict(
             shape=f"{name} {str(dtype).replace('torch.', '')}", live_pairs=pairs, ms=ms,
             plain_ms=plain, bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib_ms,
-            ms_in_turns=ms_pair, library_ms_in_turns=lib_pair))
+            bound_by="bytes" if t_bytes >= t_ops else "operations", **f32_bound,
+            library_ms=lib[best], library_call=best, library_ms_by_call=lib,
+            ms_in_turns=ms_pair, library_ms_in_turns=dict(zip(libs, lib_pairs))))
         print(f"[timing] flash {rows[-1]['shape']}: {json.dumps(rows[-1])}")
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, mask, libs
     main_row = rows[0]
     return dict(name="flash_attention", route="cuda", source=FLASH_SRC,
                 replaces="src/repro/kernels/flash_attention/kernel.py:27",
@@ -1340,7 +1398,9 @@ def flash_timing_row(dev, launches, errs):
                                             "library_ms", "live_pairs")},
                 shape=main_row["shape"], other_shapes=rows[1:],
                 blocks_per_sm=fa_ops.blocks_per_sm(torch.bfloat16, 128),
-                smem_bytes=fa_ops.smem_bytes(torch.bfloat16, 128))
+                smem_bytes=fa_ops.smem_bytes(torch.bfloat16, 128),
+                blocks_per_sm_f32=fa_ops.blocks_per_sm(torch.float32, 128),
+                smem_bytes_f32=fa_ops.smem_bytes(torch.float32, 128))
 
 
 # ---------------------------------------------------------------------------
@@ -1569,7 +1629,7 @@ def rmsnorm_timing_row(dev, launches, err):
         n_bytes = 2 * N * d * x.element_size() + d * 4  # x in, y out, scale in
         n_ops = 4 * N * d  # square and add, then two products
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
-        ms, lib_ms, ms_pair, lib_pair = time_in_turns(
+        ms, [lib_ms], ms_pair, [lib_pair] = time_in_turns(
             lambda: rn_ops.rmsnorm(x, s),
             lambda: torch.nn.functional.rms_norm(x, (d,), weight=w, eps=1e-6))
         rows.append(dict(
@@ -1599,6 +1659,7 @@ def main() -> int:
     errs = phase_parity(dev)
     errs["vecavg"] = phase_vecavg_parity(dev)
     flash_errs = phase_flash_parity(dev)
+    sdpa_kernels = sdpa_f32_kernels(dev)
     errs["rmsnorm"] = phase_rmsnorm_parity(dev)
     model, params, loop, reqs, state, serve = phase_serve(dev)
     prof = phase_profile(loop, reqs)
@@ -1618,6 +1679,7 @@ def main() -> int:
     fwd["qwen_f32"] = phase_forward_qwen(dev)
     torch.cuda.empty_cache()
     rows.append(flash_timing_row(dev, fwd["bf16"]["launches"], flash_errs))
+    rows[-1]["sdpa_f32_kernels"] = sdpa_kernels
     torch.cuda.empty_cache()
     lm = {}
     m100, c100, p100, lm["100m"] = phase_lm(dev, "starcoder2-100m", lm_config("100m"),

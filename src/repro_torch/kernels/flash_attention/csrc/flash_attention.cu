@@ -59,15 +59,71 @@
 //     to bf16, staged in the warpgroup's Q rows (swizzled) and written by
 //     a TMA store, which drops rows past Sq.
 //
-// float32: the CUDA-core design (its bar is 2e-5 under strict float32; the
-// tensor cores would give TF32). One block of 256 threads owns one (b, q
-// head, 64-row q tile); each KV step stages a 64-row K and V tile in shared
-// memory as float32; every thread owns 4 query rows x 4 key columns of the
-// logits and 4 rows x hd/16 columns of the accumulator, so m, l and the
-// accumulator live in registers and the row max and sum are half-warp
-// shuffles; probabilities go through shared memory to the PV product. It
-// reads the strided layout in place, masks the ragged edges itself and
-// visits only KV tiles that hold a live key.
+// float32: tensor cores, three TF32 products a product (3xTF32), the
+// products that SDPA's float32 kernel (CUTLASS's memory-efficient
+// attention, OpMultiplyAddFastF32) uses as well.
+//   - Why three: an operand x splits into big = tf32(x) and small =
+//     tf32(x - big), each rounded to nearest with ties away from zero
+//     (cvt.rna's rounding, done on the integer bits; CUTLASS truncates big
+//     instead), so big + small holds x to ~2^-22 of |x|. a b is a_small b_big + a_big
+//     b_small + a_big b_big on mma.sync m16n8k8 TF32 with float32
+//     accumulators, small terms first; the dropped a_small b_small is
+//     ~2^-22 of |a b|. S and P V then err by ~1e-6 of their scale, inside
+//     the 2e-5 bar. One TF32 product errs by ~2^-11 of |v| in P V (~5e-4),
+//     past it.
+//   - Bound: 3 TF32 products of 4 hd operations a live pair at 494.7
+//     TFLOP/s (dense TF32), or the bytes, whichever is larger: 0.261 ms at
+//     Qwen1.5-32B's [1, 2048, 40/40, 128] causal, 1.88 ms at StarCoder2-3B's
+//     [1, 8192, 24/2, 128] causal window 4096 (the CUDA cores' 67 TFLOP/s
+//     would give 0.641 and 4.62 ms).
+//   - A block of 4 warps owns 64 query rows of one (b, q head); a warp owns
+//     16 rows. Its S (16 x the KV tile) and O (16 x hd) accumulators, and m
+//     and l of its rows, live in registers; the row max and sum are quad
+//     shuffles, l's only once, at the end.
+//   - The tensor cores' float32 accumulation truncates. S starts from zero
+//     each tile, but O summed in one accumulator over every key of a row
+//     (hundreds of mma steps) shrank by far more than the 2e-5 bar, and the
+//     float32 forward of StarCoder2-3B missed its 2e-4 logits bar. So each
+//     tile's P V goes into zeroed accumulators, a column group at a time,
+//     and O = O corr + that tile's part on the CUDA cores, rounded to
+//     nearest.
+//   - Copies are cp.async: the Q tile once, then K and V tiles of kBK keys
+//     (32 at hd 128, 64 below) into two stages, so that tile i + 1 is in
+//     flight while tile i is computed. The host picks the copy width at
+//     each launch (a template parameter): 16 bytes where q, k and v's bases
+//     and batch, sequence and head strides allow it, 4 bytes otherwise
+//     (the kernel takes any float32 layout with a contiguous hd axis).
+//     Rows past Sq and Sk are zero-filled. A thread walks its rows of a
+//     tile with one running address, so that the unrolled copies hold no
+//     address each across the tile (they made ptxas spill).
+//   - Both products sum over an index that A and B may permute alike, and
+//     the fragments use that so that each thread loads 16 bytes at a time
+//     and P never leaves registers. In Q K^T a thread's 4 adjacent hd
+//     columns serve k = t, t + 4 of two k-steps. In P V the S accumulator
+//     holds keys 2t, 2t + 1 of each 8-key step where the A fragment wants
+//     k = t, t + 4: so P is the A operand as it stands, and V's rows are
+//     read in that order (2t, 2t + 1) instead of P being shuffled across
+//     the quad (4 shuffles a k-step, and the same registers). Likewise the
+//     4 n-tiles of a 32-column group of O take column n = 4 c + j of n-tile
+//     j, so that one 16-byte load of V feeds all 4, and the store puts the
+//     columns back (each thread then writes 8 adjacent floats a row).
+//   - Row strides put the 8 lanes of each 16-byte phase on distinct banks:
+//     Q and K rows hd + 16 floats apart (16 banks between rows g and g +
+//     1), V rows hd + 4 (8 banks between rows 2t and 2t + 2).
+//   - Shared memory at hd 128: Q 36 KB and two stages of (K, V) 69 KB, 105
+//     KB a block, so 2 blocks (8 warps) fit an SM; hd 64: 94 KB, 2 blocks.
+//   - As before: the strided layout is read in place; only KV tiles with a
+//     live key for the block's rows are visited; the mask compares run
+//     only on tiles that straddle the diagonal, the window's edge or Sk
+//     for the warp's rows; rows past Sq are computed and never written; a
+//     row with no live key is 0 (max(l, 1e-30)); blocks go longest q tile
+//     first under a causal mask; no atomics, so two launches give the same
+//     bits.
+//   - Left open: wgmma TF32. It takes its B operand only K-major, so P V
+//     would need V transposed in shared memory each tile and the split
+//     operands staged twice. And each of the 4 warps splits the whole K
+//     and V tile again; splitting once a block needs big and small copies
+//     of both in shared memory, past what 2 blocks an SM leave.
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,187 +133,379 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // ===========================================================================
-// float32: CUDA cores
+// float32: mma.sync TF32, three products a product
 // ===========================================================================
 
-constexpr int kBQ = 64;        // query rows a block owns
-constexpr int kBK = 64;        // keys a KV tile holds
-constexpr int kThreads = 256;  // 16 row groups x 16 column groups
-constexpr int kKPad = 4;       // K rows stay 16-byte aligned, 4 banks apart
-
-// Reductions over the 16 lanes of a half-warp (one row group); every lane
-// ends with the same bits.
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float lane(const float4& v, int i) {
-  return reinterpret_cast<const float*>(&v)[i];
-}
+constexpr int kBQ = 64;        // query rows a block owns: 4 warps of 16
+constexpr int kThreads = 128;
 
 template <int HD>
-struct Layout {
-  // sQ [kBQ][HD] (read as broadcasts), sK [kBK][kKStride], sV [kBK][HD],
-  // sP [kBQ][kBK] (written as scalars, read as broadcasts)
-  static constexpr int kKStride = HD + kKPad;
-  static constexpr int kFloats = kBQ * HD + kBK * kKStride + kBK * HD + kBQ * kBK;
-  // accumulator columns a thread owns: kGroups runs of kVec adjacent columns
-  static constexpr int kCols = HD / 16;
-  static constexpr int kVec = kCols < 4 ? kCols : 4;
-  static constexpr int kGroups = kCols / kVec;
+struct F32Tiles {
+  // keys a KV tile holds; at hd 128, 64-key stages would leave room for
+  // one block an SM, not two
+  static constexpr int kBK = HD == 128 ? 32 : 64;
+  // row strides in floats (see the header): Q and K 16 mod 32, V 4 mod 32
+  static constexpr int kQKStride = HD % 32 == 16 ? HD : HD + 16;
+  static constexpr int kVStride = HD + 4;
+  // V columns a thread loads at once = n-tiles of O that one load feeds
+  static constexpr int kVW = HD >= 32 ? 4 : 2;
+  static constexpr int kQFloats = kBQ * kQKStride;
+  static constexpr int kKFloats = kBK * kQKStride;
+  static constexpr int kStageFloats = kKFloats + kBK * kVStride;  // K, then V
+  static constexpr int kSmem = 4 * (kQFloats + 2 * kStageFloats);
 };
 
-// grid (ceil(Sq / kBQ), Hq, B); dynamic shared memory Layout<HD>::kFloats floats
+// x rounded to TF32, to nearest with ties away from zero, as the b32 bits
+// that mma.sync takes: the bits of cvt.rna.tf32.f32 for every finite x,
+// computed on the integer bits (an add and a mask; ptxas expands cvt.rna
+// into a finiteness test, a select and the same add)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// D (16 x 8) += A (16 x 8) B (8 x 8), TF32 in, float32 accumulators. A
+// fragment: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// B: b0 (k t, column g), b1 (t + 4, g); D: d0, d1 (row g, columns 2t, 2t
+// + 1), d2, d3 (row g + 8); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D += A B from split operands: a_small b_big, a_big b_small, a_big b_big
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big);
+  mma_tf32(d, a_big, b_small);
+  mma_tf32(d, a_big, b_big);
+}
+
+// cp.async of CB bytes (16 or 4) from src to the shared address dst; with
+// in false nothing is read and CB zero bytes are written
+template <int CB>
+__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, bool in) {
+  const uint32_t n = in ? CB : 0;
+  if constexpr (CB == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of one head's [S, HD] slice at src (row stride
+// `stride` elements) by cp.async into shared memory at dst, DST floats a
+// row; rows at or past n_rows are zero-filled. A thread keeps one column
+// and walks its rows with one running address: with an address computed
+// for each copy of the unrolled loop, ptxas held them all across the tile
+// and spilled at hd 64 and 128. The 4-byte loop (4 times the copies) is
+// not unrolled.
+template <int HD, int CB, int ROWS, int DST>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const float* src, long long stride,
+                                          int row0, int n_rows) {
+  constexpr int kPer = CB / 4, kChunks = HD / kPer, kStep = kThreads / kChunks;  // rows a pass
+  static_assert(kThreads % kChunks == 0 && ROWS % kStep == 0, "whole passes");
+  const int r = static_cast<int>(threadIdx.x) / kChunks;
+  const int c = (static_cast<int>(threadIdx.x) % kChunks) * kPer;
+  const float* p = src + (row0 + r) * stride + c;
+  const long long step = kStep * stride;
+  dst += 4 * (r * DST + c);
+  if constexpr (CB == 16) {
+#pragma unroll
+    for (int i = 0; i < ROWS; i += kStep, p += step)
+      cp_async<CB>(dst + 4 * i * DST, row0 + r + i < n_rows ? p : src, row0 + r + i < n_rows);
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < ROWS; i += kStep, p += step)
+      cp_async<CB>(dst + 4 * i * DST, row0 + r + i < n_rows ? p : src, row0 + r + i < n_rows);
+  }
+}
+
+// One KV tile, keys [row0, row0 + kBK), into the stage at dst: K, then V
+template <int HD, int CB>
+__device__ __forceinline__ void copy_kv(uint32_t dst, const float* k, long long kss,
+                                        const float* v, long long vss, int row0, int Sk) {
+  using T = F32Tiles<HD>;
+  copy_rows<HD, CB, T::kBK, T::kQKStride>(dst, k, kss, row0, Sk);
+  copy_rows<HD, CB, T::kBK, T::kVStride>(dst + 4 * T::kKFloats, v, vss, row0, Sk);
+}
+
+template <int N>
+struct Vec;
+template <>
+struct Vec<2> {
+  using T = float2;
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+};
+
+template <int N>
+__device__ __forceinline__ void load_vec(float (&x)[N], const float* p) {
+  const typename Vec<N>::T v = *reinterpret_cast<const typename Vec<N>::T*>(p);
+  const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = f[i];
+}
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float* x) {
+  typename Vec<N>::T v;
+  float* f = reinterpret_cast<float*>(&v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) f[i] = x[i];
+  *reinterpret_cast<typename Vec<N>::T*>(p) = v;
+}
+
+// S (16 x kBK) = Q K^T for one warp: q at the thread's row g and column
+// 4t of the Q tile, k at row g and column 4t of the K tile. Each 16-byte
+// load covers hd columns 4t..4t+3 of a 16-column chunk, which serve k = t,
+// t + 4 of the chunk's two k-steps, alike in A and B.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void qk_tile(float (&s)[F32Tiles<HD>::kBK / 8][4], const float* q,
+                                        const float* k) {
+  using T = F32Tiles<HD>;
+#pragma unroll
+  for (int c = 0; c < HD; c += 16) {
+    float qa[4], qc[4];  // rows g, g + 8
+    load_vec<4>(qa, q + c);
+    load_vec<4>(qc, q + 8 * T::kQKStride + c);
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      split_tf32(qa[2 * st], ab[st][0], as[st][0]);
+      split_tf32(qc[2 * st], ab[st][1], as[st][1]);
+      split_tf32(qa[2 * st + 1], ab[st][2], as[st][2]);
+      split_tf32(qc[2 * st + 1], ab[st][3], as[st][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < T::kBK / 8; ++j) {
+      float kv[4];  // key 8j + g
+      load_vec<4>(kv, k + 8 * j * T::kQKStride + c);
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        uint32_t bb[2], bs[2];
+        split_tf32(kv[2 * st], bb[0], bs[0]);
+        split_tf32(kv[2 * st + 1], bb[1], bs[1]);
+        mma_3xtf32(s[j], ab[st], as[st], bb, bs);
+      }
+    }
+  }
+}
+
+// O (16 x HD) = O corr + P V for one warp over one KV tile. P is the S
+// accumulator (keys 2t, 2t + 1 of each 8-key step serve k = t, t + 4); v
+// at row 2t and column kVW g of the V tile; n-tile j of column group c
+// holds O's columns c 8 kVW + kVW n + j (n = 0..7). The tile's P V goes
+// into zeroed accumulators, a column group at a time, and is added to O
+// on the CUDA cores (see the header: the tensor cores truncate).
+template <int HD>
+__device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4],
+                                        const float (&p)[F32Tiles<HD>::kBK / 8][4],
+                                        const float (&corr)[2], const float* v) {
+  using T = F32Tiles<HD>;
+  constexpr int kVW = T::kVW;
+#pragma unroll
+  for (int c = 0; c < HD / (8 * kVW); ++c) {
+    float part[kVW][4];
+#pragma unroll
+    for (int j = 0; j < kVW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < T::kBK / 8; ++ks) {
+      uint32_t pb[4], ps[4];
+      split_tf32(p[ks][0], pb[0], ps[0]);
+      split_tf32(p[ks][2], pb[1], ps[1]);
+      split_tf32(p[ks][1], pb[2], ps[2]);
+      split_tf32(p[ks][3], pb[3], ps[3]);
+      const float* v0 = v + 8 * ks * T::kVStride + c * 8 * kVW;
+      float x0[kVW], x1[kVW];  // keys 2t, 2t + 1
+      load_vec<kVW>(x0, v0);
+      load_vec<kVW>(x1, v0 + T::kVStride);
+#pragma unroll
+      for (int j = 0; j < kVW; ++j) {
+        uint32_t bb[2], bs[2];
+        split_tf32(x0[j], bb[0], bs[0]);
+        split_tf32(x1[j], bb[1], bs[1]);
+        mma_3xtf32(part[j], pb, ps, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kVW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[c * kVW + j][e] = fmaf(o[c * kVW + j][e], corr[e >> 1], part[j][e]);
+  }
+}
+
+// grid (Hq, ceil(Sq / kBQ), B), kThreads threads, F32Tiles<HD>::kSmem
+// bytes of dynamic shared memory; CB the copy width in bytes (16 or 4).
+// scale_log2 = log2(e) / sqrt(hd). The launch bound asks for 2 blocks an
+// SM, what the shared memory holds at hd 64 and 128: without it ptxas
+// held the instances to 168-180 registers (room for 3) and spilled at hd
+// 64.
+template <int HD, int CB>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
                            int Hq, int G, long long qsb, long long qss, long long qsh,
                            long long ksb, long long kss, long long ksh, long long vsb,
                            long long vss, long long vsh, int causal, int window, int q_offset,
-                           float scale) {
-  using L = Layout<HD>;
+                           float scale_log2) {
+  using T = F32Tiles<HD>;
+  constexpr int kBK = T::kBK, kVW = T::kVW;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + kBQ * HD;
-  float* sV = sK + kBK * L::kKStride;
-  float* sP = sV + kBK * HD;
+  float* sKV = sQ + T::kQFloats;  // stage st: K at sKV + st kStageFloats, V after it
+  const uint32_t aQ = smem_addr(sQ), aKV = smem_addr(sKV);
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // longest first
+  const int q0 = qt * kBQ;
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + (h / G) * ksh;
   const float* vb = v + b * vsb + (h / G) * vsh;
 
-  // the q tile; rows past Sq are zero (computed, never written)
-  for (int idx = tid; idx < kBQ * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    sQ[r * HD + d] = q0 + r < Sq ? qb[(q0 + r) * qss + d] : 0.f;
-  }
-
-  // keys [k_lo, k_hi) hold every live key of this q tile
-  const int qa_lo = q_offset + q0;
-  const int qa_hi = q_offset + min(q0 + kBQ, Sq) - 1;
+  // keys [k_lo, k_hi) hold every live key of the block's rows
+  const int qa_lo = q_offset + q0, qa_hi = q_offset + min(q0 + kBQ, Sq) - 1;
   int k_lo = 0, k_hi = Sk;
   if (causal) k_hi = min(k_hi, qa_hi + 1);
   if (window) k_lo = max(k_lo, qa_lo - window + 1);
+  const int t_lo = k_lo / kBK;
+  const int n_tiles = k_hi > k_lo ? (k_hi + kBK - 1) / kBK - t_lo : 0;
 
-  float m[4], l[4], acc[4][L::kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < L::kCols; ++c) acc[i][c] = 0.f;
-  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wq_lo = qa_lo + 16 * warp, wq_hi = wq_lo + 15;  // the warp's rows
+  const int qpos = wq_lo + g;                                // the thread's: qpos, qpos + 8
 
-  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
-    __syncthreads();  // the last tile's reads are done; sQ is visible
-    for (int idx = tid; idx < kBK * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx % HD;
-      const bool in = k0 + r < Sk;  // rows past Sk are zero: p is 0 there, never NaN
-      sK[r * L::kKStride + d] = in ? kb[(k0 + r) * kss + d] : 0.f;
-      sV[r * HD + d] = in ? vb[(k0 + r) * vss + d] : 0.f;
-    }
-    __syncthreads();
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-    // logits of rows ty*4+i, keys tx+16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&sQ[(ty * 4 + i) * HD + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * L::kKStride + d]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          s[i][j] += qv[i].x * kv.x + qv[i].y * kv.y + qv[i].z * kv.z + qv[i].w * kv.w;
+  if (n_tiles > 0) {
+    copy_rows<HD, CB, kBQ, T::kQKStride>(aQ, qb, qss, q0, Sq);
+    copy_kv<HD, CB>(aKV, kb, kss, vb, vss, t_lo * kBK, Sk);
+    cp_async_commit();
+    const float* sQw = sQ + (16 * warp + g) * T::kQKStride + 4 * t;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i & 1;
+      if (i + 1 < n_tiles) {  // tile i + 1 flies while tile i is computed
+        copy_kv<HD, CB>(aKV + 4 * (st ^ 1) * T::kStageFloats, kb, kss, vb, vss,
+                        (t_lo + i + 1) * kBK, Sk);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-    }
+      __syncthreads();  // tile i (and the Q tile) visible to every warp
+      const float* sK = sKV + st * T::kStageFloats;
+      const float* sV = sK + T::kKFloats;
+      const int k0 = (t_lo + i) * kBK;
 
-    // the online softmax step of each row
+      float s[kBK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + ty * 4 + i;
-      bool live[4];
-      float mx = kNegInf;
+      for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        live[j] = kpos < Sk && (!causal || kpos <= qpos) && (!window || kpos > qpos - window);
-        s[i][j] = live[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = live[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
-      }
-      sum = half_warp_sum(sum);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < L::kCols; ++c) acc[i][c] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * kBK + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      qk_tile<HD>(s, sQw, sK + g * T::kQKStride + 4 * t);
 
-    // acc += P V over this tile's keys
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pv[4];
+      // the compares only where the tile straddles Sk, the diagonal or the
+      // window's edge for the warp's rows
+      if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > wq_lo) || (window && k0 <= wq_hi - window)) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&sP[(ty * 4 + i) * kBK + kk]);
+        for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-      for (int kd = 0; kd < 4; ++kd) {
-        const float* vrow = sV + (kk + kd) * HD;
-        float vals[L::kCols];
-#pragma unroll
-        for (int g = 0; g < L::kGroups; ++g)
-#pragma unroll
-          for (int e = 0; e < L::kVec; ++e)
-            vals[g * L::kVec + e] = vrow[g * 16 * L::kVec + tx * L::kVec + e];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = lane(pv[i], kd);
-#pragma unroll
-          for (int c = 0; c < L::kCols; ++c) acc[i][c] += p * vals[c];
-        }
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1), qp = qpos + 8 * (e >> 1);
+            const bool live = key < Sk && (!causal || key <= qp) && (!window || key > qp - window);
+            if (!live) s[j][e] = -INFINITY;
+          }
       }
+
+      // the online softmax step of the thread's two rows (m in log2 units)
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        const float m_new = fmaxf(m[r], quad_max(mx) * scale_log2);
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[j][2 * r + e];
+            x = exp2f(fmaf(x, scale_log2, -m_new));
+            sum += x;
+          }
+        l[r] = l[r] * corr[r] + sum;
+      }
+
+      pv_tile<HD>(acc, s, corr, sV + 2 * t * T::kVStride + kVW * g);
+      __syncthreads();  // every warp is done with stage st before tile i + 2 lands there
     }
   }
 
+  // o / max(l, 1e-30); the thread's columns of group c are c 8 kVW + 2t kVW
+  // + [0, 2 kVW): n-tile j's column 2t, then its column 2t + 1
+  float denom[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) denom[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + 16 * warp + g + 8 * r;
     if (qi >= Sq) continue;
-    float* orow = o + ((static_cast<long long>(b) * Sq + qi) * Hq + h) * HD;
-    const float denom = fmaxf(l[i], 1e-30f);
+    float* orow = o + ((static_cast<long long>(b) * Sq + qi) * Hq + h) * HD + 2 * t * kVW;
 #pragma unroll
-    for (int g = 0; g < L::kGroups; ++g)
+    for (int c = 0; c < HD / (8 * kVW); ++c) {
+      float y[2 * kVW];
 #pragma unroll
-      for (int e = 0; e < L::kVec; ++e)
-        orow[g * 16 * L::kVec + tx * L::kVec + e] = acc[i][g * L::kVec + e] / denom;
+      for (int j = 0; j < kVW; ++j) {
+        y[j] = acc[c * kVW + j][2 * r] / denom[r];
+        y[kVW + j] = acc[c * kVW + j][2 * r + 1] / denom[r];
+      }
+      store_vec<kVW>(orow + c * 8 * kVW, y);
+      store_vec<kVW>(orow + c * 8 * kVW + kVW, y + kVW);
+    }
   }
 }
 
@@ -285,10 +533,6 @@ struct Tiles {
   static constexpr int kKVBytes = kBK2 * HD * 2;  // one K or one V tile
   static constexpr int kSmem = kBarrierBytes + 1024 + kQBytes + 2 * kStages * kKVBytes;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -520,15 +764,6 @@ __device__ __forceinline__ void mask_tile(float (&s)[64], int k0, int qpos, int 
     }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // The online softmax step of one tile for the thread's two rows: m (log2
 // units) moves to the new max, s becomes exp2(s * scale_log2 - m), corr
 // is exp2(m_old - m_new), sum the thread's share of the row sums.
@@ -729,13 +964,13 @@ struct Args {
 
 // Lets the float32 kernel take its shared memory above 48 KB and asks for
 // the largest carveout, so that two blocks fit on an SM at hd 128.
-template <int HD>
+template <int HD, int CB>
 cudaError_t set_smem_f32() {
-  const int smem = Layout<HD>::kFloats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel<HD, CB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         F32Tiles<HD>::kSmem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(flash_attention_f32_kernel<HD>,
+  return cudaFuncSetAttribute(flash_attention_f32_kernel<HD, CB>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
@@ -751,10 +986,9 @@ int blocks_per_sm(bool f32) {
   int n = -1;
   cudaError_t err;
   if (f32) {
-    if (set_smem_f32<HD>() != cudaSuccess) return -1;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, flash_attention_f32_kernel<HD>, kThreads,
-        Layout<HD>::kFloats * static_cast<int>(sizeof(float)));
+    if (set_smem_f32<HD, 16>() != cudaSuccess) return -1;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_attention_f32_kernel<HD, 16>,
+                                                        kThreads, F32Tiles<HD>::kSmem);
   } else {
     if (set_smem_bf16<HD>() != cudaSuccess) return -1;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_attention_bf16_kernel<HD>,
@@ -763,18 +997,36 @@ int blocks_per_sm(bool f32) {
   return err == cudaSuccess ? n : -1;
 }
 
-template <int HD>
-int launch_f32(const Args& a) {
-  const int smem = Layout<HD>::kFloats * static_cast<int>(sizeof(float));
-  cudaError_t err = set_smem_f32<HD>();
+template <int HD, int CB>
+int launch_f32_copies(const Args& a) {
+  const int n_qt = (a.Sq + kBQ - 1) / kBQ;
+  if (n_qt > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem_f32<HD, CB>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B);
-  flash_attention_f32_kernel<HD><<<grid, kThreads, smem, a.stream>>>(
+  const dim3 grid(a.Hq, n_qt, a.B);
+  flash_attention_f32_kernel<HD, CB><<<grid, kThreads, F32Tiles<HD>::kSmem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Sq, a.Sk, a.Hq, a.Hq / a.Hkv,
       a.qsb, a.qss, a.qsh, a.ksb, a.kss, a.ksh, a.vsb, a.vss, a.vsh, a.causal, a.window,
-      a.q_offset, a.scale);
+      a.q_offset, a.scale * 1.4426950408889634f);
   return cudaGetLastError();
+}
+
+// Every row of a float32 [B, S, H, hd] tensor starts on 16 bytes: its base,
+// and the strides of its axes longer than 1, in whole 4-float units.
+bool rows_16b_aligned(const void* p, int B, int S, int H, long long sb, long long ss,
+                      long long sh) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || sb % 4 == 0) &&
+         (S <= 1 || ss % 4 == 0) && (H == 1 || sh % 4 == 0);
+}
+
+// 16-byte copies where q, k and v allow them, 4-byte copies otherwise
+template <int HD>
+int launch_f32(const Args& a) {
+  const bool wide = rows_16b_aligned(a.q, a.B, a.Sq, a.Hq, a.qsb, a.qss, a.qsh) &&
+                    rows_16b_aligned(a.k, a.B, a.Sk, a.Hkv, a.ksb, a.kss, a.ksh) &&
+                    rows_16b_aligned(a.v, a.B, a.Sk, a.Hkv, a.vsb, a.vss, a.vsh);
+  return wide ? launch_f32_copies<HD, 16>(a) : launch_f32_copies<HD, 4>(a);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
@@ -881,10 +1133,10 @@ int flash_attention_blocks_per_sm(int dtype, int hd) {
 int flash_attention_smem_bytes(int dtype, int hd) {
   const bool f = dtype == 0;
   switch (hd) {
-    case 16: return f ? Layout<16>::kFloats * 4 : Tiles<16>::kSmem;
-    case 32: return f ? Layout<32>::kFloats * 4 : Tiles<32>::kSmem;
-    case 64: return f ? Layout<64>::kFloats * 4 : Tiles<64>::kSmem;
-    case 128: return f ? Layout<128>::kFloats * 4 : Tiles<128>::kSmem;
+    case 16: return f ? F32Tiles<16>::kSmem : Tiles<16>::kSmem;
+    case 32: return f ? F32Tiles<32>::kSmem : Tiles<32>::kSmem;
+    case 64: return f ? F32Tiles<64>::kSmem : Tiles<64>::kSmem;
+    case 128: return f ? F32Tiles<128>::kSmem : Tiles<128>::kSmem;
     default: return -1;
   }
 }
@@ -893,8 +1145,10 @@ int flash_attention_smem_bytes(int dtype, int hd) {
 // in elements, for the batch, sequence and head axes (the head_dim axis is
 // contiguous); o is a contiguous [B, Sq, Hq, hd]. bf16 takes TMA: q, k, v
 // and o 16-byte aligned, and the strides of axes longer than 1 multiples
-// of 8 elements. Sq >= 1, Hq % Hkv == 0, B <= 65535; float32: Hq <= 65535;
-// bf16: ceil(Sq / 128) <= 65535. Returns a cudaError_t.
+// of 8 elements; float32 takes any of them (4-byte copies where 16-byte
+// ones do not fit). Sq >= 1, Hq % Hkv == 0, B <= 65535; float32:
+// ceil(Sq / 64) <= 65535; bf16: ceil(Sq / 128) <= 65535. Returns a
+// cudaError_t.
 int flash_attention_launch(int dtype, int hd, const void* q, const void* k, const void* v,
                            void* o, int B, int Sq, int Sk, int Hq, int Hkv, long long qsb,
                            long long qss, long long qsh, long long ksb, long long kss,

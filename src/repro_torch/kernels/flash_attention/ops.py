@@ -138,7 +138,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     ``use_pallas=False`` selects the plain version on any device (named
     only, as in the JAX ops). ``block_q``/``block_k`` keep the JAX
     signature: they tile the TPU grid there; the CUDA kernel's tiles are
-    fixed (bf16 128 x 128, float32 64 x 64) and no result depends on them.
+    fixed (bf16 128 x 128; float32 64 query rows by 32 keys at hd 128, 64
+    below) and no result depends on them.
     In bf16 the kernel reads q, k, v by TMA: each must have a 16-byte
     aligned base and batch, sequence and head strides, or the call raises.
     """

@@ -323,6 +323,83 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, Hq, Hkv, hd,
         assert rel <= FLASH_BF16_F32_REL, rel
 
 
+# float32 cases across the 3xTF32 kernel's edges: 64-row q tiles, KV tiles
+# of 32 keys at hd 128 and 64 below, 16-byte copies (q, k, v contiguous)
+# and 4-byte copies (misalign 1: each base 4 bytes past 16-byte alignment)
+FLASH_F32_EDGES = [
+    # B, Sq, Sk, Hq, Hkv, hd, causal, window, q_offset, misalign
+    (1, 77, 77, 4, 2, 128, True, 0, 0, 0),  # Sq, Sk not multiples of the tiles
+    (2, 100, 150, 2, 2, 64, False, 0, 0, 0),
+    (1, 50, 131, 4, 4, 64, True, 0, 81, 0),  # q_offset > 0, Sq < Sk, G 1
+    (1, 90, 300, 12, 1, 128, True, 100, 210, 0),  # and a window, G 12
+    (1, 300, 300, 2, 1, 128, True, 45, 0, 0),  # the window's edge inside a 32-key tile
+    (1, 300, 300, 4, 4, 64, True, 45, 0, 0),  # ... inside a 64-key tile
+    (1, 200, 200, 12, 1, 32, True, 70, 0, 0),
+    (1, 130, 130, 2, 2, 16, True, 0, 0, 0),
+    (1, 130, 130, 2, 1, 32, False, 0, 0, 0),
+    (1, 16, 16, 2, 1, 16, False, 4, 10, 0),  # rows past position 18 have no live key
+    (1, 77, 77, 4, 2, 128, True, 0, 0, 1),
+    (2, 100, 150, 4, 1, 64, False, 30, 60, 1),
+    (1, 64, 64, 2, 2, 16, True, 0, 0, 1),
+    (1, 200, 200, 12, 1, 32, True, 45, 0, 1),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,qoff,misalign", FLASH_F32_EDGES)
+def test_flash_f32_kernel_edges_on_card(cuda, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff,
+                                        misalign):
+    """The float32 kernel against the plain version under strict_fp32() at
+    2e-5, rows with no live key exactly 0, two launches bitwise equal, and
+    4-byte copies bitwise equal to 16-byte copies of the same values."""
+    from repro_torch import strict_fp32
+
+    g = torch.Generator().manual_seed(7 * Sq + Sk + hd)
+
+    def make(S, H):
+        n = B * S * H * hd
+        return torch.randn(n + misalign, generator=g).to(cuda)[misalign:].view(B, S, H, hd)
+
+    q, k, v = make(Sq, Hq), make(Sk, Hkv), make(Sk, Hkv)
+    assert all((t.data_ptr() % 16 != 0) == bool(misalign) for t in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    fa_ops.reset_launches()
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    o2 = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.launches["flash_attention"] == 2
+    with strict_fp32():
+        o_r = fa_ref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert torch.equal(o, o2)
+    torch.testing.assert_close(o, o_r, atol=2e-5, rtol=0)
+    empty = ~fa_ref.live_mask(Sq, Sk, device=cuda, **kw).any(1)
+    assert (o[:, empty] == 0).all()
+    if misalign:
+        o_a = fa_ops.flash_attention(q.clone(), k.clone(), v.clone(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o_a)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_f32_long_rows_of_offset_values_on_card(cuda, hd):
+    """v = 3 + randn over up to 4096 keys a row, so that |o| ~ 3: the
+    tensor cores' float32 accumulation truncates, and summed over every key
+    of a row in one accumulator it shrinks o by ~1e-4 of itself, past the
+    2e-5 bar; the kernel keeps that sum on the CUDA cores."""
+    from repro_torch import strict_fp32
+
+    g = torch.Generator().manual_seed(hd)
+    q = torch.randn(1, 512, 4, hd, generator=g).to(cuda)
+    k = torch.randn(1, 4096, 2, hd, generator=g).to(cuda)
+    v = (3.0 + torch.randn(1, 4096, 2, hd, generator=g)).to(cuda)
+    kw = dict(causal=True, window=0, q_offset=4096 - 512)
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    with strict_fp32():
+        o_r = fa_ref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, o_r, atol=2e-5, rtol=0)
+
+
 def test_flash_kernel_reads_strided_layout_and_counts_launches(cuda):
     """q, k, v as views into one fused [B, S, Hq + 2 Hkv, hd] projection:
     the kernel reads the strides in place and equals the contiguous call."""
