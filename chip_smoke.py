@@ -8,8 +8,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``nvidia-smi`` prints them;
   2. build   — every CUDA kernel of the port, from the sources in this
      checkout, for sm_90a (nvcc, one process per source, all at once);
-     flash attention's, paged attention's and rmsnorm's registers, spills
-     and static shared memory from ptxas's report;
+     flash attention's, paged attention's, rmsnorm's and vecavg's
+     registers, spills and static shared memory from ptxas's report;
   3. parity  — each kernel against its plain PyTorch version on the card:
      paged decode and insert at full StarCoder2-3B widths in bf16 (B 8,
      Hq 24, Hkv 2, hd 128, page 16, 256 pages a slot; SWA window 4096 with
@@ -17,8 +17,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      batches, unallocated pages after and inside the live range, an active
      slot with every page unallocated; decode launched twice and held
      bitwise against itself); vecavg at the CNN's [5, 555178] in
-     float32 and bf16, at C 1 and 32, and at a ragged D 513, each launched
-     twice and held bitwise against itself; flash attention in float32 and
+     float32 and bf16, at C 1 and 32, and at a ragged D 513, and its tree
+     form at the CNN's 8 leaves with and without div and at a tree of
+     float32 and bf16 leaves with misaligned rows (C 5 with div, C 32),
+     each launched twice and held bitwise against itself, with div also
+     bitwise against the tree divided first; flash attention in float32 and
      bf16 at StarCoder2-3B's [1, 8192, 24/2, 128] (causal, window 4096) and
      at S 4096, Qwen1.5-32B's [1, 2048, 40/40, 128], a q_offset case with
      Sq < Sk, a ragged edge, and rows with no live key (exactly 0), each
@@ -47,10 +50,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      must read 2 launches a round (240); then one round from one state
      through the kernel reduce and through the plain tree reduce (cuDNN
      deterministic), one round on the card against the port's CPU path,
-     and torch.profiler over two FedVeca rounds;
+     and torch.profiler over two FedVeca rounds (2 vecavg kernels a round:
+     one a reduce);
   7. timing  — each kernel at its main-path shapes against its bound, its
      plain version and, where one exists, a PyTorch call computing the
-     same function;
+     same function; vecavg's tree form at the CNN's leaves with div against
+     the parent's path (per-leaf divide, ``torch.cat``, a matmul), in
+     turns, with each path's host wall over 100 calls;
   8. forward — full-width StarCoder2-3B (random weights from seed 0), B 1,
      S 8192: ``forward`` and ``loss`` with ``impl="pallas"`` against
      ``impl="auto"`` (chunked above S 2048), in float32 (logits) and bf16
@@ -83,6 +89,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the rmsnorm kernel against the same round through the plain op; a
      torch.profiler breakdown of one round of each model; a
      checkpoint saved and restored bitwise on the card, with a bf16 leaf;
+     vecavg's tree form at Qwen1.5-0.5B's leaves (C 2) with div against
+     the parent's path, CUDA events in turns;
      rmsnorm's parity (phase 3) and timing rows, in turns with
      ``F.rms_norm``.
 
@@ -166,6 +174,18 @@ VECAVG_SQN_RTOL = 1e-4
 FED = dict(model="cnn-cifar10", n_train=4000, n_test=2000, clients=5, batch=32, eta=0.01,
            alpha=0.95, tau_max=50, rounds=40)
 CNN_D = 555178  # the CNN's parameters, all leaves concatenated
+# The CNN's leaves (cnn-cifar10): bf2's rows are 10 floats, so rows 1 and 3
+# of 5 are not 16-byte aligned
+CNN_LEAVES = {"b1": ((32,), torch.float32), "b2": ((32,), torch.float32),
+              "bf1": ((256,), torch.float32), "bf2": ((10,), torch.float32),
+              "conv1": ((5, 5, 3, 32), torch.float32), "conv2": ((5, 5, 32, 32), torch.float32),
+              "fc1": ((2048, 256), torch.float32), "fc2": ((256, 10), torch.float32)}
+# float32 and bf16 leaves with rows of 1, 3, 10 and 1023 columns, and
+# leaves that end inside a 1024-column chunk
+MIXED_LEAVES = {"a": ((1,), torch.float32), "b": ((3,), torch.bfloat16),
+                "c": ((10,), torch.float32), "d": ((1023,), torch.bfloat16),
+                "e": ((1025,), torch.float32), "f": ((2047,), torch.bfloat16),
+                "g": ((3, 1000), torch.float32)}
 # One fused round, kernel reduce vs plain tree reduce, from one state and
 # batches with deterministic cuDNN: only the two reduces differ (float32
 # sums in another order), ~1e-7 on the new params.
@@ -176,7 +196,7 @@ ROUND_PARAMS_ATOL = 1e-6
 # (params 1e-6) scaled by ten for the accumulation over the local steps.
 CARD_CPU_PARAMS_ATOL = 1e-5
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
-REBUILT = ("flash_attention", "paged_attention", "rmsnorm")  # ptxas reports phase 2 prints
+REBUILT = ("flash_attention", "paged_attention", "rmsnorm", "vecavg")  # ptxas reports phase 2 prints
 # Flash kernel vs its plain version: the JAX package's kernel-vs-oracle
 # bars (tests/test_kernels.py): 2e-5 in float32 (float32 sums in another
 # order), 3e-2 in bf16 (the plain version rounds logits and probabilities
@@ -487,6 +507,60 @@ def vecavg_case(gen, dev, C, D, dtype):
     return err
 
 
+def vecavg_tree_inputs(gen, dev, spec, C):
+    tree = {k: torch.randn((C,) + shape, generator=gen, device=dev).to(dt)
+            for k, (shape, dt) in spec.items()}
+    p = torch.rand(C, generator=gen, device=dev) + 0.1
+    tau = torch.randint(1, FED["tau_max"] + 1, (C,), generator=gen, device=dev).float()
+    return tree, p / p.sum(), tau
+
+
+def divide_first(tree, div):
+    """The parent's G = cum_g / tau, leaf by leaf."""
+    return {k: x / div.reshape((-1,) + (1,) * (x.dim() - 1)) for k, x in tree.items()}
+
+
+def vecavg_tree_case(gen, dev, name, spec, C, div):
+    """The tree form twice (bitwise to itself), against the plain version
+    (which divides first, then concatenates) on the same inputs; with div,
+    also bitwise against the kernel on the tree divided first."""
+    tree, p, tau = vecavg_tree_inputs(gen, dev, spec, C)
+    d = tau if div else None
+    scale = torch.full((), -0.01 * 23.5, device=dev)
+    out1, sqn1 = va_ops.vecavg_tree(tree, p, scale, div=d)
+    out2, sqn2 = va_ops.vecavg_tree(tree, p, scale, div=d)
+    want, sqn_r = va_ref.vecavg_tree(tree, p, scale, d)
+    sync()
+    tag = f"tree {name} C {C}{' div' if div else ''}"
+    require(all(torch.equal(out1[k], out2[k]) for k in tree) and torch.equal(sqn1, sqn2),
+            f"[parity] vecavg {tag}: two launches on one input differ")
+    if div:
+        first, sqn_f = va_ops.vecavg_tree(divide_first(tree, tau), p, scale)
+        sync()
+        differ = [k for k in tree if not torch.equal(out1[k], first[k])]
+        require(not differ and torch.equal(sqn1, sqn_f),
+                f"[parity] vecavg {tag}: dividing in the kernel differs from dividing first: "
+                f"leaves {differ}, sqn {sqn1.tolist()} vs {sqn_f.tolist()}")
+    err = 0.0
+    for k in tree:
+        o, w = out1[k], want[k]
+        require(o.dtype == w.dtype and o.shape == w.shape, f"[parity] vecavg {tag}: leaf {k}")
+        require(bool(torch.isfinite(o.float()).all()), f"[parity] vecavg {tag}: non-finite {k}")
+        tol = VECAVG_TOL[o.dtype]
+        e = (o.float() - w.float()).abs().max().item()
+        require(torch.allclose(o.float(), w.float(), atol=tol, rtol=tol),
+                f"[parity] vecavg {tag}: leaf {k} max|kernel - plain| {e}")
+        if o.dtype == torch.float32:
+            err = max(err, e)
+    sqn_err = ((sqn1 - sqn_r).abs() / sqn_r.abs()).max().item()
+    require(torch.allclose(sqn1, sqn_r, atol=0, rtol=VECAVG_SQN_RTOL),
+            f"[parity] vecavg {tag}: sqnorm rel err {sqn_err}")
+    print(f"[parity] vecavg {tag}: bitwise across launches"
+          f"{' and against dividing first' if div else ''}; max|dw - plain| float32 "
+          f"{err:.3e}, max sqn rel err {sqn_err:.3e}")
+    return err
+
+
 def phase_vecavg_parity(dev):
     """Returns the largest float32 error (the main path's dtype)."""
     gen = torch.Generator(device=dev).manual_seed(99)
@@ -496,6 +570,10 @@ def phase_vecavg_parity(dev):
             vecavg_case(gen, dev, 5, 513, torch.float32)]
     for C, D in ((5, CNN_D), (32, CNN_D), (5, 513)):
         vecavg_case(gen, dev, C, D, torch.bfloat16)
+    errs += [vecavg_tree_case(gen, dev, "cnn", CNN_LEAVES, 5, div=True),
+             vecavg_tree_case(gen, dev, "cnn", CNN_LEAVES, 5, div=False),
+             vecavg_tree_case(gen, dev, "mixed", MIXED_LEAVES, 5, div=True),
+             vecavg_tree_case(gen, dev, "mixed", MIXED_LEAVES, 32, div=False)]
     return max(errs)
 
 
@@ -985,18 +1063,23 @@ def phase_fed_profile(dev, model, clients, params, n_rounds=2):
     busy = sum(t for _, t, _ in by_kernel)
     launches = sum(c for _, _, c in by_kernel)
     vecavg = [(t, c) for k, t, c in by_kernel if "vecavg" in k]
+    seen = busy > 0  # an empty profile is printed empty, never as 0 ms
     out = dict(rounds=n_rounds, wall_ms_per_round=wall_us / n_rounds / 1e3,
-               vecavg_device_ms_per_round=sum(t for t, _ in vecavg) / n_rounds / 1e3,
-               vecavg_kernels_per_round=sum(c for _, c in vecavg) / n_rounds,
+               vecavg_device_ms_per_round=(sum(t for t, _ in vecavg) / n_rounds / 1e3
+                                           if seen else None),
+               vecavg_kernels_per_round=sum(c for _, c in vecavg) / n_rounds if seen else None,
                wall_ms_per_round_unprofiled=plain_us / n_rounds / 1e3,
-               device_busy_ms_per_round=busy / n_rounds / 1e3,
-               device_busy_share_unprofiled=busy / plain_us if busy else None,
-               device_busy_share=busy / wall_us if busy else None,
-               kernel_launches_per_round=launches / n_rounds,
+               device_busy_ms_per_round=busy / n_rounds / 1e3 if seen else None,
+               device_busy_share_unprofiled=busy / plain_us if seen else None,
+               device_busy_share=busy / wall_us if seen else None,
+               kernel_launches_per_round=launches / n_rounds if seen else None,
                top=[(k[:60], round(t / n_rounds / 1e3, 4), c) for k, t, c in by_kernel[:12]])
-    if busy == 0:
+    if not seen:
         print("[fed-profile] the profiler recorded no device time")
     print(f"[fed-profile] {json.dumps(out)}")
+    # one vecavg kernel a reduce, two reduces a round
+    require(not seen or out["vecavg_kernels_per_round"] == 2,
+            f"[fed-profile] {out['vecavg_kernels_per_round']} vecavg kernels a round, expected 2")
     return out
 
 
@@ -1114,6 +1197,92 @@ def vecavg_timing_row(dev, launches, err):
         library_ms=time_ms(lambda: (-scale * (p @ u), (u * u).sum(1))))
     print(f"[timing] vecavg: {n_bytes} bytes, {n_ops} float32 ops")
     return row
+
+
+def vecavg_old_path(tree, p, scale, div):
+    """The parent's reduce as one PyTorch computation (timed only; the port
+    never calls it): G = cum_g / tau leaf by leaf, ``torch.cat`` into one
+    float32 [C, D], then ``-scale * (p @ U)`` and ``(U * U).sum(1)``."""
+    C = p.shape[0]
+    u = torch.cat([x.reshape(C, -1) for _, x in sorted(divide_first(tree, div).items())], 1)
+    return -scale * (p @ u), (u * u).sum(1)
+
+
+def vecavg_tree_bound(tree, C):
+    """(bytes, float32 operations) of the tree form with div: every leaf
+    read once, each output written once, p, div, scale and sqn."""
+    n = sum(x.numel() for x in tree.values())
+    n_bytes = sum(x.numel() * x.element_size() for x in tree.values()) + 4 * (n // C)
+    return n_bytes + 4 * (3 * C + 1), 5 * n  # a division, two multiply-adds an element
+
+
+def host_wall_ms(fn, n=100):
+    """Host wall a call over ``n`` calls ending in one sync: what the
+    wrapper's host work costs, which ``time_ms``'s spin hides."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def vecavg_tree_timing_row(dev, launches, err):
+    """The tree form at the CNN's 8 leaves (C 5) with div, as the round's
+    global step calls it: the kernel against the parent's path (the per-leaf
+    divide, ``torch.cat``, a matmul and a sum of squares), device time in
+    turns, and each path's host wall over 100 calls."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    C = FED["clients"]
+    tree, p, tau = vecavg_tree_inputs(gen, dev, CNN_LEAVES, C)
+    scale = torch.full((), -0.235, device=dev)
+    n_bytes, n_ops = vecavg_tree_bound(tree, C)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    new = lambda: va_ops.vecavg_tree(tree, p, scale, div=tau)  # noqa: E731
+    old = lambda: vecavg_old_path(tree, p, scale, tau)  # noqa: E731
+    ms, [old_ms], ms_pair, [old_pair] = time_in_turns(new, old)
+    row = dict(
+        name="vecavg_tree", route="cuda", source=VECAVG_SRC,
+        replaces="src/repro/kernels/vecavg/kernel.py:21", launches=launches, max_abs_err=err,
+        ms=ms, plain_ms=time_ms(lambda: va_ref.vecavg_tree(tree, p, scale, tau)),
+        bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=old_ms,
+        library_call="the parent's path: per-leaf divide, torch.cat, -scale * (p @ U), "
+                     "(U * U).sum(1)",
+        ms_in_turns=ms_pair, library_ms_in_turns=old_pair,
+        host_wall_ms=host_wall_ms(new), library_host_wall_ms=host_wall_ms(old),
+        shape=f"CNN leaves, C {C}, div")
+    print(f"[timing] vecavg_tree: {n_bytes} bytes, {json.dumps(row)}")
+    return row
+
+
+def vecavg_tree_lm_timing(dev, params, C):
+    """The tree form at Qwen1.5-0.5B's leaves (C 2) with div, against the
+    parent's path, CUDA events in turns (each call moves gigabytes)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    spec = {k: (tuple(v.shape), torch.float32) for k, v in params.items()}
+    tree, p, tau = vecavg_tree_inputs(gen, dev, spec, C)
+    scale = torch.full((), -0.05 * 4.0, device=dev)
+    n_bytes, n_ops = vecavg_tree_bound(tree, C)
+    bound = 1e3 * max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
+    out_k, sqn_k = va_ops.vecavg_tree(tree, p, scale, div=tau)
+    with strict_fp32():
+        dw_o, sqn_o = vecavg_old_path(tree, p, scale, tau)
+    err = (torch.cat([out_k[k].reshape(-1) for k in sorted(tree)]) - dw_o).abs().max().item()
+    sqn_err = ((sqn_k - sqn_o).abs() / sqn_o).max().item()
+    require(err <= VECAVG_TOL[torch.float32] and sqn_err <= VECAVG_SQN_RTOL,
+            f"[lm] vecavg_tree vs the parent's path: max|dw| {err}, sqn rel {sqn_err}")
+    del out_k, sqn_k, dw_o, sqn_o
+    ms, [old_ms], ms_pair, [old_pair] = time_in_turns(
+        lambda: va_ops.vecavg_tree(tree, p, scale, div=tau),
+        lambda: vecavg_old_path(tree, p, scale, tau), n=10, warmup=2)
+    out = dict(leaves=len(tree), C=C, params_m=sum(v.numel() for v in params.values()) / 1e6,
+               bytes=n_bytes, ms=ms, bound_ms=bound, old_path_ms=old_ms, ms_in_turns=ms_pair,
+               old_path_ms_in_turns=old_pair, max_abs_vs_old_path=err,
+               sqn_rel_vs_old_path=sqn_err)
+    print(f"[timing] vecavg_tree qwen1.5-0.5b: {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1670,6 +1839,8 @@ def main() -> int:
     fed["checks"] = phase_fed_checks(dev, cnn, clients, veca.params)
     fed["profile"] = phase_fed_profile(dev, cnn, clients, veca.params)
     rows.append(vecavg_timing_row(dev, fed["launches"]["vecavg"], errs["vecavg"]))
+    tree_row = vecavg_tree_timing_row(dev, fed["launches"]["vecavg"], errs["vecavg"])
+    rows.append(tree_row)
     del cnn, clients, veca
     torch.cuda.empty_cache()
     fwd = phase_forward_f32(dev)
@@ -1693,6 +1864,8 @@ def main() -> int:
     lm["kernel_vs_plain_round"] = phase_lm_round_check(dev, qwen, qclients, qparams)
     torch.cuda.empty_cache()
     lm["profile_qwen1.5-0.5b"] = phase_lm_profile(dev, qwen, qclients, qparams)
+    torch.cuda.empty_cache()
+    tree_row["qwen1.5-0.5b"] = vecavg_tree_lm_timing(dev, qparams, QWEN05_CLIENTS)
     del qwen, qclients, qparams
     torch.cuda.empty_cache()
     rows.append(rmsnorm_timing_row(dev, lm["qwen1.5-0.5b"]["launches"]["rmsnorm"],

@@ -16,12 +16,16 @@ In the port the client half sees the whole client axis at once: ``g``,
 ``drift`` and ``c_client`` are stacked trees ``[C, ...]`` and ``c_server``
 is unstacked (it broadcasts).
 
-Every server half routes through a ``reduce(stacked, w, scale) -> (tree,
-sqnorms)`` callable. ``kernel_reduce`` is the vecavg kernel — one
-flattened [C, D_total] pass that also yields the per-client squared norms
-— and, like every kernel wrapper, dispatches by device: a CPU tensor takes
-its plain version, a CUDA tensor the kernel. ``fallback_reduce`` is the
-per-leaf tree path, and is taken only when asked for by name.
+Every server half routes through a ``reduce(stacked, w, scale, div=None)
+-> (tree, sqnorms)`` callable; ``div`` [C] divides each client's row first
+(FedVeca's and FedNova's G_i = cum_g_i / tau_i, which the JAX package
+materialises as a tree). ``kernel_reduce`` is the vecavg kernel — one
+launch over every leaf where it lies, the division folded in, that also
+yields the per-client squared norms — and, like every kernel wrapper,
+dispatches by device: a CPU tensor takes its plain version (which divides
+first, as the JAX package does), a CUDA tensor the kernel.
+``fallback_reduce`` is the per-leaf tree path, and is taken only when asked
+for by name.
 """
 from __future__ import annotations
 
@@ -40,13 +44,16 @@ from repro_torch.kernels.vecavg.ops import vecavg_tree
 
 MODES = ("fedveca", "fednova", "fedavg", "fedprox", "scaffold")
 
-# reduce(stacked [C,...] tree, w [C], scale scalar)
-#   -> (scale * sum_c w_c * stacked_c, per-client ||stacked_c||^2)
-Reduce = Callable[[Any, torch.Tensor, Any], Tuple[Any, torch.Tensor]]
+# reduce(stacked [C,...] tree, w [C], scale scalar, div [C] or None)
+#   -> (scale * sum_c w_c * u_c, per-client ||u_c||^2), u_c = stacked_c / div_c
+Reduce = Callable[..., Tuple[Any, torch.Tensor]]
 
 
-def fallback_reduce(stacked, w, scale):
-    """Per-leaf weighted reduction (tensordot) in plain PyTorch."""
+def fallback_reduce(stacked, w, scale, div=None):
+    """Per-leaf weighted reduction (tensordot) in plain PyTorch, after the
+    per-leaf division by ``div``."""
+    if div is not None:
+        stacked = tree_map(lambda x: x / _per_client(div, x), stacked)
     out = tree_scale(tree_weighted_sum(stacked, w), scale)
     return out, tree_sqnorm_per_client(stacked)
 
@@ -56,10 +63,10 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     return x.sum()
 
 
-def kernel_reduce(stacked, w, scale):
-    """The vecavg kernel: one [C, D_total] pass, norms ride along."""
+def kernel_reduce(stacked, w, scale, div=None):
+    """The vecavg kernel: one pass over every leaf, norms ride along."""
     # vecavg computes -scale * p @ U, so negate to match reduce's contract.
-    return vecavg_tree(stacked, w, -scale)
+    return vecavg_tree(stacked, w, -scale, div=div)
 
 
 def make_reduce(spec) -> Reduce:
@@ -114,9 +121,9 @@ class FedVecaStrategy(Strategy):
     name = "fedveca"
 
     def server_delta(self, outs, params, tau_f, p, eta, reduce):
-        G = tree_map(lambda x: x / _per_client(tau_f, x), outs["cum_g"])  # cum_g_i / tau_i
         tau_k = global_sum(p * tau_f)
-        delta_w, _ = reduce(G, p, -eta * tau_k)
+        # G_i = cum_g_i / tau_i, divided inside the reduce
+        delta_w, _ = reduce(outs["cum_g"], p, -eta * tau_k, div=tau_f)
         return delta_w
 
 

@@ -9,7 +9,8 @@ pools bitwise; outputs 1e-5 in float32, 2e-2 in bf16 (the plain version
 rounds logits and probabilities to bf16, the kernel keeps float32), and
 two decode launches on one input bitwise equal;
 vecavg 1e-6 in float32 and 2e-2 in bf16 with norms at rtol 1e-4 (the bars
-of tests/test_kernels.py), and two launches on one input bitwise equal;
+of tests/test_kernels.py), two launches on one input bitwise equal, and
+its division folded in bitwise equal to dividing first;
 flash attention 2e-5 in float32 and 3e-2 in bf16 (tests/test_kernels.py's
 flash bars), rows with no live key exactly 0, two launches bitwise equal; rmsnorm 1e-5 in float32
 (tests/test_kernels.py's bar) and one bf16 ulp of the output in bf16
@@ -264,6 +265,122 @@ def test_round_reduces_launch_the_kernel_on_card(cuda):
     for k in params:
         assert torch.equal(outs["auto"][0][k], outs["pallas"][0][k])
         torch.testing.assert_close(outs["auto"][0][k], outs["fallback"][0][k], atol=1e-6, rtol=0)
+
+
+# The CNN's leaves (cnn-cifar10, D 555178): bf2 is 10 floats, 40 B a row,
+# so its rows 1, 3 of C 5 are not 16-byte aligned
+CNN_LEAVES = {"b1": (32,), "b2": (32,), "bf1": (256,), "bf2": (10,), "conv1": (5, 5, 3, 32),
+              "conv2": (5, 5, 32, 32), "fc1": (2048, 256), "fc2": (256, 10)}
+# mixed dtypes; rows of 1, 3, 10 and 1023 columns (misaligned for C > 1);
+# leaves that end 1, 1023 and 952 columns into a 1024-column chunk
+MIXED_LEAVES = {"a": ((1,), torch.float32), "b": ((3,), torch.bfloat16),
+                "c": ((10,), torch.float32), "d": ((1023,), torch.bfloat16),
+                "e": ((1025,), torch.float32), "f": ((2047,), torch.bfloat16),
+                "g": ((3, 1000), torch.float32)}
+VECAVG_TREES = ([("cnn", 5)] + [("mixed", C) for C in (1, 2, 5, 32, 1536)])
+
+
+def _vecavg_tree(cuda, name, C, seed=0):
+    g = torch.Generator().manual_seed(seed * 1000 + C)
+    spec = ({k: (s, torch.float32) for k, s in CNN_LEAVES.items()} if name == "cnn"
+            else MIXED_LEAVES)
+    tree = {k: torch.randn((C,) + s, generator=g).to(cuda, dt) for k, (s, dt) in spec.items()}
+    p = torch.rand(C, generator=g).add_(0.1).to(cuda)
+    tau = torch.randint(1, 51, (C,), generator=g).to(cuda, torch.float32)
+    return tree, p / p.sum(), tau
+
+
+def _tree_bitwise(a, b):
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("div", [False, True])
+@pytest.mark.parametrize("name,C", VECAVG_TREES)
+def test_vecavg_tree_matches_plain_on_card(cuda, name, C, div):
+    """The tree form, one launch a call, twice bitwise equal, against its
+    plain version (which divides first, then concatenates)."""
+    tree, p, tau = _vecavg_tree(cuda, name, C)
+    d = tau if div else None
+    scale = torch.tensor(-0.01 * 23.5, device=cuda)
+    va_ops.reset_launches()
+    out, sqn = va_ops.vecavg_tree(tree, p, scale, div=d)
+    out2, sqn2 = va_ops.vecavg_tree(tree, p, scale, div=d)
+    torch.cuda.synchronize()
+    assert va_ops.launches["vecavg"] == 2
+    assert _tree_bitwise(out, out2) and torch.equal(sqn, sqn2)
+    want, sqn_r = va_ref.vecavg_tree({k: v.cpu() for k, v in tree.items()}, p.cpu(),
+                                     scale.cpu(), None if d is None else d.cpu())
+    assert list(out) == sorted(tree)
+    for k in tree:
+        assert out[k].dtype == want[k].dtype and out[k].shape == tree[k].shape[1:], k
+        tol = 1e-6 if out[k].dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(out[k].float().cpu(), want[k].float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(sqn.cpu(), sqn_r, atol=0, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,C", VECAVG_TREES)
+def test_vecavg_div_folded_is_dividing_first_bitwise_on_card(cuda, name, C):
+    """The kernel's division gives the bits of torch's x / tau before it,
+    in both output trees and the norms (bf16 leaves divide into float32)."""
+    tree, p, tau = _vecavg_tree(cuda, name, C, seed=1)
+    folded, sqn_f = va_ops.vecavg_tree(tree, p, 0.3, div=tau)
+    first = {k: x / tau.reshape((-1,) + (1,) * (x.dim() - 1)) for k, x in tree.items()}
+    plain, sqn_p = va_ops.vecavg_tree(first, p, 0.3)
+    torch.cuda.synchronize()
+    assert _tree_bitwise(folded, plain) and torch.equal(sqn_f, sqn_p)
+
+
+def test_vecavg_counter_resets_across_calls_on_card(cuda):
+    """20 calls over alternating shapes (other grids, other leaf tables),
+    each bitwise equal to a call on a fresh workspace: the last block set
+    the counter back to 0 every time."""
+    cases = [_vecavg_tree(cuda, "cnn", 5, seed=2), _vecavg_tree(cuda, "mixed", 32, seed=3),
+             _vecavg_tree(cuda, "mixed", 2, seed=4)]
+    fresh = []
+    for tree, p, tau in cases:
+        va_ops._workspaces.clear()
+        fresh.append(va_ops.vecavg_tree(tree, p, 0.5, div=tau))
+    for i in range(20):
+        tree, p, tau = cases[i % len(cases)]
+        out, sqn = va_ops.vecavg_tree(tree, p, 0.5, div=tau)
+        want, want_sqn = fresh[i % len(cases)]
+        assert _tree_bitwise(out, want) and torch.equal(sqn, want_sqn), i
+    torch.cuda.synchronize()
+
+
+def test_vecavg_leaf_cap_raises_on_card(cuda):
+    p = torch.full((2,), 0.5, device=cuda)
+    ok = {f"w{i:03d}": torch.ones(2, 3, device=cuda) for i in range(va_ops.MAX_LEAVES)}
+    out, sqn = va_ops.vecavg_tree(ok, p, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(sqn, torch.full((2,), 3.0 * va_ops.MAX_LEAVES, device=cuda))
+    assert all(torch.equal(v, torch.full((3,), -1.0, device=cuda)) for v in out.values())
+    over = dict(ok, extra=torch.ones(2, 3, device=cuda))
+    with pytest.raises(ValueError, match=f"cap of {va_ops.MAX_LEAVES}"):
+        va_ops.vecavg_tree(over, p, 1.0)
+
+
+def test_vecavg_is_one_cuda_kernel_a_call_on_card(cuda):
+    """torch.profiler sees exactly one CUDA kernel per tree call (with div
+    and a device scale) and per matrix call, and it is vecavg's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tree, p, tau = _vecavg_tree(cuda, "cnn", 5, seed=5)
+    scale = torch.tensor(0.235, device=cuda)
+    u = torch.randn(5, 555178, device=cuda)
+    va_ops.vecavg_tree(tree, p, scale, div=tau)
+    va_ops.vecavg(u, p, scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            va_ops.vecavg_tree(tree, p, scale, div=tau)
+            va_ops.vecavg(u, p, scale)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    assert kernels, "the profiler recorded no device event"
+    assert len(kernels) == 6 and all("vecavg" in k for k in kernels), kernels
 
 
 # tests/test_kernels.py's flash shapes, plus rows with no live key, plus
