@@ -92,9 +92,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      vecavg's tree form at Qwen1.5-0.5B's leaves (C 2) with div against
      the parent's path, CUDA events in turns;
      rmsnorm's parity (phase 3) and timing rows, in turns with
-     ``F.rms_norm``.
+     ``F.rms_norm``;
+ 10. families — the MoE, hybrid and xLSTM decoders (random weights from
+     seed 0). Qwen1.5-MoE-A2.7B at full width and depth in bf16, B 1, S
+     4096: ``forward`` and ``loss`` with ``impl="pallas"`` and ``"auto"``,
+     exactly 24 flash and 49 rmsnorm launches a forward, the pallas
+     forward twice the same bits, ms and peak GB, the count of tokens that
+     route differently under the two impls and the cross entropy of auto
+     routed as pallas was (``RoutingLog`` replays ``moe.dispatch``), a
+     profile of one forward (flash / expert GEMMs / shared experts /
+     dispatch / other), ``prefill(impl="pallas")`` at S 1024 with and
+     without ``length=``; its float32 logits at 2 of 24 layers, pallas
+     against auto on the tokens that route alike in every layer.
+     Hymba-1.5B cut to 4 of 32 layers at S 4096 (window 2048): 4 flash and
+     17 rmsnorm launches a forward, bf16 loss and float32 logits pallas
+     against auto. xLSTM-1.3B cut to one super-block (8 of 48 layers), S
+     256, under no_grad, bf16 against float32; it launches no kernel.
+     granite-moe-1b-a400m cut to 4 of 24 layers, float32, 2 clients: 2
+     FedVeca rounds with the LM traffic above, 2 vecavg launches a round
+     and the rmsnorm count the code implies.
 
-Prints, before the last line, one JSON object with a row per kernel and
+Each phase's seconds are printed as a ``[time]`` line. Prints, before the
+last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs one card and no network; imports nothing of JAX.
@@ -136,6 +155,7 @@ from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 from repro_torch.kernels.vecavg import ops as va_ops  # noqa: E402
 from repro_torch.kernels.vecavg import ref as va_ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import cross_entropy  # noqa: E402
 from repro_torch.models.model import build_model, build_model_by_name  # noqa: E402
 from repro_torch.serve import PagedServeLoop, poisson_trace  # noqa: E402
@@ -219,6 +239,8 @@ FLASH_CASES = [
     ("q_offset 5000, Sq 1000 < Sk 6000", 1, 1000, 6000, 24, 2, 128, True, 4096, 5000),
     ("ragged edges, B 2, hd 64", 2, 777, 777, 8, 2, 64, True, 300, 0),
     ("rows with no live key", 1, 200, 256, 4, 2, 128, False, 16, 250),
+    ("qwen1.5-moe-a2.7b S 4096", 1, 4096, 4096, 16, 16, 128, True, 0, 0),
+    ("hymba-1.5b S 4096 window 2048, hd 64, G 5", 1, 4096, 4096, 25, 5, 64, True, 2048, 0),
 ]
 FWD_S, PREFILL_S, QWEN_S, QWEN_LAYERS = 8192, 1024, 2048, 4
 # A full-width forward, pallas vs auto: the JAX package's model-level bar
@@ -240,6 +262,8 @@ RMSNORM_CASES = [
     ("ragged rows, warp a row", (1001, 1024), 1),
     ("ragged rows, block a row", (999, 5120), 1),
     ("grouped, 4 clients", (4, 512, 1024), 4),
+    ("Qwen1.5-MoE-A2.7B width", (4096, 2048), 1),
+    ("Hymba-1.5B width", (4096, 1600), 1),
 ]
 # gradients through the op vs autograd of the plain op: the CPU test's bar
 # against jax.grad (tests/test_torch_rmsnorm.py)
@@ -274,6 +298,35 @@ RMSNORM_TIMING = [
     ("LM evaluation chunk f32", (LM["n_test"] * LM["seq"], 1024), torch.float32),
     ("Qwen1.5-32B width f32", (2048, 5120), torch.float32),
     ("Qwen1.5-32B width bf16", (8192, 5120), torch.bfloat16)]
+
+
+# The decoder families of phase 10 (configs of src/repro_torch/configs):
+# Qwen1.5-MoE-A2.7B (hf:Qwen/Qwen1.5-MoE-A2.7B) at full width and depth in
+# bf16, B 1, S 4096; its float32 logits check cut to 2 of 24 layers (the
+# float32 weights of all 24 layers, 57 GB, leave no room for the forward);
+# prefill at S 1024. Hymba-1.5B (arXiv:2411.13676) cut to 4 of 32 layers at
+# S 4096, so that its window 2048 bites. xLSTM-1.3B (arXiv:2405.04517) cut
+# to one super-block (8 of 48 layers) at S 256 under no_grad (its mLSTM
+# memory C is [B, 4, 1024, 1024] float32 a step, which autograd would keep
+# for every step). granite-moe-1b-a400m cut to 4 of 24 layers for the
+# FedVeca round, float32, 2 clients, the LM example's traffic, 2 rounds.
+MOE_ARCH, MOE_S, MOE_PREFILL_S, MOE_F32_LAYERS = "qwen2-moe-a2.7b", 4096, 1024, 2
+# MoE prefill's last-position logits against the forward's: the same layers
+# on the same tokens, but the unembedding GEMM of one row against that of
+# 4096 (other cuBLAS kernels, whose bf16 split-K reductions torch allows by
+# default); 1e-2 of the largest logit
+MOE_PREFILL_REL = 1e-2
+HYMBA_LAYERS, HYMBA_S = 4, 4096
+XLSTM_LAYERS, XLSTM_S = 8, 256
+GRANITE_LAYERS, GRANITE_CLIENTS, GRANITE_ROUNDS = 4, 2, 2
+# xLSTM in bf16 against the same weights in float32. At this random init
+# the recurrences amplify bf16's roundings (mLSTM's h = num / max(|n.q|,
+# e^-m) divides by small normalizers): the port's CPU path at these widths,
+# one super-block, S 64, gave a mean cross entropy 0.024-0.032 apart and
+# logits 0.17-0.28 apart in Frobenius norm relative to float32's (two
+# seeds). Bars: 0.1 and 0.5. The port's float32 cells are held against the
+# JAX package on the CPU (tests/test_torch_moe.py).
+XLSTM_BF16_LOSS_ATOL, XLSTM_BF16_LOGITS_REL = 0.1, 0.5
 
 
 def qwen05_config():
@@ -1522,7 +1575,7 @@ def flash_timing_row(dev, launches, errs):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(21)
     rows = []
-    shapes = ([(c, torch.bfloat16) for c in FLASH_CASES[:3]]
+    shapes = ([(c, torch.bfloat16) for c in FLASH_CASES[:3] + FLASH_CASES[6:8]]
               + [(FLASH_CASES[2], torch.float32), (FLASH_CASES[0], torch.float32)])
     for (name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff), dtype in shapes:
         q, k, v = _flash_inputs(gen, dev, dtype, B, Sq, Sk, Hq, Hkv, hd)
@@ -1599,14 +1652,14 @@ def expected_rmsnorm_launches(cfg, rounds: int) -> int:
     return rounds * (LM["tau_max"] + k + int(rem > 0)) * (2 * cfg.num_layers + 1)
 
 
-def phase_lm(dev, name, cfg, n_clients):
+def phase_lm(dev, name, cfg, n_clients, rounds=LM["rounds"]):
     """``FederatedSimulator`` on the card with the JAX example's traffic
-    (``n_clients`` of its clients)."""
+    (``n_clients`` of its clients), ``rounds`` rounds."""
     model = build_model(cfg, device=dev)
     params = model.init(0)
     n_params = sum(t.numel() for t in params.values())
     clients, test = lm_data(cfg.vocab_size, n_clients)
-    R = LM["rounds"]
+    R = rounds
     sim = FederatedSimulator(model, clients, FedSimConfig(
         mode=LM["mode"], eta=LM["eta"], tau_max=LM["tau_max"], batch_size=LM["batch"],
         rounds=R, seed=0, eval_every=1), test)
@@ -1817,64 +1870,451 @@ def rmsnorm_timing_row(dev, launches, err):
                 shape=main_row["shape"], other_shapes=rows[1:])
 
 
+# ---------------------------------------------------------------------------
+# 10. the MoE, hybrid and xLSTM families
+# ---------------------------------------------------------------------------
+
+
+def _require_launches(tag, flash, rms):
+    n_f, n_r = fa_ops.launches["flash_attention"], rn_ops.launches["rmsnorm"]
+    require(n_f == flash and n_r == rms, f"[{tag}] flash launched {n_f} times (expected "
+            f"{flash}), rmsnorm {n_r} (expected {rms})")
+    return n_f, n_r
+
+
+class RoutingLog:
+    """Records each ``moe.dispatch`` call's result by swapping the module's
+    function for the duration of a ``with``; given the calls of an earlier
+    run (``replay``), returns those in order instead, so that the run
+    routes every token exactly as that one did."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        self.calls, self._real = [], moe_mod.dispatch
+
+        def record(*a, **kw):
+            r = self._real(*a, **kw) if self.replay is None else self.replay[len(self.calls)]
+            self.calls.append(r)
+            return r
+
+        moe_mod.dispatch = record
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.dispatch = self._real
+
+
+def routed_forward(model, params, batch, impl, replay=None):
+    """-> (logits, each layer's ``moe.Dispatch``); the flash and rmsnorm
+    counters are zeroed just before. ``replay``: route as that run did."""
+    with RoutingLog(replay) as log:
+        fa_ops.reset_launches()
+        rn_ops.reset_launches()
+        logits, _ = model.forward(params, batch, impl=impl)
+        sync()
+    return logits, log.calls
+
+
+def routes_alike(a, b):
+    """Tokens (of batch row 0) whose sorted top-k experts and capacity cut
+    agree in every layer of two runs' routing logs."""
+    alike = torch.ones(a[0].keep.shape[0], dtype=torch.bool, device=a[0].keep.device)
+    for ra, rb in zip(a, b):
+        alike &= ((ra.expert_idx.sort(-1).values == rb.expert_idx.sort(-1).values).all(-1)
+                  & (ra.keep == rb.keep).all(-1))
+    return alike
+
+
+def moe_profile(model, params, batch):
+    """torch.profiler over one bf16 ``pallas`` forward, device time by part:
+    flash, the experts' GEMMs (``moe._expert_ffn``), the shared experts
+    (``moe.mlp_apply``), dispatch (the rest of ``moe.moe_apply``: router,
+    sort, bucket scatter, gathers, combine) and everything else. The parts
+    of the MoE block are ``record_function`` ranges around the module's
+    functions, swapped in for this forward only."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    ranges = {"moe_block": "moe_apply", "moe_experts": "_expert_ffn",
+              "moe_shared": "mlp_apply"}
+    real = {name: getattr(moe_mod, fn) for name, fn in ranges.items()}
+
+    def wrap(name):
+        def f(*a, **kw):
+            with record_function(name):
+                return real[name](*a, **kw)
+        return f
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in ranges.items():
+            setattr(moe_mod, fn, wrap(name))
+        try:
+            model.forward(params, batch, impl="pallas")
+            sync()
+        finally:
+            for name, fn in ranges.items():
+                setattr(moe_mod, fn, real[name])
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    def self_dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    cuda = torch.autograd.DeviceType.CUDA
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == cuda and e.key not in ranges
+               and self_dev_us(e) > 0]
+    busy = sum(self_dev_us(e) for e in kernels) / 1e3
+    flash = sum(self_dev_us(e) for e in kernels if "flash_attention" in e.key) / 1e3
+    span = {name: sum(dev_us(e) for e in avg if e.key == name and e.device_type != cuda) / 1e3
+            for name in ranges}
+    split = dict(flash=flash, expert_gemms=span["moe_experts"],
+                 shared_experts=span["moe_shared"],
+                 dispatch=span["moe_block"] - span["moe_experts"] - span["moe_shared"],
+                 other=busy - flash - span["moe_block"], busy=busy,
+                 kernels=sum(e.count for e in kernels))
+    if busy == 0:
+        print("[moe] the profiler recorded no device time")
+    return {k: round(v, 3) if isinstance(v, float) else v for k, v in split.items()}
+
+
+def phase_moe(dev):
+    """Qwen1.5-MoE-A2.7B at full width in bf16 (random weights from seed 0):
+    forward and loss with ``impl="pallas"`` and ``"auto"``, exactly 24
+    flash and 49 rmsnorm launches a forward, the pallas forward twice the
+    same bits, ms and peak GB, a profile, prefill at S 1024 with and
+    without ``length=``."""
+    cfg = get_arch(MOE_ARCH)
+    L = cfg.num_layers
+    want_rms = 2 * L + 1
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    sync()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+    batch = _lm_batch(torch.Generator(device=dev).manual_seed(31), cfg, 1, MOE_S, dev)
+    out = dict(arch=MOE_ARCH, source=cfg.source, layers=f"{L} of {L}", S=MOE_S,
+               params_b=sum(t.numel() for t in params.values()) / 1e9, weights_gb=weights_gb,
+               init_s=init_s)
+    with torch.inference_mode():
+        model.forward(params, batch, impl="pallas")  # warm-up (cuBLAS handles, allocator)
+        model.forward(params, batch, impl="auto")
+        (lp, _), ms_p, mem_p, _ = timed_call(lambda: model.forward(params, batch, impl="pallas"),
+                                            dev)
+        _require_launches("moe pallas forward (the main path)", L, want_rms)
+        require(lp.dtype == torch.bfloat16 and lp.shape == (1, MOE_S, cfg.vocab_size)
+                and bool(torch.isfinite(lp).all()), "[moe] pallas logits not finite or misshaped")
+        lp2, _ = model.forward(params, batch, impl="pallas")
+        require(torch.equal(lp, lp2), "[moe] two pallas forwards differ")
+        del lp, lp2
+        (_, aux), ms_a, mem_a, _ = timed_call(lambda: model.forward(params, batch, impl="auto"),
+                                             dev)
+        _require_launches("moe auto forward", 0, want_rms)
+        (loss_p, m_p), ms_lp, mem_lp, _ = timed_call(
+            lambda: model.loss(params, batch, impl="pallas"), dev)
+        _require_launches("moe pallas loss", L, want_rms)
+        loss_a, _ = model.loss(params, batch, impl="auto")
+        require(bool(torch.isfinite(loss_p)) and float(m_p["aux"]) > 0,
+                f"[moe] bf16 loss {loss_p.item()}, aux {float(m_p['aux'])}")
+        # bf16 rounds flash's and chunked attention's outputs apart, a token
+        # whose k-th and (k+1)-th experts nearly tie routes either way, and
+        # its changed state reaches the later tokens and layers: count the
+        # tokens that route differently, then hold the cross entropy of
+        # auto routed as the pallas run was (the attention's difference
+        # alone) to the bf16 loss bar
+        lp, rp = routed_forward(model, params, batch, "pallas")
+        _, ra = routed_forward(model, params, batch, "auto")
+        flipped = int((~routes_alike(rp, ra)).sum())
+        del ra
+        la, _ = routed_forward(model, params, batch, "auto", replay=rp)
+        ce_p, ce_a = (cross_entropy(x, batch["targets"]).item() for x in (lp, la))
+        d = abs(ce_p - ce_a)
+        require(d <= FWD_BF16_LOSS_ATOL, f"[moe] bf16 cross entropy, auto routed as pallas: "
+                f"pallas {ce_p} vs auto {ce_a}")
+        del lp, la, rp
+        out.update(pallas_ms=ms_p, auto_ms=ms_a, pallas_peak_gb=mem_p, auto_peak_gb=mem_a,
+                   loss_pallas=loss_p.item(), loss_auto=loss_a.item(),
+                   loss_abs_diff_all=abs(loss_p.item() - loss_a.item()), tokens_flipped=flipped,
+                   ce_pallas=ce_p, ce_auto_routed_as_pallas=ce_a, ce_abs_diff=d,
+                   aux=float(m_p["aux"]), loss_pallas_ms=ms_lp, loss_pallas_peak_gb=mem_lp,
+                   flash_launches=L, rmsnorm_launches=want_rms, same_bits_twice=True)
+        print(f"[moe] {MOE_ARCH} ({cfg.source}) full width, {L} of {L} layers, bf16, B 1 S "
+              f"{MOE_S}: {out['params_b']:.2f} B params ({weights_gb:.1f} GB, init "
+              f"{init_s:.1f} s); pallas {ms_p:.1f} ms (peak {mem_p:.2f} GB), auto {ms_a:.1f} ms "
+              f"(peak {mem_a:.2f} GB); loss pallas {loss_p.item():.6f} vs auto "
+              f"{loss_a.item():.6f}, aux {out['aux']:.4e}; {flipped} of {MOE_S} tokens route "
+              f"differently in some layer; cross entropy pallas {ce_p:.6f} vs auto routed as "
+              f"pallas {ce_a:.6f} (|d| {d:.2e}, tol {FWD_BF16_LOSS_ATOL}); flash "
+              f"{L}, rmsnorm {want_rms} a forward; two pallas forwards bitwise equal")
+        out["profile_ms"] = moe_profile(model, params, batch)
+        print(f"[moe] bf16 forward device time by part (ms): {json.dumps(out['profile_ms'])}")
+
+        pb = {"tokens": batch["tokens"][:, :MOE_PREFILL_S]}
+        (pl_, pc), ms_pf, _, _ = timed_call(lambda: model.prefill(params, pb, impl="pallas"), dev)
+        _require_launches("moe prefill", L, want_rms)
+        fl, _ = model.forward(params, pb, impl="pallas")
+        dl = (pl_.float() - fl[:, -1].float()).abs()
+        rel = (dl.max() / fl[:, -1].float().abs().max()).item()
+        require(rel <= MOE_PREFILL_REL, f"[moe] prefill logits vs forward's last position: "
+                f"max|d| / max|logit| {rel}")
+        (ll, lc), _, _, _ = timed_call(lambda: model.prefill(
+            params, pb, impl="pallas", length=torch.tensor([MOE_PREFILL_S], device=dev)), dev)
+        _require_launches("moe prefill, length=", L, want_rms)
+        require(torch.equal(ll, pl_) and torch.equal(lc.kv.k, pc.kv.k)
+                and torch.equal(lc.kv.pos, pc.kv.pos),
+                "[moe] prefill with length = S differs from prefill without")
+        two = {"tokens": torch.cat([pb["tokens"], pb["tokens"].flip(1)])}
+        n_live = 3 * MOE_PREFILL_S // 5
+        (l2, c2), _, _, _ = timed_call(lambda: model.prefill(
+            params, two, impl="pallas",
+            length=torch.tensor([MOE_PREFILL_S, n_live], device=dev)), dev)
+        _require_launches("moe prefill, B 2, length=", L, want_rms)
+        require(bool(torch.isfinite(l2).all()) and bool((c2.kv.pos[:, 1, n_live:] == -1).all())
+                and bool((c2.kv.pos[:, 1, :n_live] >= 0).all()),
+                "[moe] prefill B 2 with length: non-finite logits or wrong cache pos")
+        out["prefill"] = dict(S=MOE_PREFILL_S, ms=ms_pf, max_abs_vs_forward=dl.max().item(),
+                              rel_vs_forward=rel, length_S_bitwise=True, padded_row_live=n_live)
+        print(f"[moe] prefill S {MOE_PREFILL_S}: {ms_pf:.1f} ms; logits vs the forward's last "
+              f"position max|d| {dl.max().item():.3e}, / max|logit| {rel:.3e} (tol "
+              f"{MOE_PREFILL_REL}); length=[S] bitwise "
+              f"equal to no length; B 2 with length [{MOE_PREFILL_S}, {n_live}]: pos -1 past "
+              f"{n_live}; flash {L}, rmsnorm {want_rms} each")
+        del pl_, pc, fl, ll, lc, l2, c2
+    del model, params
+    torch.cuda.empty_cache()
+    out["f32"] = phase_moe_f32(dev)
+    return out
+
+
+def phase_moe_f32(dev):
+    """Qwen1.5-MoE-A2.7B's widths in float32, 2 of 24 layers, S 4096:
+    ``pallas`` against ``auto`` logits at the model-level bar on the tokens
+    whose top-k experts and capacity cut agree in every layer; the count of
+    the others is printed."""
+    cfg = _f32(get_arch(MOE_ARCH), num_layers=MOE_F32_LAYERS)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    batch = _lm_batch(torch.Generator(device=dev).manual_seed(32), cfg, 1, MOE_S, dev)
+    logs = {}
+    with torch.inference_mode(), strict_fp32():
+        for impl in ("pallas", "auto"):
+            logs[impl] = routed_forward(model, params, batch, impl)
+            _require_launches(f"moe-f32 {impl} forward", MOE_F32_LAYERS if impl == "pallas" else 0,
+                              2 * MOE_F32_LAYERS + 1)
+    (lp, rp), (la, ra) = logs["pallas"], logs["auto"]
+    require(len(rp) == len(ra) == MOE_F32_LAYERS, "[moe-f32] one dispatch a layer expected")
+    alike = routes_alike(rp, ra)
+    flipped = int((~alike).sum())
+    require(flipped <= MOE_S // 100, f"[moe-f32] {flipped} of {MOE_S} tokens route differently")
+    err = (lp[0, alike] - la[0, alike]).abs().max().item()
+    require(bool(torch.isfinite(lp).all()) and err <= FWD_LOGITS_ATOL,
+            f"[moe-f32] logits pallas vs auto on the tokens that route alike: {err}")
+    print(f"[moe-f32] {MOE_ARCH} widths float32, {MOE_F32_LAYERS} of 24 layers (cut: 24 float32 "
+          f"layers take 57 GB), S {MOE_S}: logits max|pallas - auto| {err:.3e} (tol "
+          f"{FWD_LOGITS_ATOL}) on the {MOE_S - flipped} tokens that route alike; {flipped} "
+          f"routed differently in some layer")
+    out = dict(layers=f"{MOE_F32_LAYERS} of 24", S=MOE_S, logits_max_abs_alike=err,
+               tokens_flipped=flipped)
+    del model, params, logs, lp, la
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hymba(dev):
+    """Hymba-1.5B at full width, 4 of 32 layers, S 4096 (window 2048): bf16
+    pallas vs auto loss, 4 flash and 17 rmsnorm launches a forward (norm1,
+    norm2 and the fusion's two norms a layer, and the final norm); float32
+    pallas vs auto logits at the model-level bar."""
+    L = HYMBA_LAYERS
+    want_rms = 4 * L + 1
+    out = dict(arch="hymba-1.5b", layers=f"{L} of 32", S=HYMBA_S)
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_arch("hymba-1.5b"), num_layers=L, param_dtype=dtype,
+                                  compute_dtype=dtype)
+        model = build_model(cfg, device=dev)
+        params = model.init(0)
+        batch = _lm_batch(torch.Generator(device=dev).manual_seed(33), cfg, 1, HYMBA_S, dev)
+        with torch.inference_mode(), strict_fp32():
+            model.forward(params, batch, impl="pallas")  # warm-up
+            (lp, _), ms_p, mem_p, _ = timed_call(
+                lambda: model.forward(params, batch, impl="pallas"), dev)
+            _require_launches(f"hymba {dtype} pallas forward", L, want_rms)
+            (la, _), ms_a, mem_a, _ = timed_call(
+                lambda: model.forward(params, batch, impl="auto"), dev)
+            _require_launches(f"hymba {dtype} auto forward", 0, want_rms)
+            require(bool(torch.isfinite(lp.float()).all()), f"[hymba] {dtype} logits not finite")
+            row = dict(pallas_ms=ms_p, auto_ms=ms_a, pallas_peak_gb=mem_p, auto_peak_gb=mem_a,
+                       flash_launches=L, rmsnorm_launches=want_rms)
+            if dtype == "float32":
+                err = (lp - la).abs().max().item()
+                require(err <= FWD_LOGITS_ATOL, f"[hymba] f32 logits pallas vs auto: {err}")
+                row["logits_max_abs_pallas_vs_auto"] = err
+                check = f"logits max|pallas - auto| {err:.3e} (tol {FWD_LOGITS_ATOL})"
+            else:
+                del lp, la
+                loss_p = model.loss(params, batch, impl="pallas")[0].item()
+                loss_a = model.loss(params, batch, impl="auto")[0].item()
+                d = abs(loss_p - loss_a)
+                require(d <= FWD_BF16_LOSS_ATOL, f"[hymba] bf16 loss pallas {loss_p} vs auto "
+                        f"{loss_a}")
+                row.update(loss_pallas=loss_p, loss_auto=loss_a, loss_abs_diff=d)
+                check = (f"loss pallas {loss_p:.6f} vs auto {loss_a:.6f} (|d| {d:.2e}, tol "
+                         f"{FWD_BF16_LOSS_ATOL})")
+        out["bf16" if dtype == "bfloat16" else "f32"] = row
+        print(f"[hymba] hymba-1.5b full width, {L} of 32 layers, {dtype}, S {HYMBA_S} (window "
+              f"2048): {check}; pallas {ms_p:.1f} ms (peak {mem_p:.2f} GB), auto {ms_a:.1f} ms; "
+              f"flash {L}, rmsnorm {want_rms} a forward")
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_xlstm(dev):
+    """xLSTM-1.3B at full width, one super-block (8 of 48 layers), S 256,
+    under no_grad: bf16 against the same weights in float32. It launches no
+    kernel of the port (layernorm, no attention), and the line says so."""
+    cfg = dataclasses.replace(get_arch("xlstm-1.3b"), num_layers=XLSTM_LAYERS)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    model32 = build_model(_f32(cfg), device=dev)
+    params32 = {k: v.float() for k, v in params.items()}
+    batch = _lm_batch(torch.Generator(device=dev).manual_seed(34), cfg, 1, XLSTM_S, dev)
+    res = {}
+    with torch.inference_mode(), strict_fp32():
+        for name, m, p in (("bf16", model, params), ("f32", model32, params32)):
+            m.forward(p, batch)  # warm-up
+            (logits, _), ms, mem, _ = timed_call(lambda: m.forward(p, batch), dev)
+            _require_launches(f"xlstm {name} forward", 0, 0)
+            loss = cross_entropy(logits, batch["targets"]).item()
+            require(bool(torch.isfinite(logits.float()).all()), f"[xlstm] {name} logits not finite")
+            res[name] = (logits.float(), loss, ms, mem)
+    (l16, c16, ms16, mem16), (l32, c32, ms32, mem32) = res["bf16"], res["f32"]
+    d_loss = abs(c16 - c32)
+    rel = ((l16 - l32).norm() / l32.norm()).item()
+    top1 = (l16.argmax(-1) == l32.argmax(-1)).float().mean().item()
+    require(d_loss <= XLSTM_BF16_LOSS_ATOL and rel <= XLSTM_BF16_LOGITS_REL,
+            f"[xlstm] bf16 vs float32: loss {c16} vs {c32}, logits rel {rel}")
+    out = dict(arch="xlstm-1.3b", layers=f"{XLSTM_LAYERS} of 48", S=XLSTM_S, bf16_ms=ms16,
+               f32_ms=ms32, bf16_peak_gb=mem16, f32_peak_gb=mem32, loss_bf16=c16, loss_f32=c32,
+               loss_abs_diff=d_loss, logits_fro_rel=rel, top1_agree=top1, kernel_launches=0)
+    print(f"[xlstm] xlstm-1.3b full width, one super-block ({XLSTM_LAYERS} of 48 layers), S "
+          f"{XLSTM_S}, no_grad: bf16 {ms16:.1f} ms (peak {mem16:.2f} GB), float32 {ms32:.1f} ms; "
+          f"loss bf16 {c16:.6f} vs float32 {c32:.6f} (|d| {d_loss:.2e}, tol "
+          f"{XLSTM_BF16_LOSS_ATOL}), logits |bf16 - f32| / |f32| {rel:.3e} (tol "
+          f"{XLSTM_BF16_LOGITS_REL}), top-1 agree {top1:.3f}; launches no kernel (layernorm, "
+          f"no attention: flash 0, rmsnorm 0)")
+    del model, params, model32, params32, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def granite_config():
+    """granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base) at full
+    width, 4 of 24 layers, float32: the FedVeca round's model."""
+    return _f32(get_arch("granite-moe-1b-a400m"), num_layers=GRANITE_LAYERS)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = phase_device()
-    ptxas = phase_build()
-    errs = phase_parity(dev)
-    errs["vecavg"] = phase_vecavg_parity(dev)
-    flash_errs = phase_flash_parity(dev)
-    sdpa_kernels = sdpa_f32_kernels(dev)
-    errs["rmsnorm"] = phase_rmsnorm_parity(dev)
-    model, params, loop, reqs, state, serve = phase_serve(dev)
-    prof = phase_profile(loop, reqs)
-    rows = phase_timing(model, loop, state, serve["launches"], errs)
+    clock = {}
+
+    def run(name, fn, *args, **kw):
+        """A phase, with its seconds printed and kept."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        clock[name] = round(time.perf_counter() - t0, 1)
+        print(f"[time] {name}: {clock[name]} s")
+        return out
+
+    smi = run("1 device", phase_device)
+    ptxas = run("2 build", phase_build)
+    errs = run("3 parity: paged", phase_parity, dev)
+    errs["vecavg"] = run("3 parity: vecavg", phase_vecavg_parity, dev)
+    flash_errs = run("3 parity: flash", phase_flash_parity, dev)
+    sdpa_kernels = run("3 sdpa kernels", sdpa_f32_kernels, dev)
+    errs["rmsnorm"] = run("3 parity: rmsnorm", phase_rmsnorm_parity, dev)
+    model, params, loop, reqs, state, serve = run("4 serve", phase_serve, dev)
+    prof = run("5 profile", phase_profile, loop, reqs)
+    rows = run("7 timing: paged", phase_timing, model, loop, state, serve["launches"], errs)
     del model, params, loop, reqs, state  # the serving model's 8 GB
     torch.cuda.empty_cache()
-    cnn, clients, veca, fed = phase_fed(dev)
-    fed["checks"] = phase_fed_checks(dev, cnn, clients, veca.params)
-    fed["profile"] = phase_fed_profile(dev, cnn, clients, veca.params)
-    rows.append(vecavg_timing_row(dev, fed["launches"]["vecavg"], errs["vecavg"]))
-    tree_row = vecavg_tree_timing_row(dev, fed["launches"]["vecavg"], errs["vecavg"])
+    cnn, clients, veca, fed = run("6 fed", phase_fed, dev)
+    fed["checks"] = run("6 fed checks", phase_fed_checks, dev, cnn, clients, veca.params)
+    fed["profile"] = run("6 fed profile", phase_fed_profile, dev, cnn, clients, veca.params)
+    rows.append(run("7 timing: vecavg", vecavg_timing_row, dev, fed["launches"]["vecavg"],
+                    errs["vecavg"]))
+    tree_row = run("7 timing: vecavg tree", vecavg_tree_timing_row, dev,
+                   fed["launches"]["vecavg"], errs["vecavg"])
     rows.append(tree_row)
     del cnn, clients, veca
     torch.cuda.empty_cache()
-    fwd = phase_forward_f32(dev)
+    fwd = run("8 forward f32", phase_forward_f32, dev)
     torch.cuda.empty_cache()
-    fwd.update(phase_forward_bf16(dev))
+    fwd.update(run("8 forward bf16", phase_forward_bf16, dev))
     torch.cuda.empty_cache()
-    fwd["qwen_f32"] = phase_forward_qwen(dev)
+    fwd["qwen_f32"] = run("8 forward qwen", phase_forward_qwen, dev)
     torch.cuda.empty_cache()
-    rows.append(flash_timing_row(dev, fwd["bf16"]["launches"], flash_errs))
-    rows[-1]["sdpa_f32_kernels"] = sdpa_kernels
+    flash_row = run("8 timing: flash", flash_timing_row, dev, fwd["bf16"]["launches"],
+                    flash_errs)
+    flash_row["sdpa_f32_kernels"] = sdpa_kernels
+    rows.append(flash_row)
     torch.cuda.empty_cache()
     lm = {}
-    m100, c100, p100, lm["100m"] = phase_lm(dev, "starcoder2-100m", lm_config("100m"),
-                                            LM["clients"])
-    lm["checkpoint"] = phase_checkpoint(dev, p100)
-    lm["profile_100m"] = phase_lm_profile(dev, m100, c100, p100)
+    m100, c100, p100, lm["100m"] = run("9 lm 100m", phase_lm, dev, "starcoder2-100m",
+                                       lm_config("100m"), LM["clients"])
+    lm["checkpoint"] = run("9 checkpoint", phase_checkpoint, dev, p100)
+    lm["profile_100m"] = run("9 lm profile 100m", phase_lm_profile, dev, m100, c100, p100)
     del m100, c100, p100
     torch.cuda.empty_cache()
-    qwen, qclients, qparams, lm["qwen1.5-0.5b"] = phase_lm(dev, "qwen1.5-0.5b", qwen05_config(),
-                                                           QWEN05_CLIENTS)
-    lm["kernel_vs_plain_round"] = phase_lm_round_check(dev, qwen, qclients, qparams)
+    qwen, qclients, qparams, lm["qwen1.5-0.5b"] = run(
+        "9 lm qwen1.5-0.5b", phase_lm, dev, "qwen1.5-0.5b", qwen05_config(), QWEN05_CLIENTS)
+    lm["kernel_vs_plain_round"] = run("9 lm kernel vs plain", phase_lm_round_check, dev, qwen,
+                                      qclients, qparams)
     torch.cuda.empty_cache()
-    lm["profile_qwen1.5-0.5b"] = phase_lm_profile(dev, qwen, qclients, qparams)
+    lm["profile_qwen1.5-0.5b"] = run("9 lm profile qwen", phase_lm_profile, dev, qwen, qclients,
+                                     qparams)
     torch.cuda.empty_cache()
-    tree_row["qwen1.5-0.5b"] = vecavg_tree_lm_timing(dev, qparams, QWEN05_CLIENTS)
+    tree_row["qwen1.5-0.5b"] = run("9 timing: vecavg tree qwen", vecavg_tree_lm_timing, dev,
+                                   qparams, QWEN05_CLIENTS)
     del qwen, qclients, qparams
     torch.cuda.empty_cache()
-    rows.append(rmsnorm_timing_row(dev, lm["qwen1.5-0.5b"]["launches"]["rmsnorm"],
-                                   errs["rmsnorm"]))
+    rms_row = run("9 timing: rmsnorm", rmsnorm_timing_row, dev,
+                  lm["qwen1.5-0.5b"]["launches"]["rmsnorm"], errs["rmsnorm"])
+    rows.append(rms_row)
+    torch.cuda.empty_cache()
+    fam = {"moe": run("10 moe", phase_moe, dev)}
+    fam["hymba"] = run("10 hymba", phase_hymba, dev)
+    fam["xlstm"] = run("10 xlstm", phase_xlstm, dev)
+    _, _, _, fam["granite_round"] = run(
+        "10 granite round", phase_lm, dev, "granite-moe-1b-a400m (4 of 24 layers)",
+        granite_config(), GRANITE_CLIENTS, rounds=GRANITE_ROUNDS)
+    torch.cuda.empty_cache()
+    # each kernel's launches on every main path that runs it (phases 4, 6, 8, 9, 10)
+    flash_row["launches_by_path"] = {
+        "starcoder2-3b forward (30 layers)": fwd["bf16"]["launches"],
+        "qwen1.5-moe-a2.7b forward (24 layers)": fam["moe"]["flash_launches"],
+        "hymba-1.5b forward (4 of 32 layers)": fam["hymba"]["bf16"]["flash_launches"]}
+    rms_row["launches_by_path"] = {
+        "qwen1.5-0.5b LM, 5 rounds": lm["qwen1.5-0.5b"]["launches"]["rmsnorm"],
+        "qwen1.5-moe-a2.7b forward": fam["moe"]["rmsnorm_launches"],
+        "hymba-1.5b forward (4 of 32 layers)": fam["hymba"]["bf16"]["rmsnorm_launches"],
+        f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["rmsnorm"]}
+    tree_row["launches_by_path"] = {
+        "cnn experiment": fed["launches"]["vecavg"],
+        f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["vecavg"]}
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
+    print(f"[time] phases (s): {json.dumps(clock)}; total {sum(clock.values()):.1f} s")
     print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
-                      "ptxas": ptxas, "card": smi}))
+                      "families": fam, "ptxas": ptxas, "seconds": clock, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

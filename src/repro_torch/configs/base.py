@@ -1,9 +1,10 @@
 """Architecture configs and the registry (a copy of the JAX package's
-``configs/base.py``: ``ArchConfig``, ``reduced()`` and ``get_arch``).
+``configs/base.py``: ``ArchConfig``, ``param_count()``, ``reduced()`` and
+``get_arch``).
 
-Only the architectures the port runs are registered (two served decoders
-and the paper's three toy models); each resolves to a
-module of ``repro_torch.configs``. ``reduced()`` is the CPU-test variant
+Only the architectures the port runs are registered (the decoder-only
+families and the paper's three toy models); each resolves to a module of
+``repro_torch.configs``. ``reduced()`` is the CPU-test variant
 (2 layers, d_model <= 128, f32) with exactly the JAX package's arithmetic,
 so reduced configs agree between the two packages.
 """
@@ -110,6 +111,45 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def param_count(self) -> int:
+        """Analytic parameter count (matches models/ initializers)."""
+        d, f, V = self.d_model, self.d_ff, self.vocab_size
+        n = V * d  # embed
+        if not self.tie_embeddings:
+            n += V * d
+        per_layer = 0
+        if self.family in ("dense", "moe", "vlm", "hybrid", "audio"):
+            per_layer += d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+            if self.qkv_bias:
+                per_layer += self.q_dim + 2 * self.kv_dim
+            per_layer += 2 * d  # norms
+            if self.is_moe:
+                e_f = self.moe_d_ff
+                n_mat = 3 if self.mlp_act == "swiglu" else 2
+                per_layer += self.num_experts * n_mat * d * e_f
+                per_layer += d * self.num_experts  # router
+                per_layer += self.num_shared_experts * n_mat * d * e_f
+            elif f:
+                n_mat = 3 if self.mlp_act == "swiglu" else 2
+                per_layer += n_mat * d * f
+        if self.hybrid_parallel_ssm:
+            d_in = self.ssm_expand * d
+            per_layer += d * 2 * d_in + d_in * d + d_in * (2 * self.ssm_state + 2)
+        if self.family == "ssm":  # xLSTM
+            d_in = int(self.xlstm_proj_factor * d)
+            per_layer = d * 3 * d_in + d_in * d + 2 * d  # rough mLSTM block
+        n += self.num_layers * per_layer
+        if self.encoder_layers:
+            enc = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+            n_mat = 3 if self.mlp_act == "swiglu" else 2
+            enc += n_mat * d * f + 2 * d
+            n += self.encoder_layers * enc
+            # cross-attention in every decoder layer
+            n += self.num_layers * (d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d + d)
+        if self.vision_dim:
+            n += self.vision_dim * d  # projector
+        return n
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family/topology, tiny sizes."""
         if self.family == "toy":
@@ -160,6 +200,13 @@ ARCH_MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     # full attention (window=0); served here at reduced size by the CPU tests
     "qwen1.5-32b": "qwen1_5_32b",
+    # forward, loss and round; MoE also prefill (serving them is ROADMAP.md A15)
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "hymba-1.5b": "hymba_1_5b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "nemotron-4-15b": "nemotron_4_15b",
     # the paper's own models, trained by the federated round (repro_torch.fed)
     "svm-mnist": "svm_mnist",
     "cnn-mnist": "cnn_mnist",

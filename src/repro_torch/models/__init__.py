@@ -1,1 +1,2 @@
-"""Models of the port: the dense decoder family and the paper's toy models."""
+"""Models of the port: the decoder families (dense, MoE, hybrid, xLSTM) and
+the paper's toy models."""

@@ -112,18 +112,19 @@ def mlp_init(gen, cfg, d: int, f: int, dtype, device, lead=()) -> Params:
     return p
 
 
-def mlp_apply(cfg, p: Params, x):
-    """``p`` holds one layer's ``mlp/*`` leaves."""
+def mlp_apply(cfg, p: Params, x, prefix: str = "mlp"):
+    """``p`` holds one layer's ``{prefix}/*`` leaves (``mlp/w_up``; an MoE
+    layer's shared expert is ``moe/shared/w_up``)."""
     if cfg.mlp_act == "swiglu":
-        h = F.silu(x @ p["mlp/w_gate"]) * (x @ p["mlp/w_up"])
+        h = F.silu(x @ p[f"{prefix}/w_gate"]) * (x @ p[f"{prefix}/w_up"])
     else:
-        h = x @ p["mlp/w_up"]
-        if "mlp/b_up" in p:
-            h = h + p["mlp/b_up"]
+        h = x @ p[f"{prefix}/w_up"]
+        if f"{prefix}/b_up" in p:
+            h = h + p[f"{prefix}/b_up"]
         h = act_fn(cfg.mlp_act)(h)
-    y = h @ p["mlp/w_down"]
-    if "mlp/b_down" in p:
-        y = y + p["mlp/b_down"]
+    y = h @ p[f"{prefix}/w_down"]
+    if f"{prefix}/b_down" in p:
+        y = y + p[f"{prefix}/b_down"]
     return y
 
 

@@ -8,10 +8,12 @@
     model.init_paged_cache(n_slots, n_pages, page_size) -> PagedDecodeCache
     model.paged_decode_step(params, cache, page_table, token, pos, ...)
 
-The dense decoder family (forward, loss, prefill, paged decode) and the
-paper's toy models (svm-mnist, cnn-mnist, cnn-cifar10; training) are
-ported; the other families raise ``NotImplementedError`` naming the
-ROADMAP item.
+The decoder-only families (dense, MoE, hybrid, xLSTM: forward and loss;
+dense and MoE: prefill; dense: paged decode) and the paper's toy models
+(svm-mnist, cnn-mnist, cnn-cifar10; training) are ported. The rest raise
+``NotImplementedError`` naming the ROADMAP item: the VLM and audio families
+(A13c), serving any family but dense and prefill of the recurrent ones
+(A15).
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     dev = resolve_device(device)
     if cfg.family == "toy":
         return _toy_model(cfg, dev)
-    transformer.check_dense(cfg)
+    transformer.check_full_sequence(cfg)
     return Model(
         config=cfg,
         device=dev,
@@ -76,6 +78,8 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
 def decode_capability(model: Model) -> tuple[bool, str]:
     """Whether this model can serve the paged decode path, with the reason
     if not."""
+    if model.config.family != "toy" and transformer.serving_gap(model.config):
+        return False, transformer.serving_gap(model.config)
     if model.paged_decode_step is not None and model.init_paged_cache is not None:
         return True, ""
     return False, (f"{model.config.name}: family={model.config.family!r} "

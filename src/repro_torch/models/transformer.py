@@ -1,14 +1,17 @@
-"""Dense decoder stack (port of ``repro/models/transformer.py``): the
-full-sequence forward and loss, prefill, and paged decode.
+"""Decoder stacks (port of ``repro/models/transformer.py``): the dense,
+MoE, hybrid (attention + SSM) and xLSTM families' full-sequence forward and
+loss, prefill (dense and MoE), and paged decode (dense).
 
 Params are a flat dict of tensors keyed by the JAX package's keypaths
 (``embed``, ``final_norm/scale``, ``layers/attn/w_q`` ...); per-layer
-leaves are stacked ``[L, ...]`` and the stack is a Python loop over
-layers (the JAX package scans). KV pools are updated in place where the
-JAX package returns new (donated) buffers.
+leaves are stacked ``[L, ...]`` (xLSTM: ``xlstm/m/...`` and ``xlstm/s/...``
+stacked ``[n_super, n_per_super, ...]``) and the stack is a Python loop
+over layers (the JAX package scans). KV pools are updated in place where
+the JAX package returns new (donated) buffers.
 
-Only the dense family is ported; the MoE, hybrid, xLSTM, VLM and audio
-families raise (ROADMAP.md A13).
+The VLM and audio families raise (ROADMAP.md A13c); serving anything but
+the dense family raises (A15), and so does prefill of the recurrent
+families, whose caches come with their decode.
 """
 from __future__ import annotations
 
@@ -18,32 +21,63 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (Params, apply_norm, cross_entropy,
                                        dense_init, embed_init, mlp_apply,
-                                       mlp_init, norm_init)
+                                       mlp_init, norm_init, rmsnorm)
+
+FULL_SEQUENCE_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
-def check_dense(cfg):
-    """Raise for the families the port does not serve yet."""
-    if cfg.family != "dense" or cfg.is_moe or cfg.hybrid_parallel_ssm \
-            or cfg.vision_dim or cfg.learned_pos:
+def check_full_sequence(cfg):
+    """Raise for the families whose forward the port does not have yet."""
+    if cfg.family not in FULL_SEQUENCE_FAMILIES or cfg.vision_dim or cfg.learned_pos:
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} is not ported yet (ROADMAP.md A13: "
-            "the MoE, hybrid, xLSTM, VLM and audio families; the toy models are "
-            "built by models.model.build_model)")
+            f"{cfg.name}: family={cfg.family!r} is not ported yet (ROADMAP.md A13c: "
+            "the VLM and audio families; the toy models are built by "
+            "models.model.build_model)")
+
+
+def serving_gap(cfg) -> str:
+    """Why the port cannot serve ``cfg`` yet ("" for the dense family)."""
+    if cfg.family == "dense":
+        return ""
+    return (f"{cfg.name}: serving family={cfg.family!r} is not ported yet (ROADMAP.md A15: "
+            "MoE serving and the hybrid/xLSTM recurrent prefill and decode)")
+
+
+def check_serving(cfg):
+    """Raise for the families the port does not serve yet (dense only)."""
+    check_full_sequence(cfg)
+    if serving_gap(cfg):
+        raise NotImplementedError(serving_gap(cfg))
 
 
 def _prefixed(prefix: str, tree: Dict[str, torch.Tensor]) -> Params:
     return {f"{prefix}/{k}": v for k, v in tree.items()}
 
 
+def _sub(p: Params, prefix: str) -> Params:
+    """The leaves under ``prefix/``, keyed without it."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in p.items() if k.startswith(prefix + "/")}
+
+
+def _xlstm_counts(cfg):
+    pat = cfg.xlstm_pattern
+    return cfg.num_layers // len(pat), pat.count("m"), pat.count("s")
+
+
 def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
                 device=None) -> Params:
-    """Random params for a dense decoder, drawn from ``gen`` (or a fresh
-    generator seeded with ``seed``) on ``device`` (default ``cuda``).
-    Weights N(0, 1/in_dim), embeddings N(0, 0.02^2), norm scales and biases
-    zero, as in the JAX package (the draws themselves differ)."""
-    check_dense(cfg)
+    """Random params, drawn from ``gen`` (or a fresh generator seeded with
+    ``seed``) on ``device`` (default ``cuda``), with the keys and shapes of
+    the JAX package's ``init_params``. Weights N(0, 1/in_dim), embeddings
+    N(0, 0.02^2), norm scales and biases zero, the router N(0, 0.02^2), as
+    there (the draws themselves differ)."""
+    check_full_sequence(cfg)
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -53,12 +87,26 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
     p.update(_prefixed("final_norm", norm_init(cfg, d, dev)))
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, d, cfg.vocab_size, dt, dev)
+    if cfg.family == "ssm":  # xLSTM: [n_super, n_per_super, ...] stacks
+        n_super, n_m, n_s = _xlstm_counts(cfg)
+        for kind, n, init in (("m", n_m, xlstm_mod.mlstm_init), ("s", n_s, xlstm_mod.slstm_init)):
+            lead = (n_super, n)
+            p.update(_prefixed(f"xlstm/{kind}_norm", norm_init(cfg, d, dev, lead)))
+            p.update(_prefixed(f"xlstm/{kind}", init(gen, cfg, d, dt, dev, lead)))
+        return p
     lead = (L,)
     p.update(_prefixed("layers/norm1", norm_init(cfg, d, dev, lead)))
     p.update(_prefixed("layers/norm2", norm_init(cfg, d, dev, lead)))
     p.update(_prefixed("layers/attn", attn.attn_init(gen, cfg, d, dt, dev, lead)))
-    if cfg.d_ff:
+    if cfg.is_moe:
+        p.update(_prefixed("layers/moe", moe_mod.moe_init(gen, cfg, d, dt, dev, lead)))
+    elif cfg.d_ff:
         p.update(_prefixed("layers/mlp", mlp_init(gen, cfg, d, cfg.d_ff, dt, dev, lead)))
+    if cfg.hybrid_parallel_ssm:
+        p.update(_prefixed("layers/ssm", ssm_mod.ssm_init(gen, cfg, d, dt, dev, lead)))
+        # per-branch output norms of the hybrid fusion (Hymba eq. 2)
+        for name in ("attn_out_norm", "ssm_out_norm"):
+            p[f"layers/{name}/scale"] = torch.zeros((L, d), dtype=torch.float32, device=dev)
     return p
 
 
@@ -83,10 +131,33 @@ def unembed(cfg, p: Params, h):
     return h @ w
 
 
-def _mlp_residual(cfg, lp: Params, h):
+def _ffn(cfg, lp: Params, h, token_mask=None):
+    """h plus the layer's FFN (MoE or MLP) on ``norm2(h)`` -> (h, the
+    router's aux loss, or None without a router)."""
+    if cfg.is_moe:
+        y, aux = moe_mod.moe_apply(cfg, _sub(lp, "moe"), apply_norm(cfg, lp, "norm2", h),
+                                   token_mask=token_mask)
+        return h + y, aux
     if cfg.d_ff:
         h = h + mlp_apply(cfg, lp, apply_norm(cfg, lp, "norm2", h))
-    return h
+    return h, None
+
+
+def _hybrid_fuse(cfg, lp: Params, a_out, s_out):
+    """The mean of the two branches, each through its own rmsnorm (the JAX
+    package uses rmsnorm here whatever ``cfg.norm``)."""
+    a = rmsnorm(a_out, lp["attn_out_norm/scale"])
+    s = rmsnorm(s_out, lp["ssm_out_norm/scale"])
+    return 0.5 * (a + s)
+
+
+def _mixer(cfg, lp: Params, hn, attn_out):
+    """The layer's token mixing on ``hn = norm1(h)``: the attention output,
+    or for the hybrid family its fusion with the SSM branch on ``hn``."""
+    if not cfg.hybrid_parallel_ssm:
+        return attn_out
+    s_out, _ = ssm_mod.ssm_apply(cfg, _sub(lp, "ssm"), hn)
+    return _hybrid_fuse(cfg, lp, attn_out, s_out)
 
 
 # ---------------------------------------------------------------------------
@@ -95,23 +166,52 @@ def _mlp_residual(cfg, lp: Params, h):
 
 
 def layer_apply(cfg, lp: Params, h, positions, impl: str = "auto", window=None):
-    """One decoder layer -> (h, aux). The dense family has no auxiliary
-    loss, so aux is a float32 zero."""
+    """One decoder layer -> (h, aux): the router's aux loss for the MoE
+    family, a float32 zero otherwise."""
     hn = apply_norm(cfg, lp, "norm1", h)
-    h = h + attn.attention_block(cfg, lp, hn, positions, impl=impl, window=window)
-    return _mlp_residual(cfg, lp, h), torch.zeros((), dtype=torch.float32, device=h.device)
+    a_out = attn.attention_block(cfg, lp, hn, positions, impl=impl, window=window)
+    h, aux = _ffn(cfg, lp, h + _mixer(cfg, lp, hn, a_out))
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
+
+
+def _xlstm_blocks(p: Params, kind: str, i: int, n: int):
+    """Views of super-block ``i``'s ``n`` blocks of ``kind`` (m or s): each
+    ``(norm leaves keyed norm/*, cell leaves keyed without a prefix)``."""
+    norm = {k: v for k, v in p.items() if k.startswith(f"xlstm/{kind}_norm/")}
+    cell = _sub(p, f"xlstm/{kind}")
+    off = len(f"xlstm/{kind}_")
+    return [({k[off:]: v[i, j] for k, v in norm.items()},
+             {k: v[i, j] for k, v in cell.items()}) for j in range(n)]
+
+
+def _xlstm_stack(cfg, p: Params, h):
+    """Super-blocks in order; each runs its mLSTM blocks, then its sLSTM
+    blocks, every block pre-normed with a residual (``_xlstm_stack`` of the
+    JAX package)."""
+    n_super, n_m, n_s = _xlstm_counts(cfg)
+    for i in range(n_super):
+        for kind, n, apply in (("m", n_m, xlstm_mod.mlstm_apply),
+                               ("s", n_s, xlstm_mod.slstm_apply)):
+            for norm, cell in _xlstm_blocks(p, kind, i, n):
+                y, _ = apply(cfg, cell, apply_norm(cfg, norm, "norm", h))
+                h = h + y
+    return h
 
 
 def forward(cfg, p: Params, batch, impl: str = "auto", window=None):
-    """-> (logits [B, S, V], aux loss). ``impl`` picks the attention
-    (``attention.attention_block``); ``window=None`` applies the config's.
-    The JAX ``forward``'s ``remat`` and ``unroll`` are XLA compile knobs
-    (rematerialization and scan unrolling) and are not ported: this runs
-    eagerly, layer by layer."""
-    check_dense(cfg)
+    """-> (logits [B, S, V], aux loss: the routers' mean over layers, 0
+    without). ``impl`` picks the attention (``attention.attention_block``);
+    ``window=None`` applies the config's. The JAX ``forward``'s ``remat``
+    and ``unroll`` are XLA compile knobs (rematerialization and scan
+    unrolling) and are not ported: this runs eagerly, layer by layer."""
+    check_full_sequence(cfg)
     h = embed_tokens(cfg, p, batch["tokens"])
-    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "ssm":
+        return unembed(cfg, p, _xlstm_stack(cfg, p, h)), aux
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     for lp in layer_params(p, cfg.num_layers):
         h, a = layer_apply(cfg, lp, h, positions, impl=impl, window=window)
         aux = aux + a
@@ -137,7 +237,8 @@ class DecodeCache(NamedTuple):
 
 def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_to: int = 0,
             unroll=1, length=None):
-    """Whole-prompt forward -> (last-token logits [B, V], DecodeCache).
+    """Whole-prompt forward of a dense or MoE model -> (last-token logits
+    [B, V], DecodeCache).
 
     ``impl`` picks the attention, as in :func:`forward`. ``window``: ring
     size of the cache, ``W = window or cfg.sliding_window``, so a
@@ -152,9 +253,17 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_t
     is 0, as the JAX package's ``forward`` does. (The JAX ``prefill``
     passes only ``window`` and so attends fully for prompts longer than
     the config's window, ROADMAP.md P1/R1; for S <= W the two agree.)
+    MoE layers route the padded tokens behind live ones (``token_mask``),
+    so padding never displaces a live token; the capacity still counts the
+    padded tokens, as in the JAX package. The hybrid and xLSTM families
+    raise: their recurrent caches come with their decode (ROADMAP.md A15).
     """
     del unroll
-    check_dense(cfg)
+    check_full_sequence(cfg)
+    if cfg.family == "ssm" or cfg.hybrid_parallel_ssm:
+        raise NotImplementedError(
+            f"{cfg.name}: prefill of family={cfg.family!r} is not ported yet (ROADMAP.md "
+            "A15: the hybrid/xLSTM recurrent caches come with their decode)")
     W = window or cfg.sliding_window
     if length is not None and W:
         raise ValueError(
@@ -165,12 +274,15 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_t
     h = embed_tokens(cfg, p, tokens)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    # pad tokens must not compete for MoE expert capacity
+    live = None if length is None else (
+        positions[None, :].long() < length.to(h.device).long()[:, None])
     ks, vs, ps_ = [], [], []
     for lp in layer_params(p, cfg.num_layers):
         hn = apply_norm(cfg, lp, "norm1", h)
         kv = attn.prefill_kv_cache(cfg, lp, hn, positions, window=W, pad_to=pad_to)
-        h = _mlp_residual(cfg, lp, h + attn.attention_block(cfg, lp, hn, positions,
-                                                            impl=impl, window=window or None))
+        h, _ = _ffn(cfg, lp, h + attn.attention_block(cfg, lp, hn, positions, impl=impl,
+                                                      window=window or None), live)
         ks.append(kv.k)
         vs.append(kv.v)
         ps_.append(kv.pos)
@@ -201,7 +313,7 @@ class PagedDecodeCache(NamedTuple):
 
 def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
                      device=None) -> PagedDecodeCache:
-    check_dense(cfg)
+    check_serving(cfg)
     return PagedDecodeCache(kv=attn.init_paged_kv_pool(
         cfg, n_pages, page_size, resolve_device(device), n_layers=cfg.num_layers))
 
@@ -212,6 +324,7 @@ def paged_decode_step(cfg, p: Params, cache: PagedDecodeCache, page_table,
     """token [B], pos [B], page_table [B, P] int32 -> (logits [B, V], cache).
     The pool is updated in place (the returned cache is ``cache``);
     inactive rows write nothing and their logits are garbage."""
+    check_serving(cfg)
     h = embed_tokens(cfg, p, token)[:, None]  # [B, 1, d]
     W = window or cfg.sliding_window
     for l, lp in enumerate(layer_params(p, cfg.num_layers)):
@@ -219,7 +332,7 @@ def paged_decode_step(cfg, p: Params, cache: PagedDecodeCache, page_table,
         a_out = attn.paged_decode_attention_block(
             cfg, lp, apply_norm(cfg, lp, "norm1", h), pool, page_table, pos,
             window=W, cache_update=cache_update, active=active)
-        h = _mlp_residual(cfg, lp, h + a_out)
+        h, _ = _ffn(cfg, lp, h + a_out)
     return unembed(cfg, p, h)[:, 0], cache
 
 

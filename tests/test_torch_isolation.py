@@ -50,7 +50,9 @@ def test_port_modules_found():
                  "repro_torch.kernels.flash_attention.ref",
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.kernels.rmsnorm.ref", "repro_torch.kernels.rmsnorm.ops",
-                 "repro_torch.checkpoint.io", "repro_torch.fed.train_lm"):
+                 "repro_torch.checkpoint.io", "repro_torch.fed.train_lm",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
+                 "repro_torch.models.xlstm", "repro_torch.optim.optimizers"):
         assert want in mods
 
 

@@ -402,6 +402,8 @@ FLASH_SHAPES = [
     (1, 200, 200, 4, 2, 32, False, 0, 0),
     (1, 200, 200, 4, 2, 64, False, 0, 0),
     (1, 200, 200, 4, 2, 128, False, 0, 0),
+    (1, 4096, 4096, 25, 5, 64, True, 2048, 0),  # Hymba-1.5B: G 5, hd 64, window 2048
+    (1, 4096, 4096, 16, 16, 128, True, 0, 0),  # Qwen1.5-MoE-A2.7B
 ]
 
 
@@ -589,6 +591,48 @@ def test_pallas_forward_matches_direct_on_card(cuda, arch):
         assert fa_ops.launches["flash_attention"] == model.config.num_layers
         ld, _ = model.forward(params, batch, impl="direct")
     torch.testing.assert_close(lp, ld, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b", "hymba-1.5b",
+                                  "xlstm-1.3b"])
+def test_family_forward_on_card_matches_cpu_port(cuda, arch):
+    """The reduced MoE, hybrid and xLSTM models on the card in float32
+    (``impl="pallas"``: the flash and rmsnorm kernels) against the port's
+    CPU path (held against the JAX package by tests/test_torch_families.py)
+    at the model-level bar 2e-4, the aux loss at 1e-6; two card forwards
+    bitwise equal in float32 and in bf16 (the MoE combine has no atomics)."""
+    import dataclasses
+
+    from repro_torch import strict_fp32
+    from repro_torch.models.model import build_model, build_model_by_name
+
+    host = build_model_by_name(arch, reduced=True, device="cpu")
+    cfg = host.config
+    params = host.init(0)
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 150), generator=g)}
+    card = build_model(cfg, device=cuda)
+    pc = {k: v.to(cuda) for k, v in params.items()}
+    bc = {k: v.to(cuda) for k, v in batch.items()}
+    with strict_fp32():
+        fa_ops.reset_launches()
+        rn_ops.reset_launches()
+        lc, auxc = card.forward(pc, bc, impl="pallas")
+        L = cfg.num_layers if cfg.family != "ssm" else 0
+        assert fa_ops.launches["flash_attention"] == L
+        norms = {"rmsnorm": 2, "layernorm": 0}[cfg.norm] + 2 * cfg.hybrid_parallel_ssm
+        assert rn_ops.launches["rmsnorm"] == norms * L + (cfg.norm == "rmsnorm")
+        lc2, _ = card.forward(pc, bc, impl="pallas")
+    lh, auxh = host.forward(params, batch, impl="pallas")
+    assert torch.equal(lc, lc2)
+    torch.testing.assert_close(lc.cpu(), lh, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(auxc.cpu(), auxh, atol=1e-6, rtol=0)
+    bf = build_model(dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16"),
+                     device=cuda)
+    pb = bf.init(0)
+    a, _ = bf.forward(pb, bc, impl="pallas")
+    b, _ = bf.forward(pb, bc, impl="pallas")
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ from repro.serve import poisson_trace as jax_trace
 from repro_torch import bridge
 from repro_torch.models.model import build_model_by_name as torch_build
 from repro_torch.serve import PagedServeLoop, Request, poisson_trace
+from repro_torch.serve.loop import ServeUnsupportedError
 from repro_torch.serve import slots as tslots
 
 torch.set_num_threads(2)
@@ -119,9 +120,25 @@ def test_not_ported_parts_raise_naming_the_roadmap():
 
     model = torch_build("starcoder2-3b", reduced=True, device="cpu")
     params = model.init(0)
-    moe = replace(model.config, family="moe", num_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe, device="cpu")
+    # the MoE, hybrid and xLSTM families run forward, loss and (MoE) prefill,
+    # but serving them, and the recurrent families' prefill, is A15
+    for arch in ("granite-moe-1b-a400m", "hymba-1.5b", "xlstm-1.3b"):
+        other = torch_build(arch, reduced=True, device="cpu")
+        oparams = other.init(0)
+        with pytest.raises(NotImplementedError, match="A15"):
+            other.init_paged_cache(2, 8, 8)
+        with pytest.raises(NotImplementedError, match="A15"):
+            other.paged_decode_step(oparams, None, torch.zeros(1, 1, dtype=torch.int32),
+                                    torch.zeros(1, dtype=torch.int32),
+                                    torch.zeros(1, dtype=torch.int32))
+        with pytest.raises(ServeUnsupportedError, match="A15"):
+            PagedServeLoop(other, oparams, device="cpu")
+        if arch != "granite-moe-1b-a400m":
+            with pytest.raises(NotImplementedError, match="A15"):
+                other.prefill(oparams, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    whisper = replace(model.config, family="audio", learned_pos=True, encoder_layers=2)
+    with pytest.raises(NotImplementedError, match="A13c"):
+        build_model(whisper, device="cpu")
     for kw in (dict(prefix_cache=True), dict(prefill_chunk=8), dict(preempt=True),
                dict(cache_update="mask"), dict(sampler=SamplerConfig(temperature=0.7))):
         with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
