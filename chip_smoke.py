@@ -24,9 +24,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bitwise against the tree divided first; flash attention in float32 and
      bf16 at StarCoder2-3B's [1, 8192, 24/2, 128] (causal, window 4096) and
      at S 4096, Qwen1.5-32B's [1, 2048, 40/40, 128], a q_offset case with
-     Sq < Sk, a ragged edge, and rows with no live key (exactly 0), each
-     launched twice and held bitwise against itself, bf16 also against
-     the plain version in float32 on the same inputs;
+     Sq < Sk, a ragged edge, and rows with no live key (exactly 0), and at
+     head dim 96: phi-3-vision's [1, 4096, 32/32, 96] causal and a G 4
+     window with q_offset and ragged Sq < Sk, each launched twice and held
+     bitwise against itself, bf16 also against the plain version in
+     float32 on the same inputs; float32 at hd 96 also with every base 4
+     bytes off 16-byte alignment (the 4-byte copies), bitwise equal to the
+     16-byte copies of aligned clones;
      rmsnorm in float32 and bf16 at the LM step's [2048, 1024], Qwen1.5-32B's
      [2048, 5120], DeepSeek-Coder-33B's [8192, 7168], d 8192, ragged row
      counts and the grouped [4, 512, 1024] with scale [4, 1024], each
@@ -110,7 +114,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      256, under no_grad, bf16 against float32; it launches no kernel.
      granite-moe-1b-a400m cut to 4 of 24 layers, float32, 2 clients: 2
      FedVeca rounds with the LM traffic above, 2 vecavg launches a round
-     and the rmsnorm count the code implies.
+     and the rmsnorm count the code implies;
+ 11. vlm, audio — phi-3-vision-4.2B at full width and depth in bf16 (random
+     weights from seed 0), B 1, S 4096, its first 576 positions from
+     seeded float32 patches through the bf16 projector: ``forward``,
+     ``loss`` and ``prefill`` with ``impl="pallas"`` (flash at head dim 96)
+     against ``"auto"``, exactly 32 flash and 65 rmsnorm launches a call,
+     two pallas forwards bitwise equal, the bf16 loss within 1e-3, prefill's
+     last logits against the forward's, ms and peak GB; its float32 logits
+     at 2 of 32 layers, pallas against auto within 2e-4. whisper-medium at
+     full width and depth in bf16, 1500 seeded float32 frame rows, 448
+     tokens: ``forward``, ``loss`` and ``prefill``, no kernel launched
+     (flash 0, rmsnorm 0, as the JAX package puts none on its path), ms
+     and peak GB, bf16 against float32 (cross entropy 1e-3, logits 5e-2
+     relative). The flash timing rows add phi-3's shape in bf16 and
+     float32.
 
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
 last line, one JSON object with a row per kernel and
@@ -241,7 +259,16 @@ FLASH_CASES = [
     ("rows with no live key", 1, 200, 256, 4, 2, 128, False, 16, 250),
     ("qwen1.5-moe-a2.7b S 4096", 1, 4096, 4096, 16, 16, 128, True, 0, 0),
     ("hymba-1.5b S 4096 window 2048, hd 64, G 5", 1, 4096, 4096, 25, 5, 64, True, 2048, 0),
+    ("phi-3-vision-4.2b S 4096, hd 96", 1, 4096, 4096, 32, 32, 96, True, 0, 0),
+    ("hd 96, G 4, window 300, q_offset 500, Sq 700 < Sk 1200", 1, 700, 1200, 8, 2, 96, True,
+     300, 500),
 ]
+PHI3_FLASH = 8  # FLASH_CASES' index of phi-3's shape (the hd-96 timing rows)
+# float32 at hd 96 with every base 4 bytes past 16-byte alignment, so that
+# the kernel takes its 4-byte copies: (name, B, Sq, Sk, Hq, Hkv, hd, causal,
+# window, q_offset)
+FLASH_F32_MISALIGNED = ("hd 96 float32, bases 4 bytes off 16, G 4, ragged", 1, 333, 333, 8,
+                        2, 96, True, 0, 0)
 FWD_S, PREFILL_S, QWEN_S, QWEN_LAYERS = 8192, 1024, 2048, 4
 # A full-width forward, pallas vs auto: the JAX package's model-level bar
 # (tests/test_kernels.py::test_flash_attention_is_model_attention) on the
@@ -327,6 +354,21 @@ GRANITE_LAYERS, GRANITE_CLIENTS, GRANITE_ROUNDS = 4, 2, 2
 # seeds). Bars: 0.1 and 0.5. The port's float32 cells are held against the
 # JAX package on the CPU (tests/test_torch_moe.py).
 XLSTM_BF16_LOSS_ATOL, XLSTM_BF16_LOGITS_REL = 0.1, 0.5
+# The VLM and audio families of phase 11 (configs of src/repro_torch/configs):
+# phi-3-vision-4.2b (hf:microsoft/Phi-3-vision-128k-instruct) at full width
+# and depth in bf16, B 1, S 4096, its first 576 positions fed by seeded
+# float32 patches through the bf16 projector; its float32 logits check cut
+# to 2 of 32 layers. whisper-medium (arXiv:2212.04356) at full width and
+# depth in bf16, B 1, 1500 seeded float32 frame rows, 448 decoder tokens
+# (its native context).
+PHI3_ARCH, PHI3_S, PHI3_F32_LAYERS = "phi-3-vision-4.2b", 4096, 2
+WHISPER_ARCH, WHISPER_S = "whisper-medium", 448
+# whisper in bf16 against the same weights in float32: the port's CPU path
+# at full width cut to 2, 6 and 12 of 24 + 24 layers gave mean cross
+# entropies 0.9e-4-1.3e-4 apart and logits 6.0e-3, 6.9e-3 and 8.9e-3 apart
+# in Frobenius norm relative to float32's. Bars: 1e-3 (the bf16 loss bar of
+# phase 8) and 5e-2.
+WHISPER_BF16_LOSS_ATOL, WHISPER_BF16_LOGITS_REL = 1e-3, 5e-2
 
 
 def qwen05_config():
@@ -694,8 +736,37 @@ def phase_flash_parity(dev):
                       f"(tol {FLASH_TOL[dtype]})" + vs_f32
                       + (f", {n_empty} rows with no live key exactly 0" if n_empty else ""))
                 del q, k, v, o, o2, o_r
+        worst[torch.float32] = max(worst[torch.float32], flash_f32_misaligned(gen, dev))
     torch.cuda.empty_cache()
     return worst
+
+
+def flash_f32_misaligned(gen, dev):
+    """The float32 kernel's 4-byte copies at hd 96: q, k, v whose bases are
+    4 bytes past 16-byte alignment, against the plain version, twice
+    bitwise, and bitwise equal to the 16-byte copies of aligned clones.
+    Returns the error."""
+    name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff = FLASH_F32_MISALIGNED
+
+    def make(S, H):
+        n = B * S * H * hd
+        return torch.randn(n + 1, generator=gen, device=dev)[1:].view(B, S, H, hd)
+
+    q, k, v = make(Sq, Hq), make(Sk, Hkv), make(Sk, Hkv)
+    require(all(t.data_ptr() % 16 == 4 for t in (q, k, v)), f"[parity] flash {name}: aligned")
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    o2 = fa_ops.flash_attention(q, k, v, **kw)
+    o_a = fa_ops.flash_attention(q.clone(), k.clone(), v.clone(), **kw)
+    o_r = fa_ref.attention(q, k, v, **kw)
+    sync()
+    err = (o - o_r).abs().max().item()
+    require(torch.equal(o, o2) and torch.equal(o, o_a),
+            f"[parity] flash {name}: launches differ, or 4-byte and 16-byte copies differ")
+    require(err <= FLASH_TOL[torch.float32], f"[parity] flash {name}: max|kernel - plain| {err}")
+    print(f"[parity] flash {name}: bitwise across launches and equal to the 16-byte copies of "
+          f"aligned clones; max|o - plain| {err:.3e} (tol {FLASH_TOL[torch.float32]})")
+    return err
 
 
 def bf16_ulp(t):
@@ -1563,8 +1634,9 @@ def sdpa_f32_kernels(dev):
 
 def flash_timing_row(dev, launches, errs):
     """The flash kernel at the forward's shapes in bf16 (the main path's
-    type), and the float32 instance at Qwen1.5-32B's shape and at
-    StarCoder2-3B's S 8192 window 4096 (phase 8's float32 forwards):
+    type; phi-3-vision's the hd-96 instance), and the float32 instance at
+    Qwen1.5-32B's shape, at StarCoder2-3B's S 8192 window 4096 (phase 8's
+    float32 forwards) and at phi-3-vision's (phase 11's float32 check):
     kernel, plain version and SDPA (timed only; the port never calls it)
     with the same boolean mask and, where the mask is plain causal (Sq =
     Sk, no window, no offset), with ``is_causal=True`` and no mask; kernel
@@ -1575,8 +1647,9 @@ def flash_timing_row(dev, launches, errs):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(21)
     rows = []
-    shapes = ([(c, torch.bfloat16) for c in FLASH_CASES[:3] + FLASH_CASES[6:8]]
-              + [(FLASH_CASES[2], torch.float32), (FLASH_CASES[0], torch.float32)])
+    shapes = ([(c, torch.bfloat16) for c in FLASH_CASES[:3] + FLASH_CASES[6:9]]
+              + [(FLASH_CASES[2], torch.float32), (FLASH_CASES[0], torch.float32),
+                 (FLASH_CASES[PHI3_FLASH], torch.float32)])
     for (name, B, Sq, Sk, Hq, Hkv, hd, causal, window, qoff), dtype in shapes:
         q, k, v = _flash_inputs(gen, dev, dtype, B, Sq, Sk, Hq, Hkv, hd)
         kw = dict(causal=causal, window=window, q_offset=qoff)
@@ -1622,7 +1695,11 @@ def flash_timing_row(dev, launches, errs):
                 blocks_per_sm=fa_ops.blocks_per_sm(torch.bfloat16, 128),
                 smem_bytes=fa_ops.smem_bytes(torch.bfloat16, 128),
                 blocks_per_sm_f32=fa_ops.blocks_per_sm(torch.float32, 128),
-                smem_bytes_f32=fa_ops.smem_bytes(torch.float32, 128))
+                smem_bytes_f32=fa_ops.smem_bytes(torch.float32, 128),
+                hd96=dict(blocks_per_sm=fa_ops.blocks_per_sm(torch.bfloat16, 96),
+                          smem_bytes=fa_ops.smem_bytes(torch.bfloat16, 96),
+                          blocks_per_sm_f32=fa_ops.blocks_per_sm(torch.float32, 96),
+                          smem_bytes_f32=fa_ops.smem_bytes(torch.float32, 96)))
 
 
 # ---------------------------------------------------------------------------
@@ -2211,6 +2288,178 @@ def phase_xlstm(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 11. the VLM and audio families
+# ---------------------------------------------------------------------------
+
+
+def _bf16_vs_f32(logits16, logits32, targets):
+    """-> (cross entropy of each, |their difference|, |l16 - l32| / |l32| in
+    Frobenius norm, the share of positions whose top-1 agrees)."""
+    c16, c32 = (cross_entropy(x, targets).item() for x in (logits16, logits32))
+    l16 = logits16.float()
+    rel = ((l16 - logits32).norm() / logits32.norm()).item()
+    top1 = (l16.argmax(-1) == logits32.argmax(-1)).float().mean().item()
+    return c16, c32, abs(c16 - c32), rel, top1
+
+
+def phase_phi3(dev):
+    """phi-3-vision-4.2b at full width and depth in bf16 (random weights from
+    seed 0), B 1, S 4096, 576 positions from seeded float32 patches:
+    ``forward``, ``loss`` and ``prefill`` with ``impl="pallas"`` (the hd-96
+    flash kernel and rmsnorm) against ``"auto"``, exactly 32 flash and 65
+    rmsnorm launches a forward, two pallas forwards bitwise equal, prefill's
+    last logits against the forward's last position, ms and peak GB; then
+    float32 at 2 of 32 layers, logits pallas against auto."""
+    cfg = get_arch(PHI3_ARCH)
+    L = cfg.num_layers
+    want_rms = 2 * L + 1
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    sync()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(35)
+    batch = _lm_batch(gen, cfg, 1, PHI3_S, dev)
+    batch["patches"] = torch.randn(1, cfg.num_patches, cfg.vision_dim, generator=gen, device=dev)
+    out = dict(arch=PHI3_ARCH, source=cfg.source, layers=f"{L} of {L}", S=PHI3_S,
+               patches=cfg.num_patches, head_dim=cfg.head_dim,
+               params_b=sum(t.numel() for t in params.values()) / 1e9,
+               weights_gb=sum(t.numel() * t.element_size() for t in params.values()) / 1e9,
+               init_s=init_s)
+    with torch.inference_mode():
+        model.forward(params, batch, impl="pallas")  # warm-up (cuBLAS handles, allocator)
+        model.forward(params, batch, impl="auto")
+        (lp, _), ms_p, mem_p, _ = timed_call(lambda: model.forward(params, batch, impl="pallas"),
+                                            dev)
+        _require_launches("phi-3 pallas forward (the main path)", L, want_rms)
+        require(lp.dtype == torch.bfloat16 and lp.shape == (1, PHI3_S, cfg.vocab_size)
+                and bool(torch.isfinite(lp).all()), "[phi-3] pallas logits not finite or misshaped")
+        lp2, _ = model.forward(params, batch, impl="pallas")
+        require(torch.equal(lp, lp2), "[phi-3] two pallas forwards differ")
+        text, _ = model.forward(params, {"tokens": batch["tokens"]}, impl="pallas")
+        require(not torch.equal(text[:, :cfg.num_patches], lp[:, :cfg.num_patches]),
+                "[phi-3] the patches do not reach the logits")
+        del lp2, text
+        _, ms_a, mem_a, _ = timed_call(lambda: model.forward(params, batch, impl="auto"), dev)
+        _require_launches("phi-3 auto forward", 0, want_rms)
+        (loss_p, _), ms_lp, mem_lp, _ = timed_call(
+            lambda: model.loss(params, batch, impl="pallas"), dev)
+        _require_launches("phi-3 pallas loss", L, want_rms)
+        loss_a, _ = model.loss(params, batch, impl="auto")
+        d = abs(loss_p.item() - loss_a.item())
+        require(d <= FWD_BF16_LOSS_ATOL, f"[phi-3] bf16 loss pallas {loss_p.item()} vs auto "
+                f"{loss_a.item()}")
+        pb = {k: v for k, v in batch.items() if k != "targets"}
+        (pl_, pc), ms_pf, mem_pf, _ = timed_call(
+            lambda: model.prefill(params, pb, impl="pallas"), dev)
+        _require_launches("phi-3 prefill", L, want_rms)
+        dl = (pl_.float() - lp[:, -1].float()).abs()
+        rel = (dl.max() / lp[:, -1].float().abs().max()).item()
+        require(rel <= MOE_PREFILL_REL and pc.kv.k.shape == (L, 1, PHI3_S, cfg.num_kv_heads, cfg.head_dim),
+                f"[phi-3] prefill logits vs the forward's last position: max|d| / max|logit| "
+                f"{rel}, cache {tuple(pc.kv.k.shape)}")
+        out.update(pallas_ms=ms_p, auto_ms=ms_a, pallas_peak_gb=mem_p, auto_peak_gb=mem_a,
+                   loss_pallas=loss_p.item(), loss_auto=loss_a.item(), loss_abs_diff=d,
+                   loss_pallas_ms=ms_lp, loss_pallas_peak_gb=mem_lp, flash_launches=L,
+                   rmsnorm_launches=want_rms, same_bits_twice=True,
+                   prefill=dict(S=PHI3_S, ms=ms_pf, peak_gb=mem_pf,
+                                max_abs_vs_forward=dl.max().item(), rel_vs_forward=rel))
+        print(f"[phi-3] {PHI3_ARCH} ({cfg.source}) full width, {L} of {L} layers, bf16, B 1 S "
+              f"{PHI3_S} ({cfg.num_patches} patch positions, hd {cfg.head_dim}): "
+              f"{out['params_b']:.2f} B params ({out['weights_gb']:.1f} GB, init {init_s:.1f} s); "
+              f"pallas {ms_p:.1f} ms (peak {mem_p:.2f} GB), auto {ms_a:.1f} ms (peak "
+              f"{mem_a:.2f} GB); loss pallas {loss_p.item():.6f} vs auto {loss_a.item():.6f} "
+              f"(|d| {d:.2e}, tol {FWD_BF16_LOSS_ATOL}), {ms_lp:.1f} ms; flash {L}, rmsnorm "
+              f"{want_rms} a forward; two pallas forwards bitwise equal; prefill {ms_pf:.1f} ms, "
+              f"last logits vs the forward's max|d| {dl.max().item():.3e}, / max|logit| "
+              f"{rel:.3e} (tol {MOE_PREFILL_REL})")
+        del lp, pl_, pc
+    del model, params
+    torch.cuda.empty_cache()
+
+    cfg = _f32(cfg, num_layers=PHI3_F32_LAYERS)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    batch = _lm_batch(gen, cfg, 1, PHI3_S, dev)
+    batch["patches"] = torch.randn(1, cfg.num_patches, cfg.vision_dim, generator=gen, device=dev)
+    with torch.inference_mode(), strict_fp32():
+        (lp, _), ms_p, _, _ = timed_call(lambda: model.forward(params, batch, impl="pallas"), dev)
+        _require_launches("phi-3 f32 pallas forward", PHI3_F32_LAYERS, 2 * PHI3_F32_LAYERS + 1)
+        la, _ = model.forward(params, batch, impl="auto")
+        err = (lp - la).abs().max().item()
+    require(bool(torch.isfinite(lp).all()) and err <= FWD_LOGITS_ATOL,
+            f"[phi-3-f32] logits pallas vs auto: {err}")
+    out["f32"] = dict(layers=f"{PHI3_F32_LAYERS} of 32", logits_max_abs_pallas_vs_auto=err,
+                      pallas_ms=ms_p)
+    print(f"[phi-3-f32] {PHI3_ARCH} widths float32, {PHI3_F32_LAYERS} of 32 layers, S {PHI3_S}: "
+          f"logits max|pallas - auto| {err:.3e} (tol {FWD_LOGITS_ATOL}); flash "
+          f"{PHI3_F32_LAYERS}, rmsnorm {2 * PHI3_F32_LAYERS + 1}")
+    del model, params, lp, la
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_whisper(dev):
+    """whisper-medium at full width and depth in bf16 (random weights from
+    seed 0), B 1, 1500 seeded float32 frame rows, 448 tokens: ``forward``,
+    ``loss`` and ``prefill`` (``impl`` is taken and ignored, as by the JAX
+    package, and no kernel launches: flash 0, rmsnorm 0), ms and peak GB,
+    prefill's last logits against the forward's, and bf16 against the same
+    weights in float32."""
+    cfg = get_arch(WHISPER_ARCH)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    batch = _lm_batch(gen, cfg, 1, WHISPER_S, dev)
+    batch["frames"] = torch.randn(1, cfg.encoder_seq, cfg.frontend_dim, generator=gen, device=dev)
+    out = dict(arch=WHISPER_ARCH, source=cfg.source,
+               layers=f"{cfg.encoder_layers} + {cfg.num_layers}", frames=cfg.encoder_seq,
+               S=WHISPER_S, params_b=sum(t.numel() for t in params.values()) / 1e9)
+    with torch.inference_mode():
+        model.forward(params, batch, impl="pallas")  # warm-up
+        (l16, _), ms, mem, _ = timed_call(lambda: model.forward(params, batch, impl="pallas"), dev)
+        _require_launches("whisper forward", 0, 0)
+        require(l16.dtype == torch.bfloat16 and l16.shape == (1, WHISPER_S, cfg.vocab_size)
+                and bool(torch.isfinite(l16).all()), "[whisper] logits not finite or misshaped")
+        (loss, _), ms_l, mem_l, _ = timed_call(lambda: model.loss(params, batch), dev)
+        _require_launches("whisper loss", 0, 0)
+        pb = {k: v for k, v in batch.items() if k != "targets"}
+        (pl_, pc), ms_pf, mem_pf, _ = timed_call(lambda: model.prefill(params, pb), dev)
+        _require_launches("whisper prefill", 0, 0)
+        dl = (pl_.float() - l16[:, -1].float()).abs().max().item()
+        require(dl <= MOE_PREFILL_REL * l16[:, -1].float().abs().max().item()
+                and pc["kv"].k.shape == (cfg.num_layers, 1, WHISPER_S, cfg.num_kv_heads,
+                                        cfg.head_dim)
+                and pc["enc_out"].shape == (1, cfg.encoder_seq, cfg.d_model),
+                f"[whisper] prefill: logits vs the forward's last position {dl}, cache "
+                f"{tuple(pc['kv'].k.shape)}")
+        del pc
+        model32 = build_model(_f32(cfg), device=dev)
+        params32 = {k: v.float() for k, v in params.items()}
+        with strict_fp32():
+            l32, _ = model32.forward(params32, batch)
+    c16, c32, d, rel, top1 = _bf16_vs_f32(l16, l32, batch["targets"])
+    require(d <= WHISPER_BF16_LOSS_ATOL and rel <= WHISPER_BF16_LOGITS_REL,
+            f"[whisper] bf16 vs float32: loss {c16} vs {c32}, logits rel {rel}")
+    out.update(ms=ms, peak_gb=mem, loss=loss.item(), loss_ms=ms_l, loss_peak_gb=mem_l,
+               prefill_ms=ms_pf, prefill_peak_gb=mem_pf, prefill_max_abs_vs_forward=dl,
+               ce_bf16=c16, ce_f32=c32, ce_abs_diff=d, logits_fro_rel=rel, top1_agree=top1,
+               kernel_launches=0)
+    print(f"[whisper] {WHISPER_ARCH} ({cfg.source}) full width, {cfg.encoder_layers} + "
+          f"{cfg.num_layers} layers, bf16, B 1, {cfg.encoder_seq} frames, S {WHISPER_S}: "
+          f"{out['params_b']:.2f} B params; forward {ms:.1f} ms (peak {mem:.2f} GB), loss "
+          f"{ms_l:.1f} ms, prefill {ms_pf:.1f} ms (last logits vs the forward's max|d| {dl:.3e}); "
+          f"bf16 vs float32: cross entropy {c16:.6f} vs {c32:.6f} (|d| {d:.2e}, tol "
+          f"{WHISPER_BF16_LOSS_ATOL}), logits |bf16 - f32| / |f32| {rel:.3e} (tol "
+          f"{WHISPER_BF16_LOGITS_REL}), top-1 agree {top1:.3f}; launches no kernel (layernorm, "
+          f"direct attention: flash 0, rmsnorm 0)")
+    del model, params, model32, params32, l16, l32
+    torch.cuda.empty_cache()
+    return out
+
+
 def granite_config():
     """granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base) at full
     width, 4 of 24 layers, float32: the FedVeca round's model."""
@@ -2296,15 +2545,22 @@ def main() -> int:
         "10 granite round", phase_lm, dev, "granite-moe-1b-a400m (4 of 24 layers)",
         granite_config(), GRANITE_CLIENTS, rounds=GRANITE_ROUNDS)
     torch.cuda.empty_cache()
-    # each kernel's launches on every main path that runs it (phases 4, 6, 8, 9, 10)
+    fam["phi-3"] = run("11 phi-3", phase_phi3, dev)
+    fam["whisper"] = run("11 whisper", phase_whisper, dev)
+    # each kernel's launches on every main path that runs it (phases 4, 6, 8,
+    # 9, 10, 11; whisper's path runs none)
     flash_row["launches_by_path"] = {
         "starcoder2-3b forward (30 layers)": fwd["bf16"]["launches"],
         "qwen1.5-moe-a2.7b forward (24 layers)": fam["moe"]["flash_launches"],
-        "hymba-1.5b forward (4 of 32 layers)": fam["hymba"]["bf16"]["flash_launches"]}
+        "hymba-1.5b forward (4 of 32 layers)": fam["hymba"]["bf16"]["flash_launches"],
+        "phi-3-vision-4.2b forward (32 layers, hd 96)": fam["phi-3"]["flash_launches"],
+        "whisper-medium forward": fam["whisper"]["kernel_launches"]}
     rms_row["launches_by_path"] = {
         "qwen1.5-0.5b LM, 5 rounds": lm["qwen1.5-0.5b"]["launches"]["rmsnorm"],
         "qwen1.5-moe-a2.7b forward": fam["moe"]["rmsnorm_launches"],
         "hymba-1.5b forward (4 of 32 layers)": fam["hymba"]["bf16"]["rmsnorm_launches"],
+        "phi-3-vision-4.2b forward": fam["phi-3"]["rmsnorm_launches"],
+        "whisper-medium forward": fam["whisper"]["kernel_launches"],
         f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["rmsnorm"]}
     tree_row["launches_by_path"] = {
         "cnn experiment": fed["launches"]["vecavg"],

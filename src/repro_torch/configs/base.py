@@ -2,8 +2,8 @@
 ``configs/base.py``: ``ArchConfig``, ``param_count()``, ``reduced()`` and
 ``get_arch``).
 
-Only the architectures the port runs are registered (the decoder-only
-families and the paper's three toy models); each resolves to a module of
+Only the architectures the port runs are registered (the decoder-only,
+VLM and audio families and the paper's three toy models); each resolves to a module of
 ``repro_torch.configs``. ``reduced()`` is the CPU-test variant
 (2 layers, d_model <= 128, f32) with exactly the JAX package's arithmetic,
 so reduced configs agree between the two packages.
@@ -207,6 +207,9 @@ ARCH_MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "xlstm-1.3b": "xlstm_1_3b",
     "nemotron-4-15b": "nemotron_4_15b",
+    # forward, loss and prefill (the VLM backbone also the round; serving is A15)
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-medium": "whisper_medium",
     # the paper's own models, trained by the federated round (repro_torch.fed)
     "svm-mnist": "svm_mnist",
     "cnn-mnist": "cnn_mnist",

@@ -35,7 +35,12 @@
 //     launch by cuTensorMapEncodeTiled, looked up at run time
 //     (cudaGetDriverEntryPoint), so the library needs no -lcuda. Rows are
 //     swizzled by their bytes (hd 16/32/64/128: 32/64/128/128 B; hd 128 as
-//     two 64-element column blocks). TMA fills zeros past Sq and Sk.
+//     two 64-element column blocks). hd 96's 192-byte rows fit no swizzle
+//     span, so its tiles are three 32-element column blocks swizzled by 64
+//     B, each copied by its own TMA box: Q K^T is six k16 steps across the
+//     blocks, and P V one m64n96k16 a step whose B descriptor steps 8 KB
+//     from block to block. Q and 3 stages of K and V take 168 KB: one block
+//     an SM, as at hd 128. TMA fills zeros past Sq and Sk.
 //   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory.
 //     P goes from the S accumulator to bf16 registers, which are the A
 //     operand of O += P V (m64n{hd}k16; V read from shared memory with the
@@ -88,7 +93,7 @@
 //     and O = O corr + that tile's part on the CUDA cores, rounded to
 //     nearest.
 //   - Copies are cp.async: the Q tile once, then K and V tiles of kBK keys
-//     (32 at hd 128, 64 below) into two stages, so that tile i + 1 is in
+//     (32 at hd 96 and 128, 64 below) into two stages, so that tile i + 1 is in
 //     flight while tile i is computed. The host picks the copy width at
 //     each launch (a template parameter): 16 bytes where q, k and v's bases
 //     and batch, sequence and head strides allow it, 4 bytes otherwise
@@ -111,7 +116,10 @@
 //     Q and K rows hd + 16 floats apart (16 banks between rows g and g +
 //     1), V rows hd + 4 (8 banks between rows 2t and 2t + 2).
 //   - Shared memory at hd 128: Q 36 KB and two stages of (K, V) 69 KB, 105
-//     KB a block, so 2 blocks (8 warps) fit an SM; hd 64: 94 KB, 2 blocks.
+//     KB a block, so 2 blocks (8 warps) fit an SM; hd 96: 83 KB, hd 64: 94
+//     KB, 2 blocks each. hd 96's rows (24 16-byte chunks, which do not
+//     divide 128 threads) are copied as 64 columns, then 32, each in whole
+//     passes of the block.
 //   - As before: the strided layout is read in place; only KV tiles with a
 //     live key for the block's rows are visited; the mask compares run
 //     only on tiles that straddle the diagonal, the window's edge or Sk
@@ -155,9 +163,9 @@ constexpr int kThreads = 128;
 
 template <int HD>
 struct F32Tiles {
-  // keys a KV tile holds; at hd 128, 64-key stages would leave room for
-  // one block an SM, not two
-  static constexpr int kBK = HD == 128 ? 32 : 64;
+  // keys a KV tile holds; at hd 96 and 128, 64-key stages would leave room
+  // for one block an SM, not two
+  static constexpr int kBK = HD >= 96 ? 32 : 64;
   // row strides in floats (see the header): Q and K 16 mod 32, V 4 mod 32
   static constexpr int kQKStride = HD % 32 == 16 ? HD : HD + 16;
   static constexpr int kVStride = HD + 4;
@@ -225,17 +233,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [row0, row0 + ROWS) of one head's [S, HD] slice at src (row stride
-// `stride` elements) by cp.async into shared memory at dst, DST floats a
-// row; rows at or past n_rows are zero-filled. A thread keeps one column
-// and walks its rows with one running address: with an address computed
-// for each copy of the unrolled loop, ptxas held them all across the tile
-// and spilled at hd 64 and 128. The 4-byte loop (4 times the copies) is
-// not unrolled.
-template <int HD, int CB, int ROWS, int DST>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const float* src, long long stride,
+// NC columns of rows [row0, row0 + ROWS) of one head's [S, hd] slice at
+// src (row stride `stride` elements) by cp.async into shared memory at
+// dst, DST floats a row; rows at or past n_rows are zero-filled. A thread
+// keeps one column and walks its rows with one running address: with an
+// address computed for each copy of the unrolled loop, ptxas held them all
+// across the tile and spilled at hd 64 and 128. The 4-byte loop (4 times
+// the copies) is not unrolled.
+template <int NC, int CB, int ROWS, int DST>
+__device__ __forceinline__ void copy_cols(uint32_t dst, const float* src, long long stride,
                                           int row0, int n_rows) {
-  constexpr int kPer = CB / 4, kChunks = HD / kPer, kStep = kThreads / kChunks;  // rows a pass
+  constexpr int kPer = CB / 4, kChunks = NC / kPer, kStep = kThreads / kChunks;  // rows a pass
   static_assert(kThreads % kChunks == 0 && ROWS % kStep == 0, "whole passes");
   const int r = static_cast<int>(threadIdx.x) / kChunks;
   const int c = (static_cast<int>(threadIdx.x) % kChunks) * kPer;
@@ -251,6 +259,18 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const float* src, long l
     for (int i = 0; i < ROWS; i += kStep, p += step)
       cp_async<CB>(dst + 4 * i * DST, row0 + r + i < n_rows ? p : src, row0 + r + i < n_rows);
   }
+}
+
+// Rows [row0, row0 + ROWS) of one head's [S, HD] slice (see copy_cols).
+// hd 96 goes as columns [0, 64), then [64, 96): its 24 or 96 chunks a row
+// do not divide the 128 threads, 16 and 8 (or 64 and 32) do.
+template <int HD, int CB, int ROWS, int DST>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const float* src, long long stride,
+                                          int row0, int n_rows) {
+  constexpr int kLo = HD == 96 ? 64 : HD;
+  copy_cols<kLo, CB, ROWS, DST>(dst, src, stride, row0, n_rows);
+  if constexpr (kLo < HD)
+    copy_cols<HD - kLo, CB, ROWS, DST>(dst + 4 * kLo, src + kLo, stride, row0, n_rows);
 }
 
 // One KV tile, keys [row0, row0 + kBK), into the stage at dst: K, then V
@@ -522,8 +542,9 @@ constexpr int kBarrierBytes = 128;  // the mbarriers, before the 1024-aligned ti
 
 template <int HD>
 struct Tiles {
-  // bytes of one swizzled row: the swizzle span (a 64-element column block at hd 128)
-  static constexpr int kRowBytes = HD * 2 < 128 ? HD * 2 : 128;
+  // bytes of one swizzled row: the swizzle span (a 64-element column block
+  // at hd 128, a 32-element one at hd 96, whose 192 bytes 128 does not divide)
+  static constexpr int kRowBytes = HD * 2 <= 128 ? HD * 2 : HD * 2 % 128 == 0 ? 128 : 64;
   static constexpr int kColBlocks = HD * 2 / kRowBytes;
   static constexpr int kStepsPerBlock = kRowBytes / 32;  // k16 steps in one column block
   // wgmma descriptor swizzle mode: 1 = 128 B, 2 = 64 B, 3 = 32 B
@@ -695,6 +716,25 @@ __device__ __forceinline__ void wgmma_m64k16_rs<64>(float (&d)[32], uint32_t a0,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_m64k16_rs<96>(float (&d)[48], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_m64k16_rs<128>(float (&d)[64], uint32_t a0, uint32_t a1,
                                                     uint32_t a2, uint32_t a3, uint64_t db) {
   asm volatile(
@@ -734,7 +774,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q, int q_row, 
 
 // O += P V over one KV tile: P [64 x 128] bf16 in registers, V [128 keys x
 // HD] in shared memory (hd contiguous, so N-major: 8-key groups 8 rows
-// apart, column blocks kBK2 rows apart).
+// apart, column blocks kBK2 rows apart: the descriptor's leading offset).
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&p)[32], uint32_t v) {
   using T = Tiles<HD>;
@@ -1124,6 +1164,7 @@ int flash_attention_blocks_per_sm(int dtype, int hd) {
     case 16: return blocks_per_sm<16>(f);
     case 32: return blocks_per_sm<32>(f);
     case 64: return blocks_per_sm<64>(f);
+    case 96: return blocks_per_sm<96>(f);
     case 128: return blocks_per_sm<128>(f);
     default: return -1;
   }
@@ -1136,12 +1177,13 @@ int flash_attention_smem_bytes(int dtype, int hd) {
     case 16: return f ? F32Tiles<16>::kSmem : Tiles<16>::kSmem;
     case 32: return f ? F32Tiles<32>::kSmem : Tiles<32>::kSmem;
     case 64: return f ? F32Tiles<64>::kSmem : Tiles<64>::kSmem;
+    case 96: return f ? F32Tiles<96>::kSmem : Tiles<96>::kSmem;
     case 128: return f ? F32Tiles<128>::kSmem : Tiles<128>::kSmem;
     default: return -1;
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128}. Strides are
+// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 96, 128}. Strides are
 // in elements, for the batch, sequence and head axes (the head_dim axis is
 // contiguous); o is a contiguous [B, Sq, Hq, hd]. bf16 takes TMA: q, k, v
 // and o 16-byte aligned, and the strides of axes longer than 1 multiples
@@ -1162,6 +1204,7 @@ int flash_attention_launch(int dtype, int hd, const void* q, const void* k, cons
     case 16: return launch<16>(dtype, a);
     case 32: return launch<32>(dtype, a);
     case 64: return launch<64>(dtype, a);
+    case 96: return launch<96>(dtype, a);
     case 128: return launch<128>(dtype, a);
     default: return cudaErrorInvalidValue;
   }

@@ -23,7 +23,7 @@ from repro_torch.kernels.flash_attention import ref
 
 launches: Dict[str, int] = {"flash_attention": 0}
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernel's template instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 _P = ctypes.c_void_p
@@ -138,8 +138,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     ``use_pallas=False`` selects the plain version on any device (named
     only, as in the JAX ops). ``block_q``/``block_k`` keep the JAX
     signature: they tile the TPU grid there; the CUDA kernel's tiles are
-    fixed (bf16 128 x 128; float32 64 query rows by 32 keys at hd 128, 64
-    below) and no result depends on them.
+    fixed (bf16 128 x 128; float32 64 query rows by 32 keys at hd 96 and
+    128, 64 below) and no result depends on them.
     In bf16 the kernel reads q, k, v by TMA: each must have a 16-byte
     aligned base and batch, sequence and head strides, or the call raises.
     """

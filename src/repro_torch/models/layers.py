@@ -12,6 +12,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 
 Params = Dict[str, torch.Tensor]
@@ -40,6 +41,14 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype, device) -> torch.Tensor:
     return dense_init(gen, vocab, dim, dtype, device, scale=0.02)
+
+
+def promoted_matmul(x, w):
+    """x @ w in the type jnp promotes the two to, as the JAX package's
+    product computes it: float32 stub inputs (patches, frames) into bf16
+    projectors give float32, where torch refuses the mixed product."""
+    ct = torch.promote_types(x.dtype, w.dtype)
+    return x.to(ct) @ w.to(ct)
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +143,8 @@ def mlp_apply(cfg, p: Params, x, prefix: str = "mlp"):
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
+    """Inverse frequencies [head_dim / 2] on ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exps)
 

@@ -8,12 +8,12 @@
     model.init_paged_cache(n_slots, n_pages, page_size) -> PagedDecodeCache
     model.paged_decode_step(params, cache, page_table, token, pos, ...)
 
-The decoder-only families (dense, MoE, hybrid, xLSTM: forward and loss;
-dense and MoE: prefill; dense: paged decode) and the paper's toy models
-(svm-mnist, cnn-mnist, cnn-cifar10; training) are ported. The rest raise
-``NotImplementedError`` naming the ROADMAP item: the VLM and audio families
-(A13c), serving any family but dense and prefill of the recurrent ones
-(A15).
+The decoder families (dense, MoE, hybrid, xLSTM, VLM: forward and loss;
+dense, MoE and VLM: prefill; dense: paged decode), the audio
+encoder-decoder (forward, loss, prefill; no decode, as in the JAX package)
+and the paper's toy models (svm-mnist, cnn-mnist, cnn-cifar10; training)
+are ported. The rest raise ``NotImplementedError`` naming the ROADMAP item:
+serving any family but dense and prefill of the recurrent ones (A15).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, get_arch
-from repro_torch.models import simple, transformer
+from repro_torch.models import encdec, simple, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +61,15 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     dev = resolve_device(device)
     if cfg.family == "toy":
         return _toy_model(cfg, dev)
+    if cfg.family == "audio":
+        return Model(
+            config=cfg, device=dev,
+            init=lambda seed=0: encdec.init_params(cfg, seed=seed, device=dev),
+            prefill=functools.partial(encdec.prefill, cfg),
+            paged_decode_step=None, init_paged_cache=None,  # no decode for whisper
+            loss=functools.partial(encdec.loss_fn, cfg),
+            forward=functools.partial(encdec.forward, cfg),
+        )
     transformer.check_full_sequence(cfg)
     return Model(
         config=cfg,
@@ -78,6 +87,11 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
 def decode_capability(model: Model) -> tuple[bool, str]:
     """Whether this model can serve the paged decode path, with the reason
     if not."""
+    if model.config.family == "audio":
+        return False, (
+            f"{model.config.name}: whisper's decoder is 448-token encoder-"
+            "conditioned (needs `frames`, no decode_step/init_cache) — "
+            "decode serving n/a; use prefill/forward (DESIGN.md §5)")
     if model.config.family != "toy" and transformer.serving_gap(model.config):
         return False, transformer.serving_gap(model.config)
     if model.paged_decode_step is not None and model.init_paged_cache is not None:

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.models.layers import Params, dense_init
 
 
@@ -95,7 +96,9 @@ def ssm_apply(cfg, p: Params, x, state: SSMState | None = None):
 
 
 def init_ssm_state(cfg, batch: int, d: int, dtype=torch.float32, device=None) -> SSMState:
+    """Zero state on ``device`` (default ``cuda``)."""
     d_in = cfg.ssm_expand * d
+    device = resolve_device(device)
     return SSMState(
         h=torch.zeros((batch, d_in, cfg.ssm_state), dtype=torch.float32, device=device),
         conv=torch.zeros((batch, cfg.ssm_conv - 1, d_in), dtype=dtype, device=device))

@@ -1,6 +1,6 @@
 """Decoder stacks (port of ``repro/models/transformer.py``): the dense,
-MoE, hybrid (attention + SSM) and xLSTM families' full-sequence forward and
-loss, prefill (dense and MoE), and paged decode (dense).
+MoE, hybrid (attention + SSM), xLSTM and VLM families' full-sequence
+forward and loss, prefill (dense, MoE and VLM), and paged decode (dense).
 
 Params are a flat dict of tensors keyed by the JAX package's keypaths
 (``embed``, ``final_norm/scale``, ``layers/attn/w_q`` ...); per-layer
@@ -9,9 +9,9 @@ stacked ``[n_super, n_per_super, ...]``) and the stack is a Python loop
 over layers (the JAX package scans). KV pools are updated in place where
 the JAX package returns new (donated) buffers.
 
-The VLM and audio families raise (ROADMAP.md A13c); serving anything but
-the dense family raises (A15), and so does prefill of the recurrent
-families, whose caches come with their decode.
+The audio family is the encoder-decoder of ``models/encdec.py``; serving
+anything but the dense family raises (ROADMAP.md A15), and so does prefill
+of the recurrent families, whose caches come with their decode.
 """
 from __future__ import annotations
 
@@ -26,24 +26,27 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (Params, apply_norm, cross_entropy,
                                        dense_init, embed_init, mlp_apply,
-                                       mlp_init, norm_init, rmsnorm)
+                                       mlp_init, norm_init, promoted_matmul, rmsnorm)
 
-FULL_SEQUENCE_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FULL_SEQUENCE_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
 
 
 def check_full_sequence(cfg):
-    """Raise for the families whose forward the port does not have yet."""
-    if cfg.family not in FULL_SEQUENCE_FAMILIES or cfg.vision_dim or cfg.learned_pos:
+    """Raise for the families that are not decoder stacks of this module."""
+    if cfg.family not in FULL_SEQUENCE_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} is not ported yet (ROADMAP.md A13c: "
-            "the VLM and audio families; the toy models are built by "
-            "models.model.build_model)")
+            f"{cfg.name}: family={cfg.family!r} is not a decoder stack of "
+            "models.transformer (the audio family is models.encdec, the toy "
+            "models models.simple; models.model.build_model picks the module)")
 
 
 def serving_gap(cfg) -> str:
     """Why the port cannot serve ``cfg`` yet ("" for the dense family)."""
     if cfg.family == "dense":
         return ""
+    if cfg.family == "vlm":
+        return (f"{cfg.name}: serving family='vlm' is not ported yet (ROADMAP.md A15: "
+                f"serving phi-3, with paged decode at head dim {cfg.head_dim})")
     return (f"{cfg.name}: serving family={cfg.family!r} is not ported yet (ROADMAP.md A15: "
             "MoE serving and the hybrid/xLSTM recurrent prefill and decode)")
 
@@ -76,7 +79,8 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
     ``seed``) on ``device`` (default ``cuda``), with the keys and shapes of
     the JAX package's ``init_params``. Weights N(0, 1/in_dim), embeddings
     N(0, 0.02^2), norm scales and biases zero, the router N(0, 0.02^2), as
-    there (the draws themselves differ)."""
+    there (the draws themselves differ). ``learned_pos`` adds ``pos_embed``
+    (max(encoder_seq, 32768) rows), the VLM family ``vision_proj``."""
     check_full_sequence(cfg)
     dev = resolve_device(device)
     if gen is None:
@@ -87,6 +91,11 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
     p.update(_prefixed("final_norm", norm_init(cfg, d, dev)))
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, d, cfg.vocab_size, dt, dev)
+    if cfg.learned_pos:
+        max_pos = max(cfg.encoder_seq, 2048 if cfg.family == "toy" else 32768)
+        p["pos_embed"] = embed_init(gen, max_pos, d, dt, dev)
+    if cfg.vision_dim:
+        p["vision_proj"] = dense_init(gen, cfg.vision_dim, d, dt, dev)
     if cfg.family == "ssm":  # xLSTM: [n_super, n_per_super, ...] stacks
         n_super, n_m, n_s = _xlstm_counts(cfg)
         for kind, n, init in (("m", n_m, xlstm_mod.mlstm_init), ("s", n_s, xlstm_mod.slstm_init)):
@@ -110,19 +119,32 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
     return p
 
 
-def layer_params(p: Params, num_layers: int) -> List[Params]:
-    """Per-layer views of the stacked ``layers/*`` leaves, keyed without
-    the ``layers/`` prefix (``attn/w_q``)."""
+def layer_params(p: Params, num_layers: int, stack: str = "layers") -> List[Params]:
+    """Per-layer views of the stacked ``{stack}/*`` leaves, keyed without
+    the ``{stack}/`` prefix (``attn/w_q``); the encoder-decoder's stacks are
+    ``enc_layers`` and ``dec_layers``."""
     out: List[Params] = [{} for _ in range(num_layers)]
-    for k, v in p.items():
-        if k.startswith("layers/"):
-            for i, t in enumerate(torch.unbind(v)):
-                out[i][k[len("layers/"):]] = t
+    for k, v in _sub(p, stack).items():
+        for i, t in enumerate(torch.unbind(v)):
+            out[i][k] = t
     return out
 
 
-def embed_tokens(cfg, p: Params, tokens):
-    return p["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+def embed_tokens(cfg, p: Params, batch):
+    """``batch["tokens"]`` [B, S] -> [B, S, d] in the compute type. The VLM
+    family's ``batch["patches"]`` [B, P, vision_dim] through
+    ``vision_proj`` replace the first P positions; with P > S the patches
+    are ignored, as in the JAX package. ``learned_pos`` adds
+    ``pos_embed[:S]``."""
+    dt = getattr(torch, cfg.compute_dtype)
+    h = p["embed"][batch["tokens"].long()].to(dt)
+    if cfg.vision_dim and "patches" in batch:
+        pe = promoted_matmul(batch["patches"], p["vision_proj"]).to(dt)
+        if pe.shape[1] <= h.shape[1]:
+            h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
+    if cfg.learned_pos:
+        h = h + p["pos_embed"][:h.shape[1]][None].to(dt)
+    return h
 
 
 def unembed(cfg, p: Params, h):
@@ -207,7 +229,7 @@ def forward(cfg, p: Params, batch, impl: str = "auto", window=None):
     and ``unroll`` are XLA compile knobs (rematerialization and scan
     unrolling) and are not ported: this runs eagerly, layer by layer."""
     check_full_sequence(cfg)
-    h = embed_tokens(cfg, p, batch["tokens"])
+    h = embed_tokens(cfg, p, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
         return unembed(cfg, p, _xlstm_stack(cfg, p, h)), aux
@@ -270,8 +292,7 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_t
             "prefill(length=) is full-attention only: the ring buffer keeps "
             "the last `window` slots of the PADDED prompt, dropping live "
             "tokens — prefill SWA models at the exact prompt length")
-    tokens = batch["tokens"]
-    h = embed_tokens(cfg, p, tokens)
+    h = embed_tokens(cfg, p, batch)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     # pad tokens must not compete for MoE expert capacity
@@ -325,7 +346,9 @@ def paged_decode_step(cfg, p: Params, cache: PagedDecodeCache, page_table,
     The pool is updated in place (the returned cache is ``cache``);
     inactive rows write nothing and their logits are garbage."""
     check_serving(cfg)
-    h = embed_tokens(cfg, p, token)[:, None]  # [B, 1, d]
+    h = p["embed"][token.long()][:, None].to(getattr(torch, cfg.compute_dtype))  # [B, 1, d]
+    if cfg.learned_pos:
+        h = h + p["pos_embed"][pos.long()][:, None].to(h.dtype)
     W = window or cfg.sliding_window
     for l, lp in enumerate(layer_params(p, cfg.num_layers)):
         pool = attn.PagedKVPool(cache.kv.k[l], cache.kv.v[l])

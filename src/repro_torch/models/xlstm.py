@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.models.layers import Params, dense_init
 
 
@@ -47,9 +48,10 @@ def mlstm_init(gen, cfg, d: int, dtype, device, lead=()) -> Params:
 
 
 def init_mlstm_state(cfg, batch: int, d: int, device=None) -> MLSTMState:
+    """Zero state on ``device`` (default ``cuda``)."""
     H = cfg.num_heads
     hd = int(cfg.xlstm_proj_factor * d) // H
-    z = dict(dtype=torch.float32, device=device)
+    z = dict(dtype=torch.float32, device=resolve_device(device))
     return MLSTMState(C=torch.zeros((batch, H, hd, hd), **z),
                       n=torch.zeros((batch, H, hd), **z),
                       m=torch.zeros((batch, H), **z))
@@ -103,7 +105,9 @@ def slstm_init(gen, cfg, d: int, dtype, device, lead=()) -> Params:
 
 
 def init_slstm_state(cfg, batch: int, d: int, device=None) -> SLSTMState:
+    """Zero state (n at 1e-6) on ``device`` (default ``cuda``)."""
     H = cfg.num_heads
+    device = resolve_device(device)
     z = torch.zeros((batch, H, d // H), dtype=torch.float32, device=device)
     return SLSTMState(c=z, n=z + 1e-6, h=z,
                       m=torch.zeros((batch, H), dtype=torch.float32, device=device))

@@ -1,6 +1,8 @@
-"""The paper's FedVeca round on the MoE, hybrid and xLSTM families, in the
-port against the JAX package (its tests/test_arch_smoke.py runs the round
-on granite-moe-1b-a400m and xlstm-1.3b).
+"""The paper's FedVeca round on the MoE, hybrid, xLSTM and VLM families, in
+the port against the JAX package (its tests/test_arch_smoke.py runs the
+round on granite-moe-1b-a400m and xlstm-1.3b). The VLM round takes
+text-only LM batches, as the JAX simulator feeds a VLM; whisper has no
+round (the LM batches carry no ``frames``).
 
 The round step, teacher-forced on explicit batches with params carried
 over by ``repro_torch.bridge``, at the round-step bars of
@@ -52,7 +54,8 @@ def _close_tree(t, j, **tol):
         np.testing.assert_allclose(_np(t[k]), np.asarray(v), err_msg=k, **tol)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-1.3b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-1.3b", "hymba-1.5b",
+                                  "phi-3-vision-4.2b"])
 def test_round_step_matches_jax(arch):
     jm, jp, tm, tp = _pair(arch)
     C, T, B, S = 3, 3, 2, 16

@@ -30,6 +30,8 @@ SHAPES = [
     (1, 64, 256, 2, 1, 32, True, 0, 192),  # decode-chunk with offset
     (2, 128, 128, 8, 2, 64, False, 0, 0),
     (1, 257, 257, 2, 2, 128, True, 100, 0),  # ragged block edges
+    (1, 200, 200, 4, 2, 96, True, 0, 0),  # phi-3's head dim, GQA, ragged
+    (2, 72, 300, 2, 1, 96, True, 128, 228),  # hd 96, window with offset
 ]
 
 

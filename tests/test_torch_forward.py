@@ -139,21 +139,37 @@ def test_backward_through_pallas_raises_and_direct_has_grads():
 
 
 def test_non_dense_forward_raises_naming_a13():
-    """The MoE, hybrid and xLSTM families run (tests/test_torch_families.py);
-    the VLM and audio families still raise, naming A13c."""
+    """A13c is ported: a StarCoder2 config turned VLM or audio builds and
+    runs forward, loss and prefill (tests/test_torch_vlm.py and
+    tests/test_torch_encdec.py hold them against the JAX package), while
+    the decoder stack's own functions refuse the audio family, which is
+    models.encdec's."""
     from dataclasses import replace
 
     from repro_torch.models.model import build_model
 
     base = torch_build("starcoder2-3b", reduced=True, device="cpu").config
     vlm = replace(base, family="vlm", num_patches=4, vision_dim=64)
-    audio = replace(base, family="audio", learned_pos=True, encoder_layers=2)
+    audio = replace(base, family="audio", learned_pos=True, encoder_layers=2,
+                    encoder_seq=16, frontend_dim=base.d_model)
+    r = np.random.RandomState(16)
+    toks = torch.from_numpy(r.randint(0, base.vocab_size, (1, 12)).astype(np.int64))
+    extra = {"vlm": ("patches", (1, 4, 64)), "audio": ("frames", (1, 16, base.d_model))}
     for cfg in (vlm, audio):
-        for call in (lambda: ttransformer.forward(cfg, {}, {"tokens": torch.zeros(1, 4)}),
-                     lambda: ttransformer.init_params(cfg, device="cpu"),
-                     lambda: build_model(cfg, device="cpu")):
-            with pytest.raises(NotImplementedError, match="A13c"):
-                call()
+        model = build_model(cfg, device="cpu")
+        params = model.init(0)
+        name, shape = extra[cfg.family]
+        batch = {"tokens": toks, "targets": toks, name: torch.from_numpy(
+            r.randn(*shape).astype(np.float32))}
+        logits, _ = model.forward(params, batch)
+        assert logits.shape == (1, 12, base.vocab_size) and bool(torch.isfinite(logits).all())
+        assert bool(torch.isfinite(model.loss(params, batch)[0]))
+        last, _ = model.prefill(params, {k: v for k, v in batch.items() if k != "targets"})
+        torch.testing.assert_close(last, logits[:, -1], atol=1e-5, rtol=1e-4)
+    for call in (lambda: ttransformer.forward(audio, {}, {"tokens": toks}),
+                 lambda: ttransformer.init_params(audio, device="cpu")):
+        with pytest.raises(NotImplementedError, match="models.encdec"):
+            call()
 
 
 @pytest.mark.parametrize("impl", ["direct", "pallas"])

@@ -52,7 +52,9 @@ def test_port_modules_found():
                  "repro_torch.kernels.rmsnorm.ref", "repro_torch.kernels.rmsnorm.ops",
                  "repro_torch.checkpoint.io", "repro_torch.fed.train_lm",
                  "repro_torch.models.moe", "repro_torch.models.ssm",
-                 "repro_torch.models.xlstm", "repro_torch.optim.optimizers"):
+                 "repro_torch.models.xlstm", "repro_torch.optim.optimizers",
+                 "repro_torch.models.encdec", "repro_torch.configs.phi_3_vision_4_2b",
+                 "repro_torch.configs.whisper_medium"):
         assert want in mods
 
 
@@ -122,6 +124,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         PagedServeLoop(model, params)
     assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_state_helpers_default_to_cuda(monkeypatch):
+    """The recurrent state and RoPE helpers took ``device=None`` to mean the
+    CPU; like the entry points they now ask for the card and raise without
+    one, and build on the CPU only when asked."""
+    from repro_torch.models import encdec, layers, ssm, xlstm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = repro_torch.configs.get_arch("xlstm-1.3b").reduced()
+    hyb = repro_torch.configs.get_arch("hymba-1.5b").reduced()
+    calls = [lambda **kw: xlstm.init_mlstm_state(cfg, 1, cfg.d_model, **kw),
+             lambda **kw: xlstm.init_slstm_state(cfg, 1, cfg.d_model, **kw),
+             lambda **kw: ssm.init_ssm_state(hyb, 1, hyb.d_model, **kw),
+             lambda **kw: layers.rope_freqs(32, 1e4, **kw),
+             lambda **kw: encdec.init_params(
+                 repro_torch.configs.get_arch("whisper-medium").reduced(), **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+        out = call(device="cpu")
+        leaves = out.values() if isinstance(out, dict) else (
+            out if isinstance(out, tuple) else (out,))
+        assert all(t.device.type == "cpu" for t in leaves)
 
 
 def test_kernel_wrapper_refuses_non_cpu_without_kernel():

@@ -404,6 +404,11 @@ FLASH_SHAPES = [
     (1, 200, 200, 4, 2, 128, False, 0, 0),
     (1, 4096, 4096, 25, 5, 64, True, 2048, 0),  # Hymba-1.5B: G 5, hd 64, window 2048
     (1, 4096, 4096, 16, 16, 128, True, 0, 0),  # Qwen1.5-MoE-A2.7B
+    (1, 200, 200, 4, 2, 96, False, 0, 0),  # hd 96: three 32-column blocks
+    (1, 300, 450, 4, 2, 96, True, 0, 150),  # ragged Sq, Sk around the 128-row tiles
+    (2, 640, 640, 8, 2, 96, True, 256, 0),  # G 4, the window's edge inside tiles
+    (1, 16, 16, 2, 1, 96, False, 4, 10),  # rows with no live key
+    (1, 4096, 4096, 32, 32, 96, True, 0, 0),  # phi-3-vision-4.2B
 ]
 
 
@@ -443,8 +448,9 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, Hq, Hkv, hd,
 
 
 # float32 cases across the 3xTF32 kernel's edges: 64-row q tiles, KV tiles
-# of 32 keys at hd 128 and 64 below, 16-byte copies (q, k, v contiguous)
-# and 4-byte copies (misalign 1: each base 4 bytes past 16-byte alignment)
+# of 32 keys at hd 96 and 128 and 64 below, 16-byte copies (q, k, v
+# contiguous) and 4-byte copies (misalign 1: each base 4 bytes past 16-byte
+# alignment); hd 96 copies its rows as 64 columns, then 32
 FLASH_F32_EDGES = [
     # B, Sq, Sk, Hq, Hkv, hd, causal, window, q_offset, misalign
     (1, 77, 77, 4, 2, 128, True, 0, 0, 0),  # Sq, Sk not multiples of the tiles
@@ -461,6 +467,11 @@ FLASH_F32_EDGES = [
     (2, 100, 150, 4, 1, 64, False, 30, 60, 1),
     (1, 64, 64, 2, 2, 16, True, 0, 0, 1),
     (1, 200, 200, 12, 1, 32, True, 45, 0, 1),
+    (1, 77, 77, 4, 2, 96, True, 0, 0, 0),
+    (1, 300, 300, 2, 1, 96, True, 45, 0, 0),  # the window's edge inside a 32-key tile
+    (1, 90, 300, 12, 1, 96, True, 100, 210, 0),  # q_offset, Sq < Sk, G 12
+    (1, 77, 77, 4, 2, 96, True, 0, 0, 1),
+    (2, 100, 150, 4, 1, 96, False, 30, 60, 1),
 ]
 
 
@@ -499,7 +510,7 @@ def test_flash_f32_kernel_edges_on_card(cuda, B, Sq, Sk, Hq, Hkv, hd, causal, wi
         assert torch.equal(o, o_a)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 96, 128])
 def test_flash_f32_long_rows_of_offset_values_on_card(cuda, hd):
     """v = 3 + randn over up to 4096 keys a row, so that |o| ~ 3: the
     tensor cores' float32 accumulation truncates, and summed over every key
@@ -560,6 +571,20 @@ def test_flash_bf16_raises_where_tma_cannot_read(cuda):
             else:
                 o = fa_ops.flash_attention(q, k, k)
                 torch.testing.assert_close(o, fa_ref.attention(q, k, k), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_unsupported_head_dim_raises_naming_the_list_on_card(cuda, dtype):
+    """hd 96 has its instances; hd 80 has none, and the call raises naming
+    the head dims there are (no launch, no plain version)."""
+    fa_ops.reset_launches()
+    q = torch.zeros(1, 8, 2, 80, dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match=r"head_dim 80 not in \(16, 32, 64, 96, 128\)"):
+        fa_ops.flash_attention(q, q, q)
+    assert fa_ops.launches["flash_attention"] == 0
+    q = torch.randn(1, 8, 2, 96, device=cuda).to(dtype)
+    assert fa_ops.flash_attention(q, q, q).shape == q.shape
+    assert fa_ops.launches["flash_attention"] == 1
 
 
 def test_flash_kernel_raises_rather_than_falls_back(cuda):
@@ -633,6 +658,44 @@ def test_family_forward_on_card_matches_cpu_port(cuda, arch):
     a, _ = bf.forward(pb, bc, impl="pallas")
     b, _ = bf.forward(pb, bc, impl="pallas")
     assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+def test_vlm_and_audio_forward_on_card_match_cpu_port(cuda):
+    """Reduced phi-3-vision widened to head dim 96 (phi-3's) with patches,
+    and reduced whisper with frames, on the card in float32 against the
+    port's CPU path (held against the JAX package by tests/test_torch_vlm.py
+    and tests/test_torch_encdec.py) at 2e-4: phi-3 through the hd-96 flash
+    kernel (one launch a layer) and rmsnorm (2L + 1), whisper through no
+    kernel."""
+    import dataclasses
+
+    from repro_torch import strict_fp32
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+
+    g = torch.Generator().manual_seed(6)
+    phi = dataclasses.replace(get_arch("phi-3-vision-4.2b").reduced(), d_model=192, num_heads=2,
+                              num_kv_heads=2, head_dim=96, d_ff=384)
+    wsp = get_arch("whisper-medium").reduced()
+    cases = [(phi, "patches", (2, phi.num_patches, phi.vision_dim), phi.num_layers,
+              2 * phi.num_layers + 1),
+             (wsp, "frames", (2, wsp.encoder_seq, wsp.frontend_dim), 0, 0)]
+    for cfg, name, shape, n_flash, n_rms in cases:
+        host, card = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+        params = host.init(0)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 150), generator=g),
+                 name: torch.randn(*shape, generator=g)}
+        pc = {k: v.to(cuda) for k, v in params.items()}
+        bc = {k: v.to(cuda) for k, v in batch.items()}
+        with strict_fp32():
+            fa_ops.reset_launches()
+            rn_ops.reset_launches()
+            lc, _ = card.forward(pc, bc, impl="pallas")
+            torch.cuda.synchronize()
+            assert fa_ops.launches["flash_attention"] == n_flash, cfg.name
+            assert rn_ops.launches["rmsnorm"] == n_rms, cfg.name
+        lh, _ = host.forward(params, batch, impl="pallas")
+        torch.testing.assert_close(lc.cpu(), lh, atol=2e-4, rtol=2e-4)
 
 
 # ---------------------------------------------------------------------------

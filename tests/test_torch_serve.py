@@ -136,9 +136,24 @@ def test_not_ported_parts_raise_naming_the_roadmap():
         if arch != "granite-moe-1b-a400m":
             with pytest.raises(NotImplementedError, match="A15"):
                 other.prefill(oparams, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-    whisper = replace(model.config, family="audio", learned_pos=True, encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        build_model(whisper, device="cpu")
+    # whisper builds (A13c) and has no decode, for the JAX package's reason;
+    # serving phi-3 waits for A15
+    from repro.models.model import decode_capability as jax_decode_capability
+    from repro_torch.models.model import decode_capability
+
+    whisper = torch_build("whisper-medium", reduced=True, device="cpu")
+    ok, why = decode_capability(whisper)
+    assert not ok and (ok, why) == jax_decode_capability(jax_build("whisper-medium", reduced=True))
+    with pytest.raises(ServeUnsupportedError, match="448-token"):
+        PagedServeLoop(whisper, whisper.init(0), device="cpu")
+    phi3 = torch_build("phi-3-vision-4.2b", reduced=True, device="cpu")
+    assert decode_capability(phi3)[0] is False
+    with pytest.raises(NotImplementedError, match="A15"):
+        phi3.init_paged_cache(2, 8, 8)
+    with pytest.raises(ServeUnsupportedError, match="A15.*head dim"):
+        PagedServeLoop(phi3, phi3.init(0), device="cpu")
+    assert build_model(replace(model.config, family="audio", encoder_layers=2, encoder_seq=16,
+                               frontend_dim=model.config.d_model), device="cpu").prefill
     for kw in (dict(prefix_cache=True), dict(prefill_chunk=8), dict(preempt=True),
                dict(cache_update="mask"), dict(sampler=SamplerConfig(temperature=0.7))):
         with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
