@@ -129,6 +129,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and peak GB, bf16 against float32 (cross entropy 1e-3, logits 5e-2
      relative). The flash timing rows add phi-3's shape in bf16 and
      float32.
+ 12. sched   — the serving scheduler on Qwen1.5-32B at full width, 16 of 64
+     layers, bf16 (random weights from seed 0): one Poisson trace with
+     shared 512-token prefixes and bursts (24 requests, no EOS) through
+     ``PagedServeLoop(cache_update="kernel")`` as base, prefix cache,
+     prefix cache with 128-token chunks, and all that with preemption, on
+     a 160-page pool; every request completes; the integer stats
+     (ticks, dispatches, prefilled and prefix-hit tokens, preemptions,
+     restores, peak pages, backpressure) printed; prefix at least 2x fewer
+     prefilled tokens than base, base backpressured, full preempted; the
+     paged launches exactly as the code implies (decode L a tick, insert
+     one an admission and one a restore, none for chunk writes, rmsnorm
+     2L + 1 a dispatch); tokens/s, ms a decode tick and a chunk, TTFT and
+     ITL p50/p99, peak GB; bf16 streams against base; a prefix-hit prompt's
+     completion chunk against ``prefill``; one decode step from a mid-trace
+     state under "mask" and "scatter" (pools bitwise) and phase 4's
+     kernel-vs-plain step check; sampled decode (T 0.8, top-k 50) through
+     the full scheduler: every draw inside its top 50, the uniforms on the
+     card equal the CPU's, streams against a one-slot run of its first 8
+     requests; paged decode's timing row at this state (Hkv 40, G 1, hd
+     128); torch.profiler over ticks 39-46 of the full scheduler (a chunk a
+     tick, preemptions). Then the four variants again at 2 layers in
+     float32 under ``strict_fp32()`` with the invariants checked after
+     every tick and every restore checked bitwise: greedy streams identical
+     across the variants, integer stats equal to bf16's.
 
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
 last line, one JSON object with a row per kernel and
@@ -176,7 +200,9 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import cross_entropy  # noqa: E402
 from repro_torch.models.model import build_model, build_model_by_name  # noqa: E402
-from repro_torch.serve import PagedServeLoop, poisson_trace  # noqa: E402
+from repro_torch.metrics.logger import latency_summary  # noqa: E402
+from repro_torch.serve import PagedServeLoop, SamplerConfig, poisson_trace  # noqa: E402
+from repro_torch.serve.sampling import stream_uniforms  # noqa: E402
 from repro_torch.serve.slots import RequestQueue  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -369,6 +395,32 @@ WHISPER_ARCH, WHISPER_S = "whisper-medium", 448
 # in Frobenius norm relative to float32's. Bars: 1e-3 (the bf16 loss bar of
 # phase 8) and 5e-2.
 WHISPER_BF16_LOSS_ATOL, WHISPER_BF16_LOGITS_REL = 1e-3, 5e-2
+# The serving scheduler of phase 12: qwen1.5-32b (hf:Qwen/Qwen1.5-32B widths:
+# d_model 5120, 40/40 heads of 128, d_ff 27392, vocab 152064) at full width,
+# cut to 16 of 64 layers in bf16 (the full depth's ~70 GB of weights leave
+# the pool no room); its float32 run cut to 2 layers. benchmarks/serve_slo.py's
+# trace shape at real lengths: two shared 512-token prefixes, suffixes of
+# 64-256, 16-64 new tokens, bursts of 3x every 4 ticks, no EOS (so the
+# scheduler's integer stats cannot depend on the tokens). 160 pages of 16
+# rows: a request needs up to 52 and 8 slots would take up to 416, so the
+# whole-prompt loop backpressures and the full scheduler preempts.
+SCHED_ARCH, SCHED_LAYERS, SCHED_F32_LAYERS = "qwen1.5-32b", 16, 2
+SCHED_TRACE = dict(n_requests=24, rate=2.0, plen_choices=(64, 128, 256),
+                   max_new_choices=(16, 32, 64), prefix_families=2, prefix_len=512,
+                   burst_mult=3.0, burst_period=4, seed=0)
+SCHED_LOOP = dict(n_slots=8, page_size=16, capacity=1024, n_pages=160)
+SCHED_CHUNK = 128
+SCHED_VARIANTS = {
+    "base": {},
+    "prefix": dict(prefix_cache=True),
+    "prefix_chunk": dict(prefix_cache=True, prefill_chunk=SCHED_CHUNK),
+    "full": dict(prefix_cache=True, prefill_chunk=SCHED_CHUNK, preempt=True, preempt_after=6),
+}
+SCHED_STATS = ("ticks", "decode_dispatches", "prefill_dispatches", "extend_dispatches",
+               "restore_dispatches", "prefilled_tokens", "prefix_hit_tokens", "preemptions",
+               "peak_pages", "blocked")
+SCHED_SAMPLER = dict(temperature=0.8, top_k=50, seed=0)
+SCHED_ONE_SLOT = 8
 
 
 def qwen05_config():
@@ -950,14 +1002,15 @@ def step_check(model, params, loop, st):
 # ---------------------------------------------------------------------------
 
 
-def phase_profile(loop, reqs, n_ticks=8):
-    """torch.profiler over ``n_ticks`` ticks from the mid-trace state: device
-    time by kernel and the device's busy share. The profiler slows the host,
-    so the same ticks, replayed from the same state, are also timed without
-    it, and the busy share is given against both walls."""
+def phase_profile(loop, reqs, n_ticks=8, tag="profile", start=24):
+    """torch.profiler over ``n_ticks`` ticks from the state after ``start``
+    ticks: device time by kernel and the device's busy share. The profiler
+    slows the host, so the same ticks, replayed from the same state, are
+    also timed without it, and the busy share is given against both walls.
+    ``tag`` labels the printed line."""
     from torch.profiler import ProfilerActivity, profile
 
-    to_mid_trace(loop, reqs)
+    to_mid_trace(loop, reqs, start)
     prefills = loop.prefill_dispatches
     sync()
     t0 = time.perf_counter()
@@ -966,8 +1019,9 @@ def phase_profile(loop, reqs, n_ticks=8):
     sync()
     plain_wall_us = 1e6 * (time.perf_counter() - t0)
     prefills_plain = loop.prefill_dispatches - prefills
-    to_mid_trace(loop, reqs)
+    to_mid_trace(loop, reqs, start)
     prefills = loop.prefill_dispatches
+    extends = getattr(loop, "extend_dispatches", 0)
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -988,6 +1042,7 @@ def phase_profile(loop, reqs, n_ticks=8):
     decode_us = sum(t for k, t, _ in by_kernel if "paged_decode" in k)
     out = dict(ticks=n_ticks, prefills=loop.prefill_dispatches - prefills,
                prefills_unprofiled=prefills_plain,
+               chunks=getattr(loop, "extend_dispatches", 0) - extends,
                wall_ms_per_tick=wall_us / n_ticks / 1e3,
                wall_ms_per_tick_unprofiled=plain_wall_us / n_ticks / 1e3,
                device_busy_ms_per_tick=busy_us / n_ticks / 1e3,
@@ -997,8 +1052,8 @@ def phase_profile(loop, reqs, n_ticks=8):
                device_busy_share_unprofiled=busy_us / plain_wall_us if busy_us else None,
                top=[(k[:60], round(t / n_ticks / 1e3, 4), c) for k, t, c in by_kernel[:10]])
     if busy_us == 0:  # a measurement, not a check: CUPTI may be unavailable
-        print("[profile] the profiler recorded no device time; see [timing] instead")
-    print(f"[profile] {json.dumps(out)}")
+        print(f"[{tag}] the profiler recorded no device time; see [timing] instead")
+    print(f"[{tag}] {json.dumps(out)}")
     return out
 
 
@@ -2460,6 +2515,376 @@ def phase_whisper(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. the serving scheduler
+# ---------------------------------------------------------------------------
+
+
+class SchedLoop(PagedServeLoop):
+    """``PagedServeLoop`` that counts the times the queue's head was refused
+    pages (whole-prompt ``_can_admit`` and the scheduler's
+    ``_plan_admission``), and, with ``audit``, checks the page-table
+    invariants after every tick and that every restore left the staged rows
+    in the pool bit for bit."""
+
+    def __init__(self, *a, audit=False, **kw):
+        self.audit, self.audited_restores = audit, 0
+        super().__init__(*a, **kw)
+
+    def reset(self):
+        super().reset()
+        self.blocked = 0
+
+    def _can_admit(self, req):
+        ok = super()._can_admit(req)
+        self.blocked += not ok
+        return ok
+
+    def _plan_admission(self, req):
+        ok = super()._plan_admission(req)
+        self.blocked += not ok
+        return ok
+
+    def _restore(self, slot, ent):
+        super()._restore(slot, ent)
+        if self.audit:
+            row = self._t(self.page_table[slot][:ent.pages], torch.int64)
+            for pool, staged in ((self.cache.kv.k, ent.k), (self.cache.kv.v, ent.v)):
+                got = pool.index_select(1, row).cpu()
+                require(torch.equal(bits_of(got), bits_of(staged[:, :ent.pages])),
+                        "[sched] a restore left other bits than the staged rows in the pool")
+            self.audited_restores += 1
+
+    def tick(self, queue=None):
+        super().tick(queue)
+        if self.audit:
+            self.check_invariants()
+
+
+def bits_of(t):
+    """The raw bits of a float tensor, for bitwise comparisons (-0.0 too)."""
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def sched_model(dev, layers, dtype):
+    cfg = dataclasses.replace(get_arch(SCHED_ARCH), num_layers=layers, param_dtype=dtype,
+                              compute_dtype=dtype)
+    model = build_model(cfg, device=dev)
+    return model, model.init(0)
+
+
+def sched_trace(cfg):
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **SCHED_TRACE)
+    require(all(r.eos_id is None for r in trace), "[sched] the trace has an EOS")
+    return trace
+
+
+def sched_run(model, params, dev, trace, variant, *, sampler=None, audit=False, n_slots=None):
+    """One trace through one scheduler variant under "kernel", the launch
+    counters zeroed just before -> (requests, stats, launches, loop)."""
+    loop_kw = dict(SCHED_LOOP, **({"n_slots": n_slots} if n_slots else {}))
+    loop = SchedLoop(model, params, device=dev, cache_update="kernel", sampler=sampler,
+                     audit=audit, **loop_kw, **SCHED_VARIANTS[variant])
+    reqs = [r.clone() for r in trace]
+    torch.cuda.reset_peak_memory_stats(dev)
+    pa_ops.reset_launches()
+    rn_ops.reset_launches()
+    stats = loop.run(reqs)
+    sync()
+    launches = dict(pa_ops.launches, rmsnorm=rn_ops.launches["rmsnorm"])
+    stats.update(blocked=loop.blocked, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    V, L = model.config.vocab_size, model.config.num_layers
+    for r in reqs:
+        require(r.failed is None, f"[sched] {variant}: request {r.rid} failed: {r.failed}")
+        require(len(r.out) == r.max_new, f"[sched] {variant}: request {r.rid}: {len(r.out)} "
+                f"tokens of {r.max_new}")
+        require(all(0 <= t < V for t in r.out),
+                f"[sched] {variant}: request {r.rid}: a token outside the vocabulary")
+    dispatches = stats["decode_dispatches"] + stats["prefill_dispatches"] + \
+        stats["extend_dispatches"]
+    want = dict(paged_decode=L * stats["decode_dispatches"],
+                paged_insert=stats["prefill_dispatches"] + stats["restore_dispatches"],
+                rmsnorm=(2 * L + 1) * dispatches)
+    require(launches == want, f"[sched] {variant}: launches {launches}, the code implies {want}")
+    return reqs, stats, launches, loop
+
+
+def sched_timing(reqs, stats, loop):
+    """tokens/s, ms a decode tick and a chunk, TTFT and ITL as
+    benchmarks/serve_slo.py computes them, peak GB."""
+    ttft = [1e3 * (r.tok_walls[0] - loop.tick_walls[r.arrival]) for r in reqs]
+    itl = [1e3 * (b - a) for r in reqs for a, b in zip(r.tok_walls, r.tok_walls[1:])]
+    out = dict(tok_s=stats["tok_s"], wall_s=stats["wall_s"],
+               decode_ms=1e3 * stats["decode_s"] / max(stats["decode_dispatches"], 1),
+               chunk_ms=(1e3 * stats["extend_s"] / stats["extend_dispatches"]
+                         if stats["extend_dispatches"] else None),
+               prefill_ms=(1e3 * stats["prefill_s"] / stats["prefill_dispatches"]
+                           if stats["prefill_dispatches"] else None),
+               peak_gb=stats["peak_gb"])
+    for name, vals in (("ttft_ms_", ttft), ("itl_ms_", itl)):
+        lat = latency_summary(vals, name)
+        out.update({k: lat[k] for k in (name + "p50", name + "p99")})
+    return out
+
+
+def streams_agree(a, b):
+    """Share of tokens of ``a`` equal to ``b``'s at the same place, and the
+    first (rid, index) where they differ, or None."""
+    same = total = 0
+    first = None
+    for ra, rb in zip(a, b):
+        for i, (x, y) in enumerate(zip(ra.out, rb.out)):
+            same += x == y
+            total += 1
+            if x != y and first is None:
+                first = (ra.rid, i)
+    return same / max(total, 1), first
+
+
+def sched_chunk_check(model, params, dev, trace):
+    """The completion chunk's logits of a prefix-hit prompt prefilled in two
+    chunks straight into the pool, against ``prefill`` of the whole prompt;
+    no paged kernel launches for the chunk writes."""
+    ps = SCHED_LOOP["page_size"]
+    pre = SCHED_TRACE["prefix_len"]
+    fam = [r for r in trace if r.plen - pre == 2 * SCHED_CHUNK]
+    donor = next(r for r in trace if np.array_equal(r.tokens[:pre], fam[0].tokens[:pre])
+                 and r.rid != fam[0].rid)
+    req = fam[0]
+    n_pages = -(-donor.plen // ps) + -(-req.plen // ps)
+    cache = model.init_paged_cache(1, n_pages, ps)
+
+    def chunks(tokens, row, start):
+        logits = None
+        for s0 in range(start, len(tokens), SCHED_CHUNK):
+            step = min(SCHED_CHUNK, len(tokens) - s0)
+            toks = torch.zeros(1, SCHED_CHUNK, dtype=torch.int32, device=dev)
+            toks[0, :step] = torch.as_tensor(tokens[s0:s0 + step], device=dev)
+            logits, _ = model.paged_prefill_chunk(params, cache, row, toks, s0, step,
+                                                  cache_update="scatter")
+        return logits
+
+    donor_pages = -(-donor.plen // ps)
+    row_d = torch.arange(donor_pages, dtype=torch.int32, device=dev)
+    pa_ops.reset_launches()
+    chunks(donor.tokens, row_d, 0)
+    # the request aliases the donor's prefix pages, then two chunks of its own
+    own = torch.arange(donor_pages, n_pages, dtype=torch.int32, device=dev)
+    row = torch.cat([row_d[:pre // ps], own])[:-(-req.plen // ps)]
+    got = chunks(req.tokens, row, pre)
+    want, _ = model.prefill(params, {"tokens": torch.as_tensor(req.tokens[None], device=dev)},
+                            pad_to=SCHED_LOOP["capacity"])
+    sync()
+    require(sum(pa_ops.launches.values()) == 0, "[sched] a chunk write launched a paged kernel")
+    require(bool(torch.isfinite(got).all()), "[sched] chunk logits not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    require(err <= STEP_LOGITS_ATOL, f"[sched] chunk logits max|chunk - prefill| {err}")
+    print(f"[sched] completion chunk vs prefill (rid {req.rid}, {pre} prefix rows shared, two "
+          f"chunks of {SCHED_CHUNK}): max|diff| {err:.3e} (tol {STEP_LOGITS_ATOL}), argmax "
+          f"{'equal' if int(got.argmax()) == int(want.argmax()) else 'differs'}")
+    return err
+
+
+def sched_three_writes(model, params, loop, st):
+    """One decode step from one mid-trace state under "mask" and "scatter":
+    bitwise equal pools; then phase 4's kernel-vs-plain step check."""
+    base = loop.cache
+    pools = {}
+    for cu in ("mask", "scatter"):
+        c = type(base)(kv=type(base.kv)(base.kv.k.clone(), base.kv.v.clone()))
+        model.paged_decode_step(params, c, st["page_table"], st["tok"], st["pos"],
+                                cache_update=cu, active=st["active"])
+        pools[cu] = c
+    sync()
+    for name in ("k", "v"):
+        a, b = getattr(pools["mask"].kv, name), getattr(pools["scatter"].kv, name)
+        require(torch.equal(bits_of(a), bits_of(b)),
+                f"[sched] {name} pools of the mask and scatter writes differ")
+    del pools
+    print("[sched] decode step from the mid-trace state: mask and scatter pools bitwise equal")
+    step_check(model, params, loop, st)
+
+
+def sched_sampled(model, params, dev, trace):
+    """The full scheduler with temperature 0.8, top-k 50: every draw inside
+    its row's top 50, the stream's uniforms on the card equal the CPU's,
+    and the streams against a one-slot run."""
+    sampler = SamplerConfig(**SCHED_SAMPLER)
+    k = SCHED_SAMPLER["top_k"]
+    outside = [0]
+    seen = []
+
+    def checked(sample):
+        def f(logits, rid, nstep):
+            tok = sample(logits, rid, nstep)
+            x = logits.float()
+            kth = x.topk(k, dim=-1).values[:, -1]
+            outside[0] += int((x.gather(1, tok.long()[:, None])[:, 0] < kth).sum())
+            if len(seen) < 4:
+                seen.append((rid.clone(), nstep.clone()))
+            return tok
+        return f
+
+    runs = {}
+    # the one-slot run serves the first SCHED_ONE_SLOT requests alone, one
+    # after another (a tick a token)
+    for name, n_slots, reqs in (("full", None, trace), ("one slot", 1, trace[:SCHED_ONE_SLOT])):
+        loop = SchedLoop(model, params, device=dev, cache_update="kernel", sampler=sampler,
+                         **dict(SCHED_LOOP, **({"n_slots": n_slots} if n_slots else {})),
+                         **SCHED_VARIANTS["full"])
+        loop._sample = checked(loop._sample)
+        reqs = [r.clone() for r in reqs]
+        loop.run(reqs)
+        runs[name] = reqs
+        for r in reqs:
+            require(len(r.out) == r.max_new, f"[sched] sampled {name}: request {r.rid} short")
+    require(outside[0] == 0, f"[sched] {outside[0]} sampled tokens outside their top {k}")
+    for rid, n in seen:
+        on_card = stream_uniforms(sampler.seed, rid, n, model.config.vocab_size).cpu()
+        on_cpu = stream_uniforms(sampler.seed, rid.cpu(), n.cpu(), model.config.vocab_size)
+        require(torch.equal(bits_of(on_card), bits_of(on_cpu)),
+                "[sched] the sampler's uniforms on the card differ from the CPU's")
+    agree, first = streams_agree(runs["full"], runs["one slot"])
+    out = dict(top_k_violations=outside[0], uniforms_card_eq_cpu_batches=len(seen),
+               agree_with_one_slot=agree, first_divergence=first)
+    print(f"[sched] sampled (T {SCHED_SAMPLER['temperature']}, top-k {k}) through full: every "
+          f"draw in its top {k}; uniforms equal the CPU's on {len(seen)} batches; tokens equal "
+          f"to the one-slot run (first {SCHED_ONE_SLOT} requests): {agree:.3f}, first "
+          f"divergence {first}")
+    return out
+
+
+def sched_decode_row(loop, st, launches):
+    """Paged decode timed at the phase's mid-trace state (Hkv 40, G 1, hd 128)
+    against its byte bound and its plain version."""
+    dev, cfg = loop.device, loop.cfg
+    pool_k, pool_v = loop.cache.kv.k[0].clone(), loop.cache.kv.v[0].clone()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    Bq, Hq, Hkv, hd = loop.n_slots, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(pool_k.dtype)
+
+    q, kn, vn = rnd(Bq, Hq, hd), rnd(Bq, Hkv, hd), rnd(Bq, Hkv, hd)
+    pt, pos, act = st["page_table"], st["pos"], st["active"]
+    ps = pool_k.shape[1]
+    n_rows = int(pa_ref.slot_valid(pt, pos, ps, 0).sum())
+    _, wrote = pa_ref.write_target(pt, pos, ps, 0, act)
+    n_write = int(wrote.sum())
+    el = pool_k.element_size()
+    dec_bytes = (2 * Bq * Hq * hd * el + 2 * Bq * Hkv * hd * el + pt.numel() * 4 + 2 * Bq * 4
+                 + 2 * n_rows * Hkv * hd * el + 2 * n_write * Hkv * hd * el)
+    dec_ops = 2 * 2 * n_rows * Hkv * (Hq // Hkv) * hd
+    ker_pools = (pool_k.clone(), pool_v.clone())
+    pln_pools = (pool_k.clone(), pool_v.clone())
+    o_k = pa_ops.paged_decode_attention(q, *ker_pools, kn, vn, pt, pos, active=act)
+    o_p = pa_ref.paged_decode_attention(q, *pln_pools, kn, vn, pt, pos, act)
+    sync()
+    require(torch.equal(bits_of(ker_pools[0]), bits_of(pln_pools[0])) and
+            torch.equal(bits_of(ker_pools[1]), bits_of(pln_pools[1])),
+            "[sched] decode kernel and plain version wrote other pool bits")
+    err = (o_k[act].float() - o_p[act].float()).abs().max().item()
+    require(err <= DECODE_ATOL, f"[sched] decode kernel vs plain at the mid-trace state: {err}")
+    ms = time_ms(lambda: pa_ops.paged_decode_attention(q, pool_k, pool_v, kn, vn, pt, pos,
+                                                       active=act))
+    split = dict(pa_ops.last_decode)
+    plain = time_ms(lambda: pa_ref.paged_decode_attention(q, pool_k, pool_v, kn, vn, pt, pos,
+                                                          act))
+    t_bytes, t_ops = dec_bytes / HBM_BYTES_PER_S, dec_ops / BF16_OPS_PER_S
+    print(f"[timing] paged_decode {SCHED_ARCH}: {n_rows} valid rows over {Bq} slots, {n_write} "
+          f"writes, {dec_bytes} bytes; {split['splits']} splits a (slot, kv head) at "
+          f"{split['blocks_per_sm']} blocks an SM")
+    return dict(
+        name=f"paged_decode ({SCHED_ARCH} serve, Hkv {Hkv}, G {Hq // Hkv}, hd {hd})",
+        route="cuda", source=DECODE_SRC,
+        replaces="src/repro/kernels/paged_attention/kernel.py:64",
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, splits=split["splits"], blocks_per_sm=split["blocks_per_sm"])
+
+
+def phase_sched(dev):
+    """Phase 12: the scheduler's four variants on full-width Qwen1.5-32B (16
+    layers, bf16), its checks, then the float32 run at 2 layers."""
+    t0 = time.perf_counter()
+    model, params = sched_model(dev, SCHED_LAYERS, "bfloat16")
+    cfg = model.config
+    sync()
+    n_params = sum(t.numel() for t in params.values())
+    print(f"[sched] {SCHED_ARCH}: {cfg.num_layers} of 64 layers, {n_params / 1e9:.3f} B params "
+          f"bf16, init {time.perf_counter() - t0:.1f} s")
+    trace = sched_trace(cfg)
+    # warm-up on three short requests (cuBLAS handles, allocator), not counted
+    warm = poisson_trace(3, rate=2.0, plen_choices=(32,), max_new_choices=(4,),
+                         vocab_size=cfg.vocab_size, prefix_families=1, prefix_len=160, seed=1)
+    sched_run(model, params, dev, warm, "full")
+    out = {"variants": {}}
+    runs = {}
+    launches_total = 0
+    for name in SCHED_VARIANTS:
+        reqs, stats, launches, loop = sched_run(model, params, dev, trace, name)
+        runs[name] = (reqs, stats, loop)
+        launches_total += launches["paged_decode"]
+        ints = {k: stats[k] for k in SCHED_STATS}
+        timing = sched_timing(reqs, stats, loop)
+        out["variants"][name] = dict(stats=ints, launches=launches, timing=timing)
+        print(f"[sched] {name}: {json.dumps(ints)}; launches {json.dumps(launches)}")
+        print(f"[sched] {name} timing: {json.dumps(timing)}")
+    st = {n: runs[n][1] for n in runs}
+    require(st["base"]["blocked"] > 0, "[sched] base never backpressured: the pool is too big")
+    require(2 * st["prefix"]["prefilled_tokens"] <= st["base"]["prefilled_tokens"],
+            f"[sched] prefix prefilled {st['prefix']['prefilled_tokens']} prompt tokens, not "
+            f"2x fewer than base's {st['base']['prefilled_tokens']}")
+    require(st["full"]["preemptions"] >= 1, "[sched] full never preempted: the pool is too big")
+    require(st["full"]["restore_dispatches"] == st["full"]["preemptions"],
+            "[sched] full: restores != preemptions")
+    out["agree_with_base"] = {}
+    for name in ("prefix", "prefix_chunk", "full"):
+        agree, first = streams_agree(runs[name][0], runs["base"][0])
+        out["agree_with_base"][name] = dict(share=agree, first_divergence=first)
+        print(f"[sched] bf16 {name} vs base: {agree:.3f} of tokens equal, first divergence "
+              f"{first}")
+    out["chunk_vs_prefill_max_abs"] = sched_chunk_check(model, params, dev, trace)
+
+    loop = runs["full"][2]
+    to_mid_trace(loop, trace)
+    require(int(loop.table.active.sum()) >= 2, "[sched] mid-trace state has < 2 live slots")
+    state = mid_state(loop)
+    sched_three_writes(model, params, loop, state)
+    row = sched_decode_row(loop, state, launches_total)
+    # ticks 39-46 of the full scheduler: a chunk every tick, 2-3 live slots
+    # and two preemptions, its steady state on this trace
+    out["profile"] = phase_profile(loop, trace, tag="sched-profile", start=38)
+    out["sampled"] = sched_sampled(model, params, dev, trace)
+    del model, params, runs, loop, state
+    torch.cuda.empty_cache()
+
+    model, params = sched_model(dev, SCHED_F32_LAYERS, "float32")
+    f32 = {}
+    with strict_fp32():
+        sched_run(model, params, dev, warm, "full")
+        for name in SCHED_VARIANTS:
+            reqs, stats, _, loop = sched_run(model, params, dev, trace, name, audit=True)
+            f32[name] = reqs
+            ints = {k: stats[k] for k in SCHED_STATS}
+            require(ints == out["variants"][name]["stats"],
+                    f"[sched] float32 {name} stats {ints} differ from bf16's")
+            if name == "full":
+                require(loop.audited_restores == stats["restore_dispatches"] >= 1,
+                        "[sched] float32 full: no restore audited")
+                out["restores_audited"] = loop.audited_restores
+    for name in ("prefix", "prefix_chunk", "full"):
+        agree, first = streams_agree(f32[name], f32["base"])
+        require(first is None, f"[sched] float32 {name}: greedy stream differs from base at "
+                f"(rid, token) {first}")
+    print(f"[sched] float32, {SCHED_F32_LAYERS} layers: greedy streams identical across the "
+          f"four variants, invariants after every tick, integer stats equal bf16's, "
+          f"{out['restores_audited']} restores bitwise")
+    del model, params
+    torch.cuda.empty_cache()
+    return out, row
+
+
 def granite_config():
     """granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base) at full
     width, 4 of 24 layers, float32: the FedVeca round's model."""
@@ -2547,6 +2972,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam["phi-3"] = run("11 phi-3", phase_phi3, dev)
     fam["whisper"] = run("11 whisper", phase_whisper, dev)
+    torch.cuda.empty_cache()
+    sched, sched_row = run("12 sched", phase_sched, dev)
+    rows.insert(1, sched_row)  # beside StarCoder2-3B's decode row
+    rows[2]["launches_by_path"] = {  # paged insert: admissions and restores
+        "starcoder2-3b serve (admissions)": serve["launches"]["paged_insert"],
+        **{f"qwen1.5-32b sched {n} (admissions + restores)": v["launches"]["paged_insert"]
+           for n, v in sched["variants"].items()}}
     # each kernel's launches on every main path that runs it (phases 4, 6, 8,
     # 9, 10, 11; whisper's path runs none)
     flash_row["launches_by_path"] = {
@@ -2570,7 +3002,8 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
     print(f"[time] phases (s): {json.dumps(clock)}; total {sum(clock.values()):.1f} s")
     print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
-                      "families": fam, "ptxas": ptxas, "seconds": clock, "card": smi}))
+                      "families": fam, "sched": sched, "ptxas": ptxas, "seconds": clock,
+                      "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

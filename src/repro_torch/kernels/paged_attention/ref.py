@@ -40,6 +40,18 @@ def slot_valid(page_table, pos, page_size: int, window: int):
     return alloc & (i <= posb)
 
 
+def write_target(page_table, pos, page_size: int, window: int, active):
+    """The physical page of each slot's new row, and whether the row is
+    written: active slots whose target page lies in the table and is
+    allocated. An inactive slot may keep the stale ``pos`` of its last
+    request, one past its last page (the kernel skips it the same way)."""
+    P = page_table.shape[1]
+    pos = pos.to(torch.int64)
+    page = ((pos % window) if window else pos) // page_size
+    phys = page_table.to(torch.int64).gather(1, page.clamp(max=P - 1)[:, None])[:, 0]
+    return phys, (page < P) & (phys >= 0) & active.to(torch.bool)
+
+
 def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
                            active, *, window: int = 0):
     """q [B,Hq,hd], pools [N,ps,Hkv,hd], k_new/v_new [B,Hkv,hd], page_table
@@ -54,9 +66,8 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
     pos = pos.to(torch.int64)
     page_table = page_table.to(torch.int64)
 
+    phys, ok = write_target(page_table, pos, ps, window, active)
     idx = (pos % window) if window else pos
-    phys = page_table.gather(1, (idx // ps)[:, None])[:, 0]
-    ok = (phys >= 0) & active.to(torch.bool)
     k_pool[phys[ok], idx[ok] % ps] = k_new[ok]
     v_pool[phys[ok], idx[ok] % ps] = v_new[ok]
 
@@ -97,9 +108,8 @@ def paged_decode_attention_split(q, k_pool, v_pool, k_new, v_new, page_table, po
 
     # the pool write, as paged_decode_attention does it
     pos64 = pos.to(torch.int64)
+    phys, ok = write_target(pt, pos64, ps, window, active)
     idx = (pos64 % window) if window else pos64
-    phys = pt.gather(1, (idx // ps)[:, None])[:, 0]
-    ok = (phys >= 0) & active.to(torch.bool)
     k_pool[phys[ok], idx[ok] % ps] = k_new[ok]
     v_pool[phys[ok], idx[ok] % ps] = v_new[ok]
 

@@ -7,10 +7,13 @@ online softmax over KV blocks, and ``impl="pallas"``, which runs
 version for CPU tensors). ``"auto"`` is direct up to S = 2048 and chunked
 above, as there. Decode runs against the shared KV page pool through
 ``kernels/paged_attention``: ``cache_update="kernel"`` dispatches the CUDA
-kernel for CUDA tensors (its plain version for CPU tensors), and
-``"scatter"`` always runs the plain version. The JAX package's ``"mask"``
-write, the contiguous ring cache decode and paged chunk prefill are not
-ported yet (ROADMAP.md).
+kernel for CUDA tensors (its plain version for CPU tensors); ``"scatter"``
+and ``"mask"`` always run the plain versions and differ only in how the
+new rows reach the pool (an indexed write, or the JAX package's one-hot
+selector and ``where`` over the whole pool; the same bits). Chunked
+prefill straight into the pool (``paged_prefill_attention_block``) is
+plain torch, as its attention is plain jnp in the JAX package. The
+contiguous ring cache decode is not ported yet (ROADMAP.md A15).
 """
 from __future__ import annotations
 
@@ -206,6 +209,28 @@ def init_paged_kv_pool(cfg, n_pages: int, page_size: int, device,
 paged_slot_valid = pa_ref.slot_valid
 
 
+def _select_write(pool_t, sel, rows) -> None:
+    """The JAX package's ``"mask"`` write, in place: ``sel`` [W, N, ps] is
+    the one-hot selector of writer ``w``'s target cell (page, row); every
+    selected cell takes its writer's row of ``rows`` [W, Hkv, hd] and every
+    other cell keeps its bytes, through one ``where`` over the whole pool
+    ``pool_t`` [N, ps, Hkv, hd]. Writers target distinct cells (pages are
+    write-exclusive), so each hit cell has exactly one writer: where JAX
+    sums the selector's one non-zero product, this gathers that writer's
+    row, the same bits (a -0.0 included)."""
+    hit = sel.any(0)
+    src = sel.to(torch.int32).argmax(0)  # [N, ps]: each hit cell's writer
+    pool_t.copy_(torch.where(hit[..., None, None], rows[src], pool_t))
+
+
+def _cell_selector(N: int, ps: int, phys, row, ok):
+    """[W, N, ps] bool: writer w targets (phys[w], row[w]) where ok[w]."""
+    dev = phys.device
+    return ((torch.arange(N, device=dev)[None, :] == phys[:, None])[:, :, None]
+            & (torch.arange(ps, device=dev)[None, None, :] == row[:, None, None])
+            & ok[:, None, None])
+
+
 def paged_decode_attention_block(cfg, p: Params, x, pool: PagedKVPool,
                                  page_table, pos, *, window: int = 0,
                                  cache_update: str = "kernel", active=None):
@@ -217,7 +242,10 @@ def paged_decode_attention_block(cfg, p: Params, x, pool: PagedKVPool,
 
     ``cache_update="kernel"``: ``ops.paged_decode_attention`` (the CUDA
     kernel for CUDA tensors, its plain version for CPU tensors).
-    ``"scatter"``: the plain version on any device.
+    ``"scatter"``: the plain version on any device. ``"mask"``: the JAX
+    package's one-hot selector and ``where`` over the whole pool write the
+    rows (:func:`_select_write`), then the plain version attends with its
+    own write switched off; pools are bitwise equal to ``"scatter"``'s.
     """
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(cfg, p, x, pos[:, None], cfg.rope)
@@ -229,25 +257,108 @@ def paged_decode_attention_block(cfg, p: Params, x, pool: PagedKVPool,
         o = pa_ops.paged_decode_attention(*args, window=window, active=active)
     elif cache_update == "scatter":
         o = pa_ref.paged_decode_attention(*args, active, window=window)
+    elif cache_update == "mask":
+        N, ps = pool.k.shape[:2]
+        phys, ok = pa_ref.write_target(page_table, pos, ps, window, active)
+        pos64 = pos.to(torch.int64)
+        idx = (pos64 % window) if window else pos64
+        sel = _cell_selector(N, ps, phys, idx % ps, ok)
+        _select_write(pool.k, sel, args[3])
+        _select_write(pool.v, sel, args[4])
+        # the rows are in; the plain version attends with its write off
+        o = pa_ref.paged_decode_attention(*args, torch.zeros_like(active), window=window)
     else:
-        raise NotImplementedError(
-            f"cache_update={cache_update!r} is not ported (ROADMAP.md: the "
-            "rest of serving); use 'kernel' or 'scatter'")
+        raise ValueError(f"cache_update={cache_update!r}; expected 'kernel', "
+                         "'scatter' or 'mask'")
     return o.reshape(B, 1, cfg.q_dim) @ p["attn/w_o"]
 
 
+def paged_prefill_attention_block(cfg, p: Params, x, pool: PagedKVPool, page_row,
+                                  start: int, length: int, *,
+                                  cache_update: str = "scatter"):
+    """Chunked or suffix prefill straight into one layer's page pool: one
+    batch-1 chunk of ``C`` tokens at absolute positions ``[start, start +
+    length)`` of a single slot. x [1, C, d]; page_row [P] int (-1 =
+    unallocated). Rows >= ``length`` are padding: never written, their
+    outputs garbage the caller ignores.
+
+    Write, then read: the chunk's K/V rows land in their pages first
+    (``"scatter"``: an indexed write; ``"mask"``: the one-hot selector and
+    ``where`` over the whole pool; the same bits), then the slot's pages are
+    gathered and attended with the arithmetic validity of decode (entry
+    ``j`` valid iff its page is allocated and ``j <= start + i`` for query
+    row ``i``). Within-chunk causal attention, earlier chunks and prefix
+    pages shared from other slots all come out of the pool. The attention
+    is plain, as in the JAX package (no TPU kernel computes it). Full
+    attention only: callers gate on ``sliding_window``.
+    """
+    C = x.shape[1]
+    N, ps, Hkv, hd = pool.k.shape
+    P = page_row.shape[0]
+    dev = x.device
+    positions = start + torch.arange(C, dtype=torch.int32, device=dev)  # [C]
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions, cfg.rope)
+
+    row = torch.arange(C, device=dev)
+    idx = positions.to(torch.int64)  # full attention: entry i holds position i
+    pr = page_row.to(device=dev, dtype=torch.int64)
+    phys = pr[(idx // ps).clamp(0, P - 1)]  # [C] physical pages
+    ok = (row < length) & (phys >= 0)
+    if cache_update == "scatter":
+        pool.k[phys[ok], idx[ok] % ps] = k_new[0, ok]
+        pool.v[phys[ok], idx[ok] % ps] = v_new[0, ok]
+    elif cache_update == "mask":
+        sel = _cell_selector(N, ps, phys, idx % ps, ok)  # [C, N, ps]
+        _select_write(pool.k, sel, k_new[0])
+        _select_write(pool.v, sel, v_new[0])
+    else:
+        raise ValueError(f"chunk write cache_update={cache_update!r}; expected "
+                         "'scatter' or 'mask'")
+
+    cap = P * ps
+    safe = pr.clamp(min=0)
+    k = pool.k[safe].reshape(1, cap, Hkv, hd)
+    v = pool.v[safe].reshape(1, cap, Hkv, hd)
+    j = torch.arange(cap, dtype=torch.int32, device=dev)
+    alloc = (pr >= 0).repeat_interleave(ps)
+    valid = alloc[None, :] & (j[None, :] <= positions[:, None])  # [C, cap]
+
+    G = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(1, C, Hkv, G, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    logits = logits * (1.0 / math.sqrt(hd))
+    logits = torch.where(valid[None, None, None], logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
+    return o.reshape(1, C, cfg.q_dim) @ p["attn/w_o"]
+
+
 def insert_kv_pages(pool: PagedKVPool, one: KVCache, page_ids,
-                    use_kernel: bool = True) -> None:
+                    cache_update: str = "kernel") -> None:
     """Write a batch-1 prefill cache into pool pages ``page_ids`` [P] in
     place (-1 = unallocated, skipped), all layers at once: pools
     [L, N, ps, Hkv, hd], ``one`` leaves [L, 1, P * ps, Hkv, hd]. Slot page
     ``j`` gets rows ``[j*ps, (j+1)*ps)``; every allocated page is
     overwritten in full, so a recycled page never leaks its last owner's
-    K/V. ``use_kernel`` runs ``ops.paged_insert`` (the CUDA kernel for CUDA
-    tensors), else the plain version."""
+    K/V. ``"kernel"`` runs ``ops.paged_insert`` (the CUDA kernel for CUDA
+    tensors), ``"scatter"`` its plain version, ``"mask"`` the JAX package's
+    page selector and ``where`` over the whole pool; the same bits."""
     L, N, ps, Hkv, hd = pool.k.shape
     P = page_ids.shape[0]
     src_k = one.k[:, 0].reshape(L, P, ps, Hkv, hd).contiguous()
     src_v = one.v[:, 0].reshape(L, P, ps, Hkv, hd).contiguous()
-    insert = pa_ops.paged_insert if use_kernel else pa_ref.paged_insert
-    insert(pool.k, pool.v, src_k, src_v, page_ids)
+    if cache_update == "kernel":
+        pa_ops.paged_insert(pool.k, pool.v, src_k, src_v, page_ids)
+    elif cache_update == "scatter":
+        pa_ref.paged_insert(pool.k, pool.v, src_k, src_v, page_ids)
+    elif cache_update == "mask":
+        ids = page_ids.to(torch.int64)
+        sel = (ids[:, None] == torch.arange(N, device=ids.device)[None, :]) \
+            & (ids >= 0)[:, None]  # [P, N]; page ids are distinct
+        hit = sel.any(0)[None, :, None, None, None]
+        src = sel.to(torch.int32).argmax(0)  # [N]: each hit page's source page
+        for pool_t, src_t in ((pool.k, src_k), (pool.v, src_v)):
+            pool_t.copy_(torch.where(hit, src_t[:, src], pool_t))
+    else:
+        raise ValueError(f"cache_update={cache_update!r}; expected 'kernel', "
+                         "'scatter' or 'mask'")

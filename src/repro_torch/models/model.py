@@ -7,9 +7,10 @@
     model.prefill(params, batch, impl=, window=, pad_to=, length=) -> (logits, DecodeCache)
     model.init_paged_cache(n_slots, n_pages, page_size) -> PagedDecodeCache
     model.paged_decode_step(params, cache, page_table, token, pos, ...)
+    model.paged_prefill_chunk(params, cache, page_row, tokens, start, length, ...)
 
 The decoder families (dense, MoE, hybrid, xLSTM, VLM: forward and loss;
-dense, MoE and VLM: prefill; dense: paged decode), the audio
+dense, MoE and VLM: prefill; dense: paged decode and chunked prefill), the audio
 encoder-decoder (forward, loss, prefill; no decode, as in the JAX package)
 and the paper's toy models (svm-mnist, cnn-mnist, cnn-cifar10; training)
 are ported. The rest raise ``NotImplementedError`` naming the ROADMAP item:
@@ -38,6 +39,9 @@ class Model:
     init_paged_cache: Optional[Callable]
     loss: Optional[Callable] = None
     forward: Optional[Callable] = None
+    # chunk or suffix prefill straight into the page pool (prefix caching
+    # and chunked prefill; full-attention dense models, the function gates)
+    paged_prefill_chunk: Optional[Callable] = None
 
 
 def _toy_model(cfg: ArchConfig, dev: torch.device) -> Model:
@@ -79,6 +83,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         paged_decode_step=functools.partial(transformer.paged_decode_step, cfg),
         init_paged_cache=functools.partial(transformer.init_paged_cache, cfg,
                                            device=dev),
+        paged_prefill_chunk=functools.partial(transformer.paged_prefill_chunk, cfg),
         loss=functools.partial(transformer.loss_fn, cfg),
         forward=functools.partial(transformer.forward, cfg),
     )

@@ -1,6 +1,7 @@
 """Decoder stacks (port of ``repro/models/transformer.py``): the dense,
 MoE, hybrid (attention + SSM), xLSTM and VLM families' full-sequence
-forward and loss, prefill (dense, MoE and VLM), and paged decode (dense).
+forward and loss, prefill (dense, MoE and VLM), and paged decode and
+chunked prefill into the page pool (dense).
 
 Params are a flat dict of tensors keyed by the JAX package's keypaths
 (``embed``, ``final_norm/scale``, ``layers/attn/w_q`` ...); per-layer
@@ -15,6 +16,7 @@ of the recurrent families, whose caches come with their decode.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
@@ -359,6 +361,95 @@ def paged_decode_step(cfg, p: Params, cache: PagedDecodeCache, page_table,
     return unembed(cfg, p, h)[:, 0], cache
 
 
+class KernelExtendFallbackWarning(UserWarning):
+    """Chunk prefill lowered ``cache_update="kernel"`` to the ``"scatter"``
+    write.
+
+    No TPU kernel writes a prefill chunk into the pool (the JAX package
+    lowers these writes to its one-hot ``"mask"`` path), so the port has no
+    CUDA kernel to run there either. It takes the indexed ``"scatter"``
+    write instead: the same bits as ``"mask"``, without a selector that
+    spans the whole pool. Decode and whole-prompt admission keep their
+    kernels.
+    """
+
+
+_KERNEL_EXTEND_WARNED = False
+
+
+def warn_kernel_extend_fallback(site: str) -> None:
+    """Warn once a process that chunk writes under ``cache_update="kernel"``
+    take the plain ``"scatter"`` path; every lowering site routes through
+    here, so the notice fires once whichever site reaches it first."""
+    global _KERNEL_EXTEND_WARNED
+    if _KERNEL_EXTEND_WARNED:
+        return
+    _KERNEL_EXTEND_WARNED = True
+    warnings.warn(
+        KernelExtendFallbackWarning(
+            f"{site}: cache_update='kernel' has no chunk-prefill kernel (the "
+            "JAX package has no Pallas one to port); chunk writes take the "
+            "plain 'scatter' path, bitwise equal to 'mask' (decode and "
+            "whole-prompt admission keep their kernels)"),
+        stacklevel=3)
+
+
+def extend_write(cache_update: str) -> str:
+    """The pool write a chunk prefill takes under ``cache_update``."""
+    return "scatter" if cache_update == "kernel" else cache_update
+
+
+def paged_prefill_chunk(cfg, p: Params, cache: PagedDecodeCache, page_row, tokens,
+                        start: int, length: int, unroll=1,
+                        cache_update: str = "kernel"):
+    """Prefill one chunk of a single request's prompt straight into the page
+    pool (the serve loop's prefix caching and chunked prefill).
+
+    tokens [1, C] covers absolute positions ``[start, start + length)`` of
+    the slot whose page-table row is ``page_row`` [P]; rows >= ``length``
+    are padding and never written. Returns (logits [1, V] at position
+    ``start + length - 1``, cache), the pool updated in place: the logits
+    matter only for a prompt's last chunk, where they give the first
+    generated token as a whole-prompt prefill would. Earlier chunks and
+    prefix pages shared from other slots are read back from the pool;
+    ``param_dtype == compute_dtype`` makes that round trip the identity.
+
+    ``cache_update="kernel"`` writes the chunk through ``"scatter"`` (see
+    :class:`KernelExtendFallbackWarning`, raised once); ``"scatter"`` and
+    ``"mask"`` write as named. ``unroll`` is the JAX package's scan knob
+    and is ignored. Recurrent and sliding-window configs raise, as in the
+    JAX package; families the port does not serve yet raise naming A15.
+    """
+    del unroll
+    if cfg.family == "ssm" or cfg.hybrid_parallel_ssm:
+        raise ValueError(
+            f"{cfg.name}: recurrent state cannot be chunk-prefilled — "
+            "the SSM carry does not live in pool pages")
+    if cfg.sliding_window:
+        raise ValueError(
+            f"{cfg.name}: chunked prefill is full-attention only — the SWA "
+            "ring wraps KV writes into early (possibly shared) pages")
+    check_serving(cfg)
+    if cache_update == "kernel":
+        warn_kernel_extend_fallback("models.transformer.paged_prefill_chunk")
+    cu = extend_write(cache_update)
+    C = tokens.shape[1]
+    h = p["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))  # [1, C, d]
+    positions = start + torch.arange(C, device=h.device)
+    if cfg.learned_pos:
+        h = h + p["pos_embed"][positions][None].to(h.dtype)
+    # pad rows must not compete for MoE expert capacity
+    live = (torch.arange(C, device=h.device) < length)[None, :]
+    for l, lp in enumerate(layer_params(p, cfg.num_layers)):
+        pool = attn.PagedKVPool(cache.kv.k[l], cache.kv.v[l])
+        a_out = attn.paged_prefill_attention_block(
+            cfg, lp, apply_norm(cfg, lp, "norm1", h), pool, page_row, start, length,
+            cache_update=cu)
+        h, _ = _ffn(cfg, lp, h + a_out, live)
+    last = h[:, max(length - 1, 0)][:, None]  # [1, 1, d]
+    return unembed(cfg, p, last)[:, 0], cache
+
+
 def insert_cache_pages(cache: PagedDecodeCache, one: DecodeCache, slot,
                        page_ids, cache_update: str = "kernel") -> PagedDecodeCache:
     """Admission: write one request's prefill cache (batch 1) into its pool
@@ -366,12 +457,10 @@ def insert_cache_pages(cache: PagedDecodeCache, one: DecodeCache, slot,
     prefill cache is zero-padded up to P * page_size rows so every
     allocated page is overwritten in full. ``cache_update="kernel"`` runs
     the layer-stacked insert kernel (one launch for the whole stack) for
-    CUDA tensors; ``"scatter"`` the plain version. ``slot`` is unused by the
-    dense family (hybrid models write their SSM row there)."""
+    CUDA tensors; ``"scatter"`` its plain version; ``"mask"`` the JAX
+    package's page selector and ``where`` over the whole pool. ``slot`` is
+    unused by the dense family (hybrid models write their SSM row there)."""
     del slot
-    if cache_update not in ("kernel", "scatter"):
-        raise NotImplementedError(
-            f"cache_update={cache_update!r} is not ported (ROADMAP.md)")
     ps = cache.kv.k.shape[2]
     P = page_ids.shape[0]
     cap, have = P * ps, one.kv.k.shape[2]
@@ -380,5 +469,5 @@ def insert_cache_pages(cache: PagedDecodeCache, one: DecodeCache, slot,
         pad = (0, 0, 0, 0, 0, cap - have)
         k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     attn.insert_kv_pages(cache.kv, attn.KVCache(k, v, one.kv.pos), page_ids,
-                         use_kernel=cache_update == "kernel")
+                         cache_update=cache_update)
     return cache

@@ -1,5 +1,6 @@
 """Continuous-batching decode over a shared KV page pool (port of
-``repro/serve/loop.py``: the ``ServeLoop`` base and ``PagedServeLoop``).
+``repro/serve/loop.py``: the ``ServeLoop`` base and ``PagedServeLoop`` with
+its front-end scheduler).
 
 Each tick runs admit -> one paged decode step over every slot -> retire ->
 admit again (``AdmissionScheduler.tick``). Admission prefills one request
@@ -7,19 +8,24 @@ admit again (``AdmissionScheduler.tick``). Admission prefills one request
 their exact length) and copies its KV rows onto freshly allocated pool
 pages; retired and never-filled slots ride along inactive and write
 nothing. With ``cache_update="kernel"`` every decode tick launches the
-paged-decode kernel once per layer and every admission launches the
-paged-insert kernel once (CUDA tensors), or runs their plain versions
-(CPU tensors).
+paged-decode kernel once per layer, and every whole-prompt admission and
+every restore of a preempted request launches the paged-insert kernel once
+(CUDA tensors), or runs their plain versions (CPU tensors). The scheduler
+options (prefix caching, chunked prefill, preemption) and sampled decode
+are the JAX package's, with its gates and its integer behaviour.
 
 Differences from the JAX loop: pools are updated in place (no donation);
-the contiguous ``ServeLoop`` cache, ``SerialLoop``, the "mask" write,
-sampled decode, prefix caching, chunked prefill, preemption and the
-sanitizer lane are not ported yet (ROADMAP.md, "the rest of serving") and
-raise ``NotImplementedError``.
+chunk writes under ``"kernel"`` take the plain ``"scatter"`` write where
+the JAX package takes ``"mask"`` (same bits; ``stats["extend_write"]``);
+sampled streams are the port's own (``serve/sampling.py``). The contiguous
+``ServeLoop`` cache and ``SerialLoop`` (ROADMAP.md A15) and the sanitizer
+lane (A19) are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -27,23 +33,34 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.scheduler import AdmissionScheduler
+from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model, decode_capability
-from repro_torch.models.transformer import insert_cache_pages
+from repro_torch.models.transformer import (DecodeCache, extend_write,
+                                            insert_cache_pages,
+                                            warn_kernel_extend_fallback)
 from repro_torch.serve.sampling import GREEDY, SamplerConfig, make_sample_fn
-from repro_torch.serve.slots import PageAllocator, Request, RequestQueue, SlotTable
+from repro_torch.serve.slots import (PageAllocator, PrefixCache, Request,
+                                     RequestQueue, SlotTable)
+
+CACHE_UPDATES = ("kernel", "scatter", "mask")
 
 
 class ServeUnsupportedError(RuntimeError):
     """Model has no decode path the port serves — carries the reason."""
 
 
+def _check_servable(model: Model):
+    ok, why = decode_capability(model)
+    if not ok:
+        raise ServeUnsupportedError(why)
+
+
 def _round_up(n: int, mult: int) -> int:
     return -(-n // mult) * mult
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, 'the rest of serving')")
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 class ServeLoop(AdmissionScheduler):
@@ -51,7 +68,7 @@ class ServeLoop(AdmissionScheduler):
 
     The base holds the admission, fold and commit logic and the prefill;
     the KV cache it drives is the subclass's (``PagedServeLoop``). The JAX
-    package's contiguous-cache ``ServeLoop`` is not ported yet.
+    package's contiguous-cache ``ServeLoop`` is not ported yet (A15).
 
     Args:
       model, params: a ``Model`` and its params, on ``device``.
@@ -61,9 +78,10 @@ class ServeLoop(AdmissionScheduler):
       capacity: KV rows per slot for full attention (SWA models use their
         window). A request that can never fit is rejected, not fatal.
       bucket: prompt-length rounding for full-attention prefill.
-      cache_update: "kernel" (CUDA kernels for CUDA tensors) or "scatter"
-        (the plain versions on any device).
-      sampler: greedy only (``GREEDY``).
+      cache_update: "kernel" (CUDA kernels for CUDA tensors), "scatter" or
+        "mask" (the plain versions on any device; the same pool bits).
+      sampler: ``SamplerConfig``: greedy (default) or temperature / top-k
+        sampling with per-request streams of ``(seed, rid, n)``.
     """
 
     def __init__(self, model: Model, params, *, device=None, n_slots: int = 8,
@@ -71,16 +89,14 @@ class ServeLoop(AdmissionScheduler):
                  cache_update: str = "kernel",
                  sampler: Optional[SamplerConfig] = None):
         if type(self) is ServeLoop:
-            _not_ported("the contiguous-cache ServeLoop")
+            _not_ported("the contiguous-cache ServeLoop", "A15")
         super().__init__()
-        ok, why = decode_capability(model)
-        if not ok:
-            raise ServeUnsupportedError(why)
+        _check_servable(model)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, loop on {self.device}")
-        if cache_update not in ("kernel", "scatter"):
-            _not_ported(f"cache_update={cache_update!r}")
+        if cache_update not in CACHE_UPDATES:
+            raise ValueError(f"cache_update={cache_update!r}; expected one of {CACHE_UPDATES}")
         cfg = model.config
         self.model, self.params, self.cfg = model, params, cfg
         self.n_slots, self.capacity, self.bucket = n_slots, capacity, bucket
@@ -110,9 +126,10 @@ class ServeLoop(AdmissionScheduler):
         self._queue: Optional[RequestQueue] = None
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
-        self.prefilled_tokens = 0
+        self.prefilled_tokens = 0  # real prompt rows sent through prefill
         self.decode_s = 0.0  # host clock, each tick ends in a token readback
         self.prefill_s = 0.0  # prefill + first-token readback + insert enqueue
+        self.tick_walls: List[float] = []  # wall clock at each tick start
         self.rejected: List[Request] = []
 
     def _t(self, x, dtype):
@@ -171,17 +188,23 @@ class ServeLoop(AdmissionScheduler):
             req = queue.peek_arrived(self.t)
             if req is None:
                 return
-            err = self._admission_error(req)
-            if err is not None:
-                queue.pop_arrived(self.t)
-                req.failed = f"request {req.rid}: {err}"
-                req.done_tick = self.t
-                self.rejected.append(req)
+            if self._reject_if_oversized(req):
                 continue
             if not self._can_admit(req):
                 return
             queue.pop_arrived(self.t)
             self._begin_request(free[0], req)
+
+    def _reject_if_oversized(self, req: Request) -> bool:
+        """Pop and record ``req`` as failed if it can never be served."""
+        err = self._admission_error(req)
+        if err is None:
+            return False
+        self._queue.pop_arrived(self.t)
+        req.failed = f"request {req.rid}: {err}"
+        req.done_tick = self.t
+        self.rejected.append(req)
+        return True
 
     # -- one tick ----------------------------------------------------------------
     def _has_work(self) -> bool:
@@ -210,6 +233,9 @@ class ServeLoop(AdmissionScheduler):
     def tick(self, queue: Optional[RequestQueue] = None):
         if queue is not None:
             self._queue = queue
+        # tick_walls[t] = wall clock when tick t began: a request's time to
+        # first token is req.tok_walls[0] - tick_walls[req.arrival]
+        self.tick_walls.append(time.time())
         super().tick()
 
     def _extra_stats(self) -> Dict:
@@ -242,8 +268,31 @@ class ServeLoop(AdmissionScheduler):
         )
 
 
+@dataclasses.dataclass
+class _PrefillJob:
+    """An admitted request whose prompt is still being chunk-prefilled: its
+    slot holds pool pages and a page-table row but is not yet live in the
+    SlotTable (decode skips it) until the last chunk lands."""
+    req: Request
+    done: int  # prompt rows already in the pool (prefix hits + chunks)
+
+
+@dataclasses.dataclass
+class _Preempted:
+    """An evicted mid-decode request staged on the host: its pool pages were
+    copied off the card and freed; restore allocates fresh pages, writes
+    the staged rows back and rebinds the slot. Decode resumes with the same
+    bits: content is addressed by position through the page table, and
+    physical page ids never enter the arithmetic."""
+    req: Request
+    k: torch.Tensor  # [L, pages, page_size, Hkv, hd] on the host
+    v: torch.Tensor
+    pages: int  # allocated pages to re-acquire on restore
+
+
 class PagedServeLoop(ServeLoop):
-    """Continuous batching over a shared KV page pool.
+    """Continuous batching over a shared KV page pool, with the JAX
+    package's front-end scheduler.
 
     The host ``PageAllocator`` hands each admitted request
     ``ceil(min(plen + max_new - 1, window or inf) / page_size)`` pages,
@@ -253,23 +302,38 @@ class PagedServeLoop(ServeLoop):
     Retirement returns the pages; a reused page is overwritten in full at
     the next admission and masked arithmetically until then.
 
-    ``prefix_cache``, ``prefill_chunk``, ``preempt`` and ``sanitize`` are
-    the JAX loop's front-end scheduler options; they are not ported yet and
-    raise ``NotImplementedError`` when set.
+    Scheduler options (all off by default; none changes a greedy stream,
+    and sampled streams depend only on ``(seed, rid, n)``):
+
+      prefix_cache: admission looks up the prompt's page-aligned prefixes
+        in a host ``PrefixCache``; hit pages are aliased read-only into the
+        new slot's page table (refcounted) and only the suffix is prefilled
+        straight into the pool (``Model.paged_prefill_chunk``).
+      prefill_chunk: admission prefills at most ``prefill_chunk`` prompt
+        tokens a tick, interleaved with decode.
+      preempt: when the pool is exhausted and the queue's head has been
+        blocked for ``preempt_after`` ticks, the youngest live request
+        (most pages breaks ties) is evicted, its pages staged to the host,
+        and restored with priority once pages free up.
+
+    prefix_cache / prefill_chunk need full attention (the SWA ring wraps
+    decode writes into early, possibly shared, pages); preemption alone
+    works for SWA too. ``unroll`` is the JAX package's scan-unrolling
+    compile knob and is ignored. ``sanitize`` (the JAX package's analysis
+    lane) is ROADMAP.md A19 and raises.
     """
 
     def __init__(self, model: Model, params, *, device=None, n_slots: int = 8,
                  capacity: int = 256, page_size: int = 16,
                  n_pages: Optional[int] = None, bucket: int = 16,
-                 cache_update: str = "kernel",
+                 cache_update: str = "kernel", unroll: int = 1,
                  sampler: Optional[SamplerConfig] = None,
                  prefix_cache: bool = False, prefill_chunk: Optional[int] = None,
-                 preempt: bool = False, sanitize=None):
-        for name, val in (("prefix_cache", prefix_cache),
-                          ("prefill_chunk", prefill_chunk),
-                          ("preempt", preempt), ("sanitize", sanitize)):
-            if val:
-                _not_ported(f"PagedServeLoop({name}=...)")
+                 preempt: bool = False, preempt_after: int = 2, sanitize=None):
+        del unroll
+        if sanitize:
+            _not_ported("PagedServeLoop(sanitize=...), the analysis lane,", "A19")
+        _check_servable(model)
         cfg = model.config
         self.page_size = page_size
         W = cfg.sliding_window
@@ -277,6 +341,32 @@ class PagedServeLoop(ServeLoop):
         if not W:  # prefill pad_to must equal the paged logical capacity
             capacity = self.pages_per_slot * page_size
         self.n_pages = n_slots * self.pages_per_slot if n_pages is None else n_pages
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        self.prefix_cache_on = bool(prefix_cache)
+        self.prefill_chunk = prefill_chunk
+        self.preempt, self.preempt_after = bool(preempt), preempt_after
+        # pool-direct suffix/chunk prefill (vs whole-prompt prefill, then
+        # insert); preemption alone keeps the whole-prompt prefill
+        self._use_extend = self.prefix_cache_on or prefill_chunk is not None
+        self._sched_on = self._use_extend or self.preempt
+        if self._use_extend:
+            why = None
+            if W:
+                why = ("the SWA ring wraps KV writes into early (possibly "
+                       "shared) pages")
+            elif cfg.family == "ssm" or cfg.hybrid_parallel_ssm:
+                why = "recurrent carries do not live in pool pages"
+            elif cfg.vision_dim:
+                why = ("vlm patch splicing needs the whole prompt in one "
+                       "prefill dispatch")
+            if why is not None:
+                raise ServeUnsupportedError(
+                    f"{cfg.name}: prefix caching / chunked prefill is "
+                    f"full-attention text-only — {why}")
+            if cache_update == "kernel":
+                warn_kernel_extend_fallback("serve.PagedServeLoop")
+        self.extend_write = extend_write(cache_update) if self._use_extend else None
         super().__init__(model, params, device=device, n_slots=n_slots,
                          capacity=capacity, bucket=bucket,
                          cache_update=cache_update, sampler=sampler)
@@ -285,6 +375,25 @@ class PagedServeLoop(ServeLoop):
         self.allocator = PageAllocator(self.n_pages, self.page_size)
         self.page_table = np.full((self.n_slots, self.pages_per_slot), -1, np.int32)
         return self.model.init_paged_cache(self.n_slots, self.n_pages, self.page_size)
+
+    def reset(self):
+        super().reset()
+        self._prefilling: Dict[int, _PrefillJob] = {}
+        self._preempted: deque = deque()
+        self._blocked_since: Optional[int] = None
+        self._chunk_left: Optional[int] = None
+        self._admit_plan = None
+        self._short_pages = 0
+        self.prefix = PrefixCache(self.allocator) if self.prefix_cache_on else None
+        self.prefix_hit_tokens = 0
+        self.preemptions = 0
+        self.extend_dispatches = 0
+        self.restore_dispatches = 0
+        self.extend_s = 0.0  # chunk prefill + first-token readback
+
+    def tick(self, queue: Optional[RequestQueue] = None):
+        self._chunk_left = self.prefill_chunk  # this tick's chunk token budget
+        super().tick(queue)
 
     def _rows_needed(self, req: Request) -> int:
         rows = req.plen + req.max_new - 1
@@ -306,14 +415,18 @@ class PagedServeLoop(ServeLoop):
         return self.allocator.free_pages >= \
             self.allocator.pages_for(self._rows_needed(req))
 
+    def _bind_pages(self, slot: int, ids) -> np.ndarray:
+        """Record ``ids`` as the first pages of ``slot``'s page-table row."""
+        row = np.full(self.pages_per_slot, -1, np.int32)
+        row[:len(ids)] = ids
+        self.page_table[slot] = row
+        return row
+
     def _insert_request(self, slot: int, req: Request, one):
-        need = self.allocator.pages_for(self._rows_needed(req))
-        ids = self.allocator.alloc(need)
+        ids = self.allocator.alloc(self.allocator.pages_for(self._rows_needed(req)))
         if ids is None:
             raise RuntimeError("admission raced the page allocator")
-        row = np.full(self.pages_per_slot, -1, np.int32)
-        row[:need] = ids
-        self.page_table[slot] = row
+        row = self._bind_pages(slot, ids)
         insert_cache_pages(self.cache, one, slot, self._t(row, torch.int32),
                            cache_update=self.cache_update)
 
@@ -321,6 +434,203 @@ class PagedServeLoop(ServeLoop):
         self.allocator.free(self.page_table[slot])
         self.page_table[slot] = -1
         super()._retire(slot)
+
+    # -- front-end scheduler ---------------------------------------------------
+    def _admit(self):
+        """Scheduler admission order: (1) advance in-flight chunk-prefill
+        jobs (they hold pages), (2) restore preempted requests FIFO (they
+        already spent prefill work), (3) admit new requests FIFO. A blocked
+        head first evicts cache-only prefix pages, then, after
+        ``preempt_after`` stalled ticks, preempts a live slot."""
+        if not self._sched_on:
+            super()._admit()
+            return
+        self._advance_prefills()
+        queue = self._queue
+        while True:
+            free = [s for s in self.table.free_slots() if s not in self._prefilling]
+            if not free:
+                return
+            if self._preempted:
+                ent = self._preempted[0]
+                if not self._ensure_pages(ent.pages):
+                    if not self._try_preempt(ent.pages):
+                        return
+                    continue
+                self._preempted.popleft()
+                self._blocked_since = None
+                self._restore(free[0], ent)
+                continue
+            if queue is None:
+                return
+            req = queue.peek_arrived(self.t)
+            if req is None:
+                return
+            if self._reject_if_oversized(req):
+                continue
+            if not self._plan_admission(req):
+                if not self._try_preempt(self._short_pages):
+                    return
+                continue
+            queue.pop_arrived(self.t)
+            self._blocked_since = None
+            if self._use_extend:
+                self._start_job(free[0], req)
+            else:
+                self._admit_plan = None
+                self._begin_request(free[0], req)
+
+    def _plan_admission(self, req: Request) -> bool:
+        """Can the head request start now? Pins its prefix-cache hits
+        (``share`` before any eviction can free them), then checks that the
+        pool covers the private remainder, evicting cache-only pages if
+        short. On success the plan (shared pages, total need) is kept for
+        ``_start_job``; on failure the pins are released."""
+        need = self.allocator.pages_for(self._rows_needed(req))
+        shared: List[int] = []
+        if self.prefix is not None:
+            shared = self.prefix.lookup(req.tokens)
+            self.allocator.share(shared)
+        if self._ensure_pages(need - len(shared)):
+            self._admit_plan = (req.rid, shared, need)
+            return True
+        if shared:
+            self.allocator.free(shared)
+        self._short_pages = need - len(shared)
+        return False
+
+    def _ensure_pages(self, n: int) -> bool:
+        """Free pool pages >= n, evicting LRU cache-only prefix pages
+        (refcount 1) to close a shortfall."""
+        short = n - self.allocator.free_pages
+        if short > 0 and self.prefix is not None:
+            self.prefix.evict_for(short)
+        return self.allocator.free_pages >= n
+
+    def _try_preempt(self, need_pages: int) -> bool:
+        """The head has been refused pages: start (or continue) the blocked
+        clock, and once it has stalled ``preempt_after`` ticks evict the
+        youngest live request (most pages breaks ties: the youngest loses
+        the least progress, the largest frees the most) until the head
+        fits. True when pages were freed and the head now fits."""
+        if self._blocked_since is None:
+            self._blocked_since = self.t
+        if not self.preempt or self.t - self._blocked_since < self.preempt_after:
+            return False
+        evicted = False
+        while not self._ensure_pages(need_pages):
+            victims = [s for s in self.table.live_slots() if s not in self._prefilling]
+            if not victims:
+                return False
+            victim = max(victims, key=lambda s: (
+                self.table.req[s].admit_tick, int((self.page_table[s] >= 0).sum()), s))
+            self._evict(victim)
+            evicted = True
+        return evicted
+
+    def _evict(self, slot: int):
+        """Preempt a live slot: copy its allocated pool pages to the host
+        before they are freed (the pool is updated in place, and a later
+        admission may overwrite them), unbind the slot, free the pages. (The
+        JAX loop stages the whole row, -1 entries included, for a static
+        shape; the rows it restores are these.)"""
+        row = self.page_table[slot].copy()
+        ids = self._t(row[row >= 0], torch.int64)  # a slot's pages lead its row
+        self._preempted.append(_Preempted(
+            req=self.table.evict(slot),
+            k=self.cache.kv.k.index_select(1, ids).cpu(),
+            v=self.cache.kv.v.index_select(1, ids).cpu(),
+            pages=int(ids.numel())))
+        self.allocator.free(row)
+        self.page_table[slot] = -1
+        self.preemptions += 1
+
+    def _restore(self, slot: int, ent: _Preempted):
+        """Re-admit a preempted request: fresh pages, the staged rows written
+        back verbatim through ``insert_cache_pages`` (the paged-insert
+        kernel under ``"kernel"``), the slot rebound."""
+        ids = self.allocator.alloc(ent.pages)
+        if ids is None:
+            raise RuntimeError("restore raced the page allocator")
+        self._bind_pages(slot, ids)
+        L, P, ps, Hkv, hd = ent.k.shape
+        one = DecodeCache(kv=KVCache(
+            k=ent.k.to(self.device).reshape(L, 1, P * ps, Hkv, hd),
+            v=ent.v.to(self.device).reshape(L, 1, P * ps, Hkv, hd),
+            pos=torch.zeros((L, 1, P * ps), dtype=torch.int32, device=self.device)))
+        insert_cache_pages(self.cache, one, slot, self._t(ids, torch.int32),
+                           cache_update=self.cache_update)
+        self.table.rebind(slot, ent.req)
+        self.restore_dispatches += 1
+
+    def _start_job(self, slot: int, req: Request):
+        """Begin pool-direct admission: bind the shared prefix pages and
+        freshly allocated private pages into the slot's page-table row, then
+        run the suffix through the chunk-prefill budget."""
+        rid, shared, need = self._admit_plan
+        if rid != req.rid:
+            raise RuntimeError("admission plan raced the queue")
+        self._admit_plan = None
+        priv = self.allocator.alloc(need - len(shared))
+        if priv is None:
+            raise RuntimeError("admission raced the page allocator")
+        self._bind_pages(slot, np.concatenate([np.asarray(shared, np.int32),
+                                               np.asarray(priv, np.int32)]))
+        hit = len(shared) * self.page_size
+        self.prefix_hit_tokens += hit
+        self._prefilling[slot] = _PrefillJob(req=req, done=hit)
+        self._advance_job(slot)
+
+    def _advance_prefills(self):
+        for slot in list(self._prefilling):
+            self._advance_job(slot)
+
+    def _advance_job(self, slot: int):
+        """Push one prefill job forward within this tick's chunk budget; on
+        the last chunk (the one holding prompt row plen-1) its sampled
+        logits seed the output stream and the slot goes live."""
+        job = self._prefilling[slot]
+        req, row = job.req, self.page_table[slot]
+        first = None
+        while job.done < req.plen:
+            remaining = req.plen - job.done
+            if self.prefill_chunk is None:  # the suffix in one bucketed shot
+                step = remaining
+                width = min(_round_up(remaining, self.bucket), self.capacity)
+            else:
+                if self._chunk_left is not None and self._chunk_left <= 0:
+                    return  # budget spent; the job resumes next tick
+                step = min(self.prefill_chunk, remaining)
+                width = self.prefill_chunk  # fixed width, as the JAX loop compiles once
+            toks = np.zeros((1, width), np.int32)
+            toks[0, :step] = req.tokens[job.done:job.done + step]
+            first = self._dispatch_extend(row, toks, job.done, step, req.rid)
+            job.done += step
+            self.prefilled_tokens += step
+            if self._chunk_left is not None:
+                self._chunk_left -= step
+        del self._prefilling[slot]
+        self.table.admit(slot, req, first, self.t)
+        if self.prefix is not None:
+            self.prefix.register(req.tokens, row, req.plen)
+        if req.finished():  # max_new == 1 or an instant EOS
+            self._retire(slot)
+
+    def _dispatch_extend(self, row, toks, start: int, length: int, rid: int) -> int:
+        t0 = time.perf_counter()
+        logits, self.cache = self.model.paged_prefill_chunk(
+            self.params, self.cache, self._t(row, torch.int32),
+            self._t(toks, torch.int32), start, length, cache_update=self.extend_write)
+        # the completion chunk holds row plen-1: its logits seed the stream at
+        # sample index 0 (intermediate chunks' samples are discarded)
+        r = self._t([rid], torch.int32)
+        first = int(self._sample(logits, r, torch.zeros_like(r))[0])
+        self.extend_s += time.perf_counter() - t0
+        self.extend_dispatches += 1
+        return first
+
+    def _pending(self) -> bool:
+        return super()._pending() or bool(self._prefilling) or bool(self._preempted)
 
     def _decode_logits(self):
         table = self.table
@@ -332,8 +642,10 @@ class PagedServeLoop(ServeLoop):
         return logits
 
     def check_invariants(self):
-        """Refcount-conservation audit of the page allocator."""
-        self.allocator.check(page_tables=list(self.page_table))
+        """Refcount-conservation audit: every in-use page's refcount equals
+        its page-table references plus its prefix-cache pin."""
+        self.allocator.check(page_tables=list(self.page_table),
+                             cached_pages=self.prefix.pages if self.prefix else None)
 
     def _extra_stats(self) -> Dict:
         return dict(
@@ -341,4 +653,11 @@ class PagedServeLoop(ServeLoop):
             page_size=self.page_size,
             kv_rows=self.n_pages * self.page_size,
             peak_pages=self.allocator.peak_in_use,
+            prefix_hit_tokens=self.prefix_hit_tokens,
+            preemptions=self.preemptions,
+            extend_dispatches=self.extend_dispatches,
+            restore_dispatches=self.restore_dispatches,
+            prefix_pages=len(self.prefix) if self.prefix else 0,
+            extend_s=self.extend_s,
+            extend_write=self.extend_write,
         )

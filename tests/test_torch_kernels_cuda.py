@@ -857,3 +857,93 @@ def test_lm_round_launches_rmsnorm_per_norm_call_on_card(cuda):
     for k in params:
         torch.testing.assert_close(pk[k], pp[k], atol=1e-5, rtol=0)
     torch.testing.assert_close(sk.loss0, sp.loss0, atol=1e-6, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the serving scheduler's pieces on the card
+# ---------------------------------------------------------------------------
+
+
+def test_sampler_uniforms_on_card_equal_cpu(cuda):
+    """The sample stream is integer arithmetic: the card's uniforms are the
+    CPU's bit for bit for the same (seed, rid, n)."""
+    from repro_torch.serve.sampling import stream_bits, stream_uniforms
+
+    rid = torch.tensor([0, 7, 123456, 2**31 - 1], dtype=torch.int32)
+    n = torch.tensor([0, 3, 511, 9], dtype=torch.int32)
+    for seed in (0, 5, 2**40 + 3):
+        bits = stream_bits(seed, rid, n, 152064)
+        assert torch.equal(stream_bits(seed, rid.to(cuda), n.to(cuda), 152064).cpu(), bits)
+        u = stream_uniforms(seed, rid.to(cuda), n.to(cuda), 152064).cpu()
+        assert torch.equal(u.view(torch.int64), stream_uniforms(seed, rid, n, 152064)
+                           .view(torch.int64))
+
+
+def _sched_model(cuda):
+    from repro_torch.models.model import build_model_by_name
+
+    model = build_model_by_name("qwen1.5-32b", reduced=True, device=cuda)
+    return model, model.init(0)
+
+
+def test_mask_and_scatter_pools_bitwise_on_card(cuda):
+    """An admission, a chunk prefill and decode steps with an inactive slot
+    under "mask" and "scatter" write the same pool bits on the card."""
+    from repro_torch.models import transformer
+
+    model, params = _sched_model(cuda)
+    pt = torch.tensor([[0, 5, -1, -1], [2, 9, 4, -1], [7, -1, -1, -1]], dtype=torch.int32,
+                      device=cuda)
+    prompt = torch.randint(0, model.config.vocab_size, (1, 20),
+                           generator=torch.Generator().manual_seed(0)).to(cuda, torch.int32)
+    _, one = model.prefill(params, {"tokens": prompt}, pad_to=32)
+    pools = {}
+    for cu in ("mask", "scatter"):
+        cache = model.init_paged_cache(3, 12, 8)
+        transformer.insert_cache_pages(cache, one, 1, pt[1], cache_update=cu)
+        model.paged_prefill_chunk(params, cache, pt[0],
+                                  torch.arange(1, 9, dtype=torch.int32, device=cuda)[None],
+                                  0, 6, cache_update=cu)
+        pos = torch.tensor([6, 20, 31], dtype=torch.int32, device=cuda)
+        for t in range(3):
+            model.paged_decode_step(params, cache, pt,
+                                    torch.tensor([3, 4, 5], device=cuda) + t, pos + t,
+                                    cache_update=cu,
+                                    active=torch.tensor([True, True, False], device=cuda))
+        pools[cu] = cache
+    torch.cuda.synchronize()
+    for name in ("k", "v"):
+        a, b = getattr(pools["mask"].kv, name), getattr(pools["scatter"].kv, name)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+def test_evict_restore_round_trip_through_insert_kernel_on_card(cuda):
+    """Forced preemption under "kernel": every restore re-inserts the staged
+    rows through the insert kernel, and the pool pages then hold them bit for
+    bit; insert launches = admissions + restores."""
+    from repro_torch.serve import PagedServeLoop, poisson_trace
+
+    class Audit(PagedServeLoop):
+        restores = 0
+
+        def _restore(self, slot, ent):
+            super()._restore(slot, ent)
+            row = torch.from_numpy(self.page_table[slot][:ent.pages]).long().to(cuda)
+            for pool, staged in ((self.cache.kv.k, ent.k), (self.cache.kv.v, ent.v)):
+                got = pool[:, row].cpu()
+                assert torch.equal(got.view(torch.int32), staged[:, :ent.pages].view(torch.int32))
+            self.restores += 1
+
+    model, params = _sched_model(cuda)
+    trace = poisson_trace(6, rate=1.0, plen_choices=(3, 5, 9), max_new_choices=(4, 8),
+                          vocab_size=model.config.vocab_size, seed=3, prefix_families=2,
+                          prefix_len=16)
+    loop = Audit(model, params, device=cuda, n_slots=3, capacity=32, page_size=8, bucket=8,
+                 n_pages=6, preempt=True, preempt_after=1, cache_update="kernel")
+    pa_ops.reset_launches()
+    stats = loop.run(trace)
+    loop.check_invariants()
+    assert loop.restores == stats["restore_dispatches"] == stats["preemptions"] >= 1
+    assert pa_ops.launches["paged_insert"] == \
+        stats["prefill_dispatches"] + stats["restore_dispatches"]
+    assert pa_ops.launches["paged_decode"] == model.config.num_layers * stats["decode_dispatches"]

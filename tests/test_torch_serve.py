@@ -13,7 +13,7 @@ from repro.serve import slots as jslots
 from repro.serve import poisson_trace as jax_trace
 from repro_torch import bridge
 from repro_torch.models.model import build_model_by_name as torch_build
-from repro_torch.serve import PagedServeLoop, Request, poisson_trace
+from repro_torch.serve import PagedServeLoop, Request, SamplerConfig, poisson_trace
 from repro_torch.serve.loop import ServeUnsupportedError
 from repro_torch.serve import slots as tslots
 
@@ -116,7 +116,7 @@ def test_not_ported_parts_raise_naming_the_roadmap():
     from dataclasses import replace
 
     from repro_torch.models.model import build_model
-    from repro_torch.serve import SamplerConfig, ServeLoop
+    from repro_torch.serve import ServeLoop
 
     model = torch_build("starcoder2-3b", reduced=True, device="cpu")
     params = model.init(0)
@@ -154,9 +154,34 @@ def test_not_ported_parts_raise_naming_the_roadmap():
         PagedServeLoop(phi3, phi3.init(0), device="cpu")
     assert build_model(replace(model.config, family="audio", encoder_layers=2, encoder_seq=16,
                                frontend_dim=model.config.d_model), device="cpu").prefill
-    for kw in (dict(prefix_cache=True), dict(prefill_chunk=8), dict(preempt=True),
-               dict(cache_update="mask"), dict(sampler=SamplerConfig(temperature=0.7))):
-        with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
-            PagedServeLoop(model, params, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the contiguous cache's loop is A15, the analysis lane A19
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
         ServeLoop(model, params, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A19"):
+        PagedServeLoop(model, params, device="cpu", sanitize=True)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prefix_cache=True), dict(prefill_chunk=8), dict(preempt=True),
+    dict(cache_update="mask"), dict(sampler=SamplerConfig(temperature=0.7, top_k=4)),
+])
+def test_scheduler_and_sampler_options_serve(kw):
+    """The options that raised before the scheduler was ported now serve a
+    trace (tests/test_torch_serve_sched.py holds them against the JAX
+    package)."""
+    import warnings
+
+    from repro_torch.models.transformer import KernelExtendFallbackWarning
+
+    model = torch_build("qwen1.5-32b", reduced=True, device="cpu")
+    trace = jax_trace(4, rate=4.0, plen_choices=(8, 12), max_new_choices=(3, 5),
+                      vocab_size=model.config.vocab_size, seed=0)
+    reqs = [Request(r.rid, r.tokens.copy(), r.max_new, r.eos_id, r.arrival) for r in trace]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", KernelExtendFallbackWarning)
+        loop = PagedServeLoop(model, model.init(0), device="cpu", n_slots=2, capacity=32,
+                              page_size=8, **kw)
+        stats = loop.run(reqs)
+    loop.check_invariants()
+    assert stats["failed"] == 0
+    assert [len(r.out) for r in reqs] == [r.max_new for r in trace]
