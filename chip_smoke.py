@@ -16,7 +16,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the ring wrapped and not, full attention, partly and wholly inactive
      batches, unallocated pages after and inside the live range, an active
      slot with every page unallocated; decode launched twice and held
-     bitwise against itself); vecavg at the CNN's [5, 555178] in
+     bitwise against itself), and decode's head-dim-96 instance at
+     phi-3-vision's serving shapes (B 8, Hq 32, Hkv 32, page 16, 64 pages a
+     slot; full attention and a window of 512, in bf16 and float32, and a
+     G 5 case; partly active, unallocated pages inside the live ranges);
+     vecavg at the CNN's [5, 555178] in
      float32 and bf16, at C 1 and 32, and at a ragged D 513, and its tree
      form at the CNN's 8 leaves with and without div and at a tree of
      float32 and bf16 leaves with misaligned rows (C 5 with div, C 32),
@@ -153,6 +157,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
      float32 under ``strict_fp32()`` with the invariants checked after
      every tick and every restore checked bitwise: greedy streams identical
      across the variants, integer stats equal to bf16's.
+ 13. families serving — the rest of serving at full width and depth in
+     bf16 (random weights from seed 0), ``cache_update="kernel"``, traces
+     from ``poisson_trace``: Qwen1.5-MoE-A2.7B through ``PagedServeLoop``
+     (8 slots, capacity 1024) as base and with prefix caching and 128-token
+     chunks on a trace with shared 256-token prefixes (the MoE chunk's live
+     mask); Hymba-1.5B through ``PagedServeLoop`` with one 2100-token prompt
+     that wraps its 2048-slot ring, base and with preemption on a 300-page
+     pool (every restore's pages and SSM row bitwise); xLSTM-1.3B through the
+     contiguous ``ServeLoop`` (no kernel on its path); phi-3-vision-4.2B
+     through ``PagedServeLoop`` at head dim 96 with 576 seeded patch rows a
+     request; the first 8 requests of phase 4's trace through the
+     contiguous ``ServeLoop`` (run while phase 4's model is loaded), with the
+     share of tokens equal to the paged loop's. For each: every request
+     completes, the launches are exactly those the code implies (decode L a
+     tick on the paged loops, insert one an admission and one a restore,
+     rmsnorm 2L + 1 a dispatch, Hymba's 4L + 1, none on xLSTM or StarCoder2),
+     tokens/s, ms a tick, prefill ms, TTFT and ITL p50/p99, peak GB; each
+     paged family's step check (kernels against plain versions from a
+     mid-trace state, MoE routing replayed); paged decode's timing row at
+     phi-3's mid-trace state. Then each family at 2 layers in float32 under
+     ``strict_fp32()`` (xLSTM one super-block; the MoE copy with
+     ``capacity_factor=100``): paged, contiguous and serial greedy streams
+     identical, the step check in float32.
 
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
 last line, one JSON object with a row per kernel and
@@ -201,7 +228,8 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import cross_entropy  # noqa: E402
 from repro_torch.models.model import build_model, build_model_by_name  # noqa: E402
 from repro_torch.metrics.logger import latency_summary  # noqa: E402
-from repro_torch.serve import PagedServeLoop, SamplerConfig, poisson_trace  # noqa: E402
+from repro_torch.serve import (PagedServeLoop, Request, SamplerConfig, SerialLoop,  # noqa: E402
+                               ServeLoop, poisson_trace)
 from repro_torch.serve.sampling import stream_uniforms  # noqa: E402
 from repro_torch.serve.slots import RequestQueue  # noqa: E402
 
@@ -212,6 +240,10 @@ TF32_OPS_PER_S = 494.7e12  # dense TF32 tensor-core peak, same source
 SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock: the host's head start in time_ms
 B, HQ, HKV, HD, PS, P = 8, 24, 2, 128, 16, 256  # StarCoder2-3B serve shapes
 W = 4096
+# phi-3-vision-4.2B's serve shapes (phase 13: 8 slots, capacity 1024): B, Hq,
+# Hkv, hd, page size, pages a slot; its parity cases add a window of 512
+PHI3_DECODE = (8, 32, 32, 96, 16, 64)
+PHI3_WINDOW = 512
 DECODE_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 # Kernel vs plain decode output, bf16: the plain version (like the JAX
 # reference) rounds the q.k logits and the probabilities to bf16 before
@@ -227,6 +259,15 @@ DECODE_F32_ATOL, DECODE_F32_RTOL = 1e-3, 2.0**-8
 # the per-layer bf16 differences above feed the residual stream of every
 # later layer; logits have std ~1 at this init.
 STEP_LOGITS_ATOL = 1e-1
+# The same step check on the deeper or wider families of phase 13 (24-32
+# layers), in bf16, relative to the live rows' logits in Frobenius norm: the
+# two paths round the attention's logits and probabilities differently (the
+# plain version to bf16, the kernel not), 2^-8 relative each, and the
+# per-layer differences add in quadrature over the layers: sqrt(32 * 2) *
+# 2^-8 = 3.1%. In float32 at 2 layers the JAX package's decode-step bar
+# (tests/test_paged_kernel.py, kernel against mask: logits 2e-4).
+STEP_BF16_REL = 5e-2
+STEP_F32_ATOL = 2e-4
 VECAVG_SRC = "src/repro_torch/kernels/vecavg/csrc/vecavg.cu"
 # vecavg against its plain version: the JAX package's kernel-vs-oracle bars
 # (tests/test_kernels.py): delta_w 1e-6 in float32, 2e-2 in bf16 (one bf16
@@ -422,6 +463,47 @@ SCHED_STATS = ("ticks", "decode_dispatches", "prefill_dispatches", "extend_dispa
 SCHED_SAMPLER = dict(temperature=0.8, top_k=50, seed=0)
 SCHED_ONE_SLOT = 8
 
+# The families of phase 13 (configs of src/repro_torch/configs), served at
+# full width and depth in bf16 from random weights (seed 0), traces made by
+# the port's poisson_trace (no EOS, so the integer stats cannot depend on
+# the tokens): Qwen1.5-MoE-A2.7B through PagedServeLoop (8 slots, pages of
+# 16, capacity 1024: a 1.6 GB pool), base and then prefix caching with
+# 128-token chunks on the same trace shape with two shared 256-token
+# prefixes; Hymba-1.5B (window 2048, parallel SSM) through PagedServeLoop,
+# base on the default pool (128 pages a slot) and with preemption after one
+# blocked tick on 300 pages (the port's loop on a 1-layer, d_model-40 copy at
+# the full vocabulary preempts twice on this trace; its largest request
+# needs 128); xLSTM-1.3B through the contiguous ServeLoop (4 slots, ~0.7 GB
+# of recurrent state a slot); phi-3-vision-4.2B at head dim 96 through
+# PagedServeLoop (a 3.2 GB pool), every request with 576 seeded float32
+# patch rows; the first 8 requests of phase 4's StarCoder2-3B trace through
+# the contiguous ServeLoop. Each family again at 2 layers in float32 (xLSTM
+# at one super-block, 8 of 48 layers: its 7:1 pattern has no 2-layer cut;
+# the MoE copy with capacity_factor 100, as the JAX package's parity tests,
+# since capacity depends on which rows share a step): paged, contiguous and
+# serial streams identical.
+FAM_MOE, FAM_HYMBA, FAM_XLSTM, FAM_PHI3 = ("qwen2-moe-a2.7b", "hymba-1.5b", "xlstm-1.3b",
+                                           "phi-3-vision-4.2b")
+FAM_SLOTS, FAM_PS, FAM_CAPACITY = 8, 16, 1024
+FAM_MOE_TRACE = dict(n_requests=16, rate=2.0, plen_choices=(128, 256, 512),
+                     max_new_choices=(32, 64), seed=0)
+FAM_MOE_PREFIX = dict(prefix_families=2, prefix_len=256)
+FAM_PREFIX_CHUNK = dict(prefix_cache=True, prefill_chunk=128)
+FAM_HYMBA_TRACE = dict(n_requests=12, rate=2.0, plen_choices=(256, 512, 1024),
+                       max_new_choices=(32, 64), seed=0)
+FAM_HYMBA_LONG = 2100
+FAM_HYMBA_PREEMPT_PAGES = 300
+FAM_XLSTM_TRACE = dict(n_requests=8, rate=2.0, plen_choices=(32, 64, 128),
+                       max_new_choices=(16, 32), seed=0)
+FAM_XLSTM_SLOTS = 4
+FAM_PHI3_TRACE = dict(n_requests=8, rate=2.0, plen_choices=(640, 768, 896),
+                      max_new_choices=(32, 64), seed=0)
+FAM_F32_LAYERS, FAM_XLSTM_F32_LAYERS = 2, 8
+FAM_DENSE_CONTIGUOUS = 8
+FAM_STATS = ("ticks", "decode_dispatches", "prefill_dispatches", "extend_dispatches",
+             "restore_dispatches", "prefilled_tokens", "prefix_hit_tokens", "preemptions",
+             "peak_pages")
+
 
 def qwen05_config():
     """Qwen1.5-0.5B's published widths (hf:Qwen/Qwen1.5-0.5B config.json) on
@@ -516,26 +598,29 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def _page_table(gen, n_pages, pages_needed):
+def _page_table(gen, n_pages, pages_needed, b=B, p=P):
     """Distinct pages per slot; each slot gets the pages its rows need and
     -1 after them."""
-    perm = torch.randperm(n_pages, generator=gen, device=gen.device)[:B * P]
-    perm = perm.view(B, P).to(torch.int32)
-    for b in range(B):
-        perm[b, pages_needed[b]:] = -1
+    perm = torch.randperm(n_pages, generator=gen, device=gen.device)[:b * p]
+    perm = perm.view(b, p).to(torch.int32)
+    for i in range(b):
+        perm[i, pages_needed[i]:] = -1
     return perm
 
 
-def decode_case(gen, dev, pos, active, window, tag, holes=(), empty=()):
+def decode_case(gen, dev, pos, active, window, tag, holes=(), empty=(),
+                shape=(B, HQ, HKV, HD, PS, P), dtype=torch.bfloat16):
     """Kernel twice on fresh clones (bitwise to itself) and the plain
     version on one input; each (slot, page) of ``holes`` and every page of
-    each slot in ``empty`` is unallocated."""
+    each slot in ``empty`` is unallocated. ``shape``: (B, Hq, Hkv, hd,
+    page_size, pages a slot), StarCoder2-3B's serving shapes by default."""
+    B, HQ, HKV, HD, PS, P = shape
     n_pages = B * P + 3
     need = []
     for p in pos:
         rows = min(p + 64, window) if window else min(p + 64, P * PS)
         need.append(-(-rows // PS))
-    pt = _page_table(gen, n_pages, need)
+    pt = _page_table(gen, n_pages, need, B, P)
     for b, p in holes:
         require(p < need[b], f"[parity] decode {tag}: hole ({b}, {p}) past the live range")
         pt[b, p] = -1
@@ -543,7 +628,7 @@ def decode_case(gen, dev, pos, active, window, tag, holes=(), empty=()):
         pt[b] = -1
 
     def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     q, kn, vn = rnd(B, HQ, HD), rnd(B, HKV, HD), rnd(B, HKV, HD)
     kp, vp = rnd(n_pages, PS, HKV, HD), rnd(n_pages, PS, HKV, HD)
@@ -623,9 +708,27 @@ def phase_parity(dev):
                     "full attention, an active slot with every page unallocated",
                     empty=(2,)),
     ]
+    # the head-dim-96 instance at phi-3-vision's serving shapes (phase 13)
+    hd96 = [
+        decode_case(gen, dev, [5, 100, 700, 1023, 300, 64, 900, 17], part, 0,
+                    "hd 96 (phi-3-vision), full attention, partly active, unallocated pages "
+                    "inside the live ranges", holes=[(1, 2), (2, 30), (3, 63), (6, 0)],
+                    shape=PHI3_DECODE),
+        decode_case(gen, dev, [5, 600, 1500, 511, 4000, 64, 2000, 100], part, PHI3_WINDOW,
+                    f"hd 96 (phi-3-vision), window {PHI3_WINDOW}, ring wrapped and not, "
+                    "partly active, unallocated pages", holes=[(1, 5), (2, 20), (6, 31)],
+                    shape=PHI3_DECODE),
+        decode_case(gen, dev, [9, 600, 1500, 511, 4000, 64, 2000, 100], part, PHI3_WINDOW,
+                    f"hd 96 float32, window {PHI3_WINDOW}, partly active, unallocated pages",
+                    holes=[(1, 5), (2, 20), (6, 31)], shape=PHI3_DECODE, dtype=torch.float32),
+        decode_case(gen, dev, [5, 600, 1500, 511, 4000, 64, 2000, 100], part, PHI3_WINDOW,
+                    f"hd 96, G 5 (two query rows a lane), window {PHI3_WINDOW}",
+                    holes=[(2, 20)], shape=(8, 40, 8, 96, 16, 64)),
+    ]
     ins = max(insert_case(gen, dev, 30, 72, "30 layers, 72 of 256 pages"),
               insert_case(gen, dev, 30, 0, "30 layers, no page allocated"))
-    return {"paged_decode": max(errs), "paged_insert": ins}
+    return {"paged_decode": max(errs + hd96), "paged_decode_hd96": max(hd96),
+            "paged_insert": ins}
 
 
 def vecavg_case(gen, dev, C, D, dtype):
@@ -2525,7 +2628,7 @@ class SchedLoop(PagedServeLoop):
     pages (whole-prompt ``_can_admit`` and the scheduler's
     ``_plan_admission``), and, with ``audit``, checks the page-table
     invariants after every tick and that every restore left the staged rows
-    in the pool bit for bit."""
+    (and the hybrid family's SSM row) in the cache bit for bit."""
 
     def __init__(self, *a, audit=False, **kw):
         self.audit, self.audited_restores = audit, 0
@@ -2553,6 +2656,9 @@ class SchedLoop(PagedServeLoop):
                 got = pool.index_select(1, row).cpu()
                 require(torch.equal(bits_of(got), bits_of(staged[:, :ent.pages])),
                         "[sched] a restore left other bits than the staged rows in the pool")
+            for rows, staged in zip(self.cache.ssm or (), ent.ssm or ()):
+                require(torch.equal(bits_of(rows[:, slot].cpu()), bits_of(staged)),
+                        "[sched] a restore left other bits than the staged SSM row")
             self.audited_restores += 1
 
     def tick(self, queue=None):
@@ -2617,7 +2723,7 @@ def sched_timing(reqs, stats, loop):
     out = dict(tok_s=stats["tok_s"], wall_s=stats["wall_s"],
                decode_ms=1e3 * stats["decode_s"] / max(stats["decode_dispatches"], 1),
                chunk_ms=(1e3 * stats["extend_s"] / stats["extend_dispatches"]
-                         if stats["extend_dispatches"] else None),
+                         if stats.get("extend_dispatches") else None),
                prefill_ms=(1e3 * stats["prefill_s"] / stats["prefill_dispatches"]
                            if stats["prefill_dispatches"] else None),
                peak_gb=stats["peak_gb"])
@@ -2754,13 +2860,15 @@ def sched_sampled(model, params, dev, trace):
     return out
 
 
-def sched_decode_row(loop, st, launches):
-    """Paged decode timed at the phase's mid-trace state (Hkv 40, G 1, hd 128)
-    against its byte bound and its plain version."""
+def sched_decode_row(loop, st, launches, seed=12):
+    """Paged decode timed at a serving phase's mid-trace state (phase 12:
+    Qwen1.5-32B's Hkv 40, G 1, hd 128; phase 13: phi-3-vision's Hkv 32, G 1,
+    hd 96) against its byte bound and its plain version."""
     dev, cfg = loop.device, loop.cfg
     pool_k, pool_v = loop.cache.kv.k[0].clone(), loop.cache.kv.v[0].clone()
-    gen = torch.Generator(device=dev).manual_seed(12)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     Bq, Hq, Hkv, hd = loop.n_slots, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    arch = cfg.name
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(pool_k.dtype)
@@ -2782,20 +2890,21 @@ def sched_decode_row(loop, st, launches):
     sync()
     require(torch.equal(bits_of(ker_pools[0]), bits_of(pln_pools[0])) and
             torch.equal(bits_of(ker_pools[1]), bits_of(pln_pools[1])),
-            "[sched] decode kernel and plain version wrote other pool bits")
+            f"[timing] decode kernel and plain version wrote other pool bits at {arch}'s state")
     err = (o_k[act].float() - o_p[act].float()).abs().max().item()
-    require(err <= DECODE_ATOL, f"[sched] decode kernel vs plain at the mid-trace state: {err}")
+    require(err <= DECODE_ATOL, f"[timing] decode kernel vs plain at {arch}'s mid-trace state: "
+            f"{err}")
     ms = time_ms(lambda: pa_ops.paged_decode_attention(q, pool_k, pool_v, kn, vn, pt, pos,
                                                        active=act))
     split = dict(pa_ops.last_decode)
     plain = time_ms(lambda: pa_ref.paged_decode_attention(q, pool_k, pool_v, kn, vn, pt, pos,
                                                           act))
     t_bytes, t_ops = dec_bytes / HBM_BYTES_PER_S, dec_ops / BF16_OPS_PER_S
-    print(f"[timing] paged_decode {SCHED_ARCH}: {n_rows} valid rows over {Bq} slots, {n_write} "
+    print(f"[timing] paged_decode {arch}: {n_rows} valid rows over {Bq} slots, {n_write} "
           f"writes, {dec_bytes} bytes; {split['splits']} splits a (slot, kv head) at "
           f"{split['blocks_per_sm']} blocks an SM")
     return dict(
-        name=f"paged_decode ({SCHED_ARCH} serve, Hkv {Hkv}, G {Hq // Hkv}, hd {hd})",
+        name=f"paged_decode ({arch} serve, Hkv {Hkv}, G {Hq // Hkv}, hd {hd})",
         route="cuda", source=DECODE_SRC,
         replaces="src/repro/kernels/paged_attention/kernel.py:64",
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -2885,6 +2994,354 @@ def phase_sched(dev):
     return out, row
 
 
+# ---------------------------------------------------------------------------
+# 13. serving the families
+# ---------------------------------------------------------------------------
+
+
+def fam_model(dev, arch, **kw):
+    """``arch``'s config with ``kw`` replaced, built on the card with random
+    weights from seed 0."""
+    model = build_model(dataclasses.replace(get_arch(arch), **kw), device=dev)
+    return model, model.init(0)
+
+
+def fam_launches_want(cfg, stats, kind):
+    """The launches the code implies for one run: paged decode L a tick and
+    paged insert one a whole-prompt admission and one a restore on the
+    paged loop; rmsnorm a norm call a dispatch (2L + 1 with rmsnorm, 2L
+    more for the hybrid fusion's two norms a layer); flash none (the loops
+    prefill with impl="auto")."""
+    L = cfg.num_layers
+    paged = kind == "paged"
+    dispatches = stats["decode_dispatches"] + stats["prefill_dispatches"] + \
+        stats.get("extend_dispatches", 0)
+    norms = (2 * L + 1 if cfg.norm == "rmsnorm" else 0) + (2 * L if cfg.hybrid_parallel_ssm
+                                                           else 0)
+    return dict(paged_decode=L * stats["decode_dispatches"] if paged else 0,
+                paged_insert=(stats["prefill_dispatches"] + stats["restore_dispatches"]
+                              if paged else 0),
+                rmsnorm=norms * dispatches, flash=0)
+
+
+def fam_run(model, params, dev, trace, kind, tag, *, audit=False, **kw):
+    """One trace through one loop under "kernel" (``kind``: paged,
+    contiguous or serial), every launch counter zeroed just before ->
+    (requests, stats, launches, loop). Every request must complete and the
+    launches be exactly those the code implies."""
+    cls = {"paged": SchedLoop, "contiguous": ServeLoop, "serial": SerialLoop}[kind]
+    extra = {"audit": audit} if kind == "paged" else {}
+    loop = cls(model, params, device=dev, cache_update="kernel", **extra, **kw)
+    reqs = [r.clone() for r in trace]
+    torch.cuda.reset_peak_memory_stats(dev)
+    pa_ops.reset_launches()
+    rn_ops.reset_launches()
+    fa_ops.reset_launches()
+    stats = loop.run(reqs)
+    sync()
+    launches = dict(pa_ops.launches, rmsnorm=rn_ops.launches["rmsnorm"],
+                    flash=fa_ops.launches["flash_attention"])
+    stats["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    V = model.config.vocab_size
+    for r in reqs:
+        require(r.failed is None, f"[{tag}] request {r.rid} failed: {r.failed}")
+        require(len(r.out) == r.max_new, f"[{tag}] request {r.rid}: {len(r.out)} tokens of "
+                f"{r.max_new}")
+        require(all(0 <= t < V for t in r.out), f"[{tag}] request {r.rid}: a token outside "
+                "the vocabulary")
+    want = fam_launches_want(model.config, stats, kind)
+    require(launches == want, f"[{tag}] launches {launches}, the code implies {want}")
+    return reqs, stats, launches, loop
+
+
+def fam_report(tag, reqs, stats, launches, loop, kind):
+    """Prints and returns the run's integer stats, launches and timing."""
+    ints = {k: stats[k] for k in FAM_STATS if k in stats}
+    timing = sched_timing(reqs, stats, loop) if kind != "serial" else \
+        dict(tok_s=stats["tok_s"], wall_s=stats["wall_s"], peak_gb=stats["peak_gb"])
+    print(f"[{tag}] {json.dumps(ints)}; launches {json.dumps(launches)}")
+    print(f"[{tag}] timing: {json.dumps(timing)}")
+    return dict(stats=ints, launches=launches, timing=timing)
+
+
+def clone_paged(cache):
+    ssm = cache.ssm
+    return type(cache)(kv=type(cache.kv)(cache.kv.k.clone(), cache.kv.v.clone()),
+                       ssm=None if ssm is None else type(ssm)(*(x.clone() for x in ssm)))
+
+
+def fam_step_check(model, params, loop, st, tag):
+    """Phase 4's step check for any paged family: one decode step from one
+    mid-trace state through the kernels and through the plain versions.
+    MoE layers route the plain step exactly as the kernel step routed
+    (``RoutingLog``), so that only the attention's arithmetic separates the
+    two. The pools are bitwise equal but for the rows this step wrote at
+    layers >= 1; layer 0's rows and SSM rows are bitwise equal (their
+    inputs are); inactive slots' SSM rows keep their bits. The logits of
+    the live rows: in float32 within STEP_F32_ATOL; in bf16 within
+    STEP_BF16_REL of their Frobenius norm (phase 4's absolute bar is
+    StarCoder2-3B's)."""
+    cfg = model.config
+    ck, cs = clone_paged(loop.cache), clone_paged(loop.cache)
+    args = (st["page_table"], st["tok"], st["pos"])
+    act = st["active"]
+    with RoutingLog() as log:
+        lk, _ = model.paged_decode_step(params, ck, *args, cache_update="kernel", active=act)
+    with RoutingLog(log.calls):
+        ls, _ = model.paged_decode_step(params, cs, *args, cache_update="scatter", active=act)
+    sync()
+    require(bool(torch.isfinite(lk[act]).all()), f"[{tag}] non-finite kernel-path logits")
+    d = lk[act].float() - ls[act].float()
+    err = d.abs().max().item()
+    rel = (d.norm() / ls[act].float().norm()).item()
+    agree = (lk[act].argmax(-1) == ls[act].argmax(-1)).float().mean().item()
+    if lk.dtype == torch.float32:
+        bar = f"max|diff| {err:.3e} (tol {STEP_F32_ATOL})"
+        require(err <= STEP_F32_ATOL, f"[{tag}] float32 step logits max|kernel - plain| {err}")
+    else:
+        bar = f"max|diff| {err:.3e}, relative {rel:.3e} (tol {STEP_BF16_REL})"
+        require(rel <= STEP_BF16_REL, f"[{tag}] step logits |kernel - plain| / |plain| {rel}")
+    ps, window = loop.page_size, cfg.sliding_window
+    phys, wrote = pa_ref.write_target(st["page_table"], st["pos"], ps, window, act)
+    pos = st["pos"].long()
+    idx = (pos % window) if window else pos
+    rows = (phys[wrote], (idx % ps)[wrote])
+    for name, a, b in (("k", ck.kv.k, cs.kv.k), ("v", ck.kv.v, cs.kv.v)):
+        require(torch.equal(bits_of(a[0]), bits_of(b[0])), f"[{tag}] layer-0 {name} pool differs")
+        a[:, rows[0], rows[1]] = 0
+        b[:, rows[0], rows[1]] = 0
+        require(torch.equal(bits_of(a), bits_of(b)),
+                f"[{tag}] {name} pool differs outside this step's rows")
+    for new_k, new_s, old in zip(ck.ssm or (), cs.ssm or (), loop.cache.ssm or ()):
+        require(torch.equal(bits_of(new_k[0]), bits_of(new_s[0])), f"[{tag}] layer-0 SSM rows "
+                "differ between the kernel and plain steps")
+        require(torch.equal(bits_of(new_k[:, ~act]), bits_of(old[:, ~act])),
+                f"[{tag}] an inactive slot's SSM row changed")
+    print(f"[{tag}] step from the mid-trace state, kernels vs plain versions"
+          f"{' (routing replayed)' if cfg.is_moe else ''}: logits {bar}, argmax agreement "
+          f"{agree:.3f} over {int(act.sum())} live slots; "
+          "pools bitwise but for this step's rows at layers >= 1"
+          + ("; SSM rows of layer 0 and of inactive slots bitwise" if cfg.hybrid_parallel_ssm
+             else ""))
+    return dict(max_abs=err, rel=rel, argmax_agree=agree)
+
+
+def fam_mid_state(loop, trace, tag):
+    to_mid_trace(loop, trace)
+    require(int(loop.table.active.sum()) >= 2, f"[{tag}] mid-trace state has < 2 live slots")
+    return mid_state(loop)
+
+
+def fam_f32(dev, arch, layers, runs, tag, bf16_stats, **kw):
+    """The family again at ``layers`` layers in float32 under
+    ``strict_fp32()``: each of ``runs`` ((name, trace, kind, loop kwargs))
+    served, the paged ones auditing the invariants every tick and every
+    restore bitwise; the greedy streams of every run on one trace
+    identical, and the integer stats equal to the bf16 run's of the same
+    name. After the paged run named "base", the step check from its
+    mid-trace state in float32."""
+    model, params = fam_model(dev, arch, num_layers=layers, param_dtype="float32",
+                              compute_dtype="float32", **kw)
+    streams, out = {}, {}
+    with strict_fp32():
+        for name, trace, kind, loop_kw in runs:
+            reqs, stats, _, loop = fam_run(model, params, dev, trace, kind, f"{tag} f32 {name}",
+                                           audit=True, **loop_kw)
+            ints = {k: stats[k] for k in FAM_STATS if k in stats}
+            if name in bf16_stats:
+                require(ints == bf16_stats[name], f"[{tag}] float32 {name} stats {ints} differ "
+                        f"from bf16's {bf16_stats[name]}")
+            streams.setdefault(id(trace), []).append((name, reqs))
+            out[name] = dict(ints, restores_audited=getattr(loop, "audited_restores", 0))
+            if name == "base" and kind == "paged":
+                st = fam_mid_state(loop, trace, f"{tag} f32")
+                out["step"] = fam_step_check(model, params, loop, st, f"{tag} f32")
+    for group in streams.values():
+        base_name, base = group[0]
+        for name, reqs in group[1:]:
+            _, first = streams_agree(reqs, base)
+            require(first is None, f"[{tag}] float32: {name}'s greedy stream differs from "
+                    f"{base_name}'s at (rid, token) {first}")
+    names = [[n for n, _ in g] for g in streams.values()]
+    print(f"[{tag}] float32, {layers} layers: greedy streams identical across {names}; "
+          f"paged runs audited every tick; {json.dumps(out)}")
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_header(tag, model, params, t0):
+    sync()
+    n = sum(t.numel() for t in params.values())
+    cfg = model.config
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, {n / 1e9:.3f} B params "
+          f"{cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+
+
+def fam_warm(model, params, dev, kind, **kw):
+    """Two short requests through the loop (cuBLAS handles, the allocator);
+    not counted."""
+    cfg = model.config
+    warm = poisson_trace(2, rate=2.0, plen_choices=(cfg.num_patches or 16,),
+                         max_new_choices=(3,), vocab_size=cfg.vocab_size, seed=1)
+    fam_patches(cfg, warm, seed=9)
+    fam_run(model, params, dev, warm, kind, "warm-up", **kw)
+
+
+def fam_patches(cfg, trace, seed):
+    """Seeded float32 patch rows for every request of a VLM trace."""
+    if cfg.vision_dim:
+        r = np.random.RandomState(seed)
+        for q in trace:
+            q.patches = r.randn(cfg.num_patches, cfg.vision_dim).astype(np.float32)
+    return trace
+
+
+def phase_fam_moe(dev):
+    """Qwen1.5-MoE-A2.7B through PagedServeLoop: base, then prefix caching
+    with 128-token chunks on a trace with shared prefixes (the chunk's
+    live mask); the step check; float32 at 2 layers."""
+    tag, t0 = "fam-moe", time.perf_counter()
+    model, params = fam_model(dev, FAM_MOE)
+    fam_header(tag, model, params, t0)
+    cfg = model.config
+    cont_kw = dict(n_slots=FAM_SLOTS, capacity=FAM_CAPACITY)
+    loop_kw = dict(cont_kw, page_size=FAM_PS)
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **FAM_MOE_TRACE)
+    ptrace = poisson_trace(vocab_size=cfg.vocab_size, **FAM_MOE_TRACE, **FAM_MOE_PREFIX)
+    fam_warm(model, params, dev, "paged", **loop_kw)
+    out = {}
+    for name, tr, kw in (("base", trace, {}), ("prefix_chunk", ptrace, FAM_PREFIX_CHUNK)):
+        reqs, stats, launches, loop = fam_run(model, params, dev, tr, "paged", f"{tag} {name}",
+                                              **loop_kw, **kw)
+        out[name] = fam_report(f"{tag} {name}", reqs, stats, launches, loop, "paged")
+        if name == "base":
+            base_loop = loop
+    pc = out["prefix_chunk"]["stats"]
+    require(pc["prefix_hit_tokens"] > 0 and pc["extend_dispatches"] > 0,
+            f"[{tag}] prefix_chunk: no prefix hit or no chunk ({pc})")
+    st = fam_mid_state(base_loop, trace, tag)
+    out["step"] = fam_step_check(model, params, base_loop, st, tag)
+    bf16 = {n: out[n]["stats"] for n in ("base", "prefix_chunk")}
+    del model, params, base_loop, loop
+    torch.cuda.empty_cache()
+    out["f32"] = fam_f32(dev, FAM_MOE, FAM_F32_LAYERS, [
+        ("base", trace, "paged", loop_kw), ("contiguous", trace, "contiguous", cont_kw),
+        ("serial", trace, "serial", {}),
+        ("prefix_chunk", ptrace, "paged", dict(loop_kw, **FAM_PREFIX_CHUNK)),
+        ("prefix contiguous", ptrace, "contiguous", cont_kw)],
+        tag, bf16, capacity_factor=100.0)
+    return out
+
+
+def hymba_trace(cfg):
+    """FAM_HYMBA_TRACE plus one prompt of FAM_HYMBA_LONG tokens (past the
+    2048-slot window, so the ring wraps in prefill) arriving with rid 5."""
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **FAM_HYMBA_TRACE)
+    r = np.random.RandomState(13)
+    trace.append(Request(len(trace), r.randint(0, cfg.vocab_size, FAM_HYMBA_LONG), 32,
+                         arrival=trace[5].arrival))
+    return trace
+
+
+def phase_fam_hymba(dev):
+    """Hymba-1.5B through PagedServeLoop: base on the default pool, then
+    with preemption on FAM_HYMBA_PREEMPT_PAGES pages (restores audited
+    bitwise: pages and SSM rows); the step check; float32 at 2 layers."""
+    tag, t0 = "fam-hymba", time.perf_counter()
+    model, params = fam_model(dev, FAM_HYMBA)
+    fam_header(tag, model, params, t0)
+    trace = hymba_trace(model.config)
+    loop_kw = dict(n_slots=FAM_SLOTS, page_size=FAM_PS)
+    pre_kw = dict(loop_kw, n_pages=FAM_HYMBA_PREEMPT_PAGES, preempt=True, preempt_after=1)
+    fam_warm(model, params, dev, "paged", **loop_kw)
+    out = {}
+    for name, kw in (("base", loop_kw), ("preempt", pre_kw)):
+        reqs, stats, launches, loop = fam_run(model, params, dev, trace, "paged", f"{tag} {name}",
+                                              audit=name == "preempt", **kw)
+        out[name] = fam_report(f"{tag} {name}", reqs, stats, launches, loop, "paged")
+        if name == "base":
+            base_loop = loop
+    pre = out["preempt"]["stats"]
+    require(pre["preemptions"] >= 1 and loop.audited_restores == pre["restore_dispatches"]
+            == pre["preemptions"], f"[{tag}] preempt: {pre}, {loop.audited_restores} audited")
+    out["restores_audited"] = loop.audited_restores
+    st = fam_mid_state(base_loop, trace, tag)
+    out["step"] = fam_step_check(model, params, base_loop, st, tag)
+    bf16 = {n: out[n]["stats"] for n in ("base", "preempt")}
+    del model, params, base_loop, loop
+    torch.cuda.empty_cache()
+    out["f32"] = fam_f32(dev, FAM_HYMBA, FAM_F32_LAYERS, [
+        ("base", trace, "paged", loop_kw), ("preempt", trace, "paged", pre_kw),
+        ("contiguous", trace, "contiguous", dict(n_slots=FAM_SLOTS)),
+        ("serial", trace, "serial", {})], tag, bf16)
+    return out
+
+
+def phase_fam_xlstm(dev):
+    """xLSTM-1.3B through the contiguous ServeLoop (no KV to page; no
+    kernel on its path); float32 at one super-block against SerialLoop."""
+    tag, t0 = "fam-xlstm", time.perf_counter()
+    model, params = fam_model(dev, FAM_XLSTM)
+    fam_header(tag, model, params, t0)
+    trace = poisson_trace(vocab_size=model.config.vocab_size, **FAM_XLSTM_TRACE)
+    loop_kw = dict(n_slots=FAM_XLSTM_SLOTS)
+    fam_warm(model, params, dev, "contiguous", **loop_kw)
+    reqs, stats, launches, loop = fam_run(model, params, dev, trace, "contiguous", tag, **loop_kw)
+    out = {"contiguous": fam_report(tag, reqs, stats, launches, loop, "contiguous")}
+    xm = loop.cache.xlstm_m
+    out["state_gb"] = sum(x.numel() * x.element_size() for part in (xm, loop.cache.xlstm_s)
+                          for x in part) / 1e9
+    del model, params, loop
+    torch.cuda.empty_cache()
+    out["f32"] = fam_f32(dev, FAM_XLSTM, FAM_XLSTM_F32_LAYERS, [
+        ("contiguous", trace, "contiguous", loop_kw), ("serial", trace, "serial", {})], tag,
+        {"contiguous": out["contiguous"]["stats"]})
+    return out
+
+
+def phase_fam_phi3(dev):
+    """phi-3-vision-4.2B through PagedServeLoop at head dim 96, every request
+    with 576 seeded float32 patch rows; the step check and paged decode's
+    timing row at the mid-trace state; float32 at 2 layers."""
+    tag, t0 = "fam-phi-3", time.perf_counter()
+    model, params = fam_model(dev, FAM_PHI3)
+    fam_header(tag, model, params, t0)
+    cfg = model.config
+    trace = fam_patches(cfg, poisson_trace(vocab_size=cfg.vocab_size, **FAM_PHI3_TRACE), seed=3)
+    cont_kw = dict(n_slots=FAM_SLOTS, capacity=FAM_CAPACITY)
+    loop_kw = dict(cont_kw, page_size=FAM_PS)
+    fam_warm(model, params, dev, "paged", **loop_kw)
+    reqs, stats, launches, loop = fam_run(model, params, dev, trace, "paged", tag, **loop_kw)
+    out = {"base": fam_report(tag, reqs, stats, launches, loop, "paged")}
+    st = fam_mid_state(loop, trace, tag)
+    out["step"] = fam_step_check(model, params, loop, st, tag)
+    row = sched_decode_row(loop, st, launches["paged_decode"], seed=13)
+    del model, params, loop
+    torch.cuda.empty_cache()
+    out["f32"] = fam_f32(dev, FAM_PHI3, FAM_F32_LAYERS, [
+        ("base", trace, "paged", loop_kw), ("contiguous", trace, "contiguous", cont_kw),
+        ("serial", trace, "serial", {})], tag, {"base": out["base"]["stats"]})
+    return out, row
+
+
+def dense_contiguous(model, params, dev, paged_reqs):
+    """The first FAM_DENSE_CONTIGUOUS requests of phase 4's StarCoder2-3B
+    trace through the contiguous ServeLoop (its 4096-slot SWA ring; no
+    kernel), and the share of their tokens equal to the paged loop's."""
+    tag = "fam-dense-contiguous"
+    trace = [r.clone() for r in paged_reqs[:FAM_DENSE_CONTIGUOUS]]
+    reqs, stats, launches, loop = fam_run(model, params, dev, trace, "contiguous", tag,
+                                          n_slots=B)
+    out = fam_report(tag, reqs, stats, launches, loop, "contiguous")
+    agree, first = streams_agree(reqs, paged_reqs[:FAM_DENSE_CONTIGUOUS])
+    out.update(agree_with_paged=agree, first_divergence=first)
+    print(f"[{tag}] bf16 tokens equal to the paged loop's: {agree:.3f}, first divergence {first}")
+    del loop
+    torch.cuda.empty_cache()
+    return out
+
+
 def granite_config():
     """granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base) at full
     width, 4 of 24 layers, float32: the FedVeca round's model."""
@@ -2917,6 +3374,8 @@ def main() -> int:
     model, params, loop, reqs, state, serve = run("4 serve", phase_serve, dev)
     prof = run("5 profile", phase_profile, loop, reqs)
     rows = run("7 timing: paged", phase_timing, model, loop, state, serve["launches"], errs)
+    fam13 = {"dense_contiguous": run("13 dense contiguous", dense_contiguous, model, params,
+                                     dev, reqs)}
     del model, params, loop, reqs, state  # the serving model's 8 GB
     torch.cuda.empty_cache()
     cnn, clients, veca, fed = run("6 fed", phase_fed, dev)
@@ -2974,11 +3433,26 @@ def main() -> int:
     fam["whisper"] = run("11 whisper", phase_whisper, dev)
     torch.cuda.empty_cache()
     sched, sched_row = run("12 sched", phase_sched, dev)
-    rows.insert(1, sched_row)  # beside StarCoder2-3B's decode row
-    rows[2]["launches_by_path"] = {  # paged insert: admissions and restores
+    torch.cuda.empty_cache()
+    fam13["moe"] = run("13 moe serve", phase_fam_moe, dev)
+    fam13["hymba"] = run("13 hymba serve", phase_fam_hymba, dev)
+    fam13["xlstm"] = run("13 xlstm serve", phase_fam_xlstm, dev)
+    fam13["phi-3"], phi3_row = run("13 phi-3 serve", phase_fam_phi3, dev)
+    phi3_row["parity_max_abs_err_hd96"] = errs["paged_decode_hd96"]
+    rows[1:1] = [sched_row, phi3_row]  # beside StarCoder2-3B's decode row
+    paged = {f"{arch} {name}": v["launches"]
+             for arch, key in ((FAM_MOE, "moe"), (FAM_HYMBA, "hymba"), (FAM_PHI3, "phi-3"))
+             for name, v in fam13[key].items() if isinstance(v, dict) and "launches" in v}
+    rows[0]["launches_by_path"] = {  # paged decode: L a tick on every paged loop
+        "starcoder2-3b serve": serve["launches"]["paged_decode"],
+        **{f"qwen1.5-32b sched {n}": v["launches"]["paged_decode"]
+           for n, v in sched["variants"].items()},
+        **{k: v["paged_decode"] for k, v in paged.items()}}
+    rows[3]["launches_by_path"] = {  # paged insert: admissions and restores
         "starcoder2-3b serve (admissions)": serve["launches"]["paged_insert"],
         **{f"qwen1.5-32b sched {n} (admissions + restores)": v["launches"]["paged_insert"]
-           for n, v in sched["variants"].items()}}
+           for n, v in sched["variants"].items()},
+        **{f"{k} (admissions + restores)": v["paged_insert"] for k, v in paged.items()}}
     # each kernel's launches on every main path that runs it (phases 4, 6, 8,
     # 9, 10, 11; whisper's path runs none)
     flash_row["launches_by_path"] = {
@@ -2993,7 +3467,8 @@ def main() -> int:
         "hymba-1.5b forward (4 of 32 layers)": fam["hymba"]["bf16"]["rmsnorm_launches"],
         "phi-3-vision-4.2b forward": fam["phi-3"]["rmsnorm_launches"],
         "whisper-medium forward": fam["whisper"]["kernel_launches"],
-        f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["rmsnorm"]}
+        f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["rmsnorm"],
+        **{f"{k} serve": v["rmsnorm"] for k, v in paged.items()}}
     tree_row["launches_by_path"] = {
         "cnn experiment": fed["launches"]["vecavg"],
         f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["vecavg"]}
@@ -3002,8 +3477,8 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
     print(f"[time] phases (s): {json.dumps(clock)}; total {sum(clock.values()):.1f} s")
     print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
-                      "families": fam, "sched": sched, "ptxas": ptxas, "seconds": clock,
-                      "card": smi}))
+                      "families": fam, "sched": sched, "families_serve": fam13, "ptxas": ptxas,
+                      "seconds": clock, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -200,14 +200,14 @@ ARCH_MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     # full attention (window=0); served here at reduced size by the CPU tests
     "qwen1.5-32b": "qwen1_5_32b",
-    # forward, loss and round; MoE also prefill (serving them is ROADMAP.md A15)
+    # forward, loss, prefill, the round and serving (xLSTM: the contiguous loop only)
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "hymba-1.5b": "hymba_1_5b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "xlstm-1.3b": "xlstm_1_3b",
     "nemotron-4-15b": "nemotron_4_15b",
-    # forward, loss and prefill (the VLM backbone also the round; serving is A15)
+    # forward, loss, prefill and serving (the VLM backbone also the round)
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "whisper-medium": "whisper_medium",
     # the paper's own models, trained by the federated round (repro_torch.fed)

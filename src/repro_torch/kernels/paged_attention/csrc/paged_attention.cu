@@ -107,15 +107,18 @@ __device__ __forceinline__ int valid_rows(int p, int ps, int pos, int window, in
   return n;
 }
 
-// A lane's slice of a row of HD elements: NV vectors of VE elements (8 or
-// 16 bytes), vector c of d-slice ds at column c * kSlices * VE + ds * VE,
-// so the 8 slices of one vector index read 8 neighbouring vectors (no bank
-// conflict in shared memory; the 4 query-row groups read the same ones).
+// A lane's slice of a row of HD elements: NV vectors of VE elements, 16
+// bytes where they divide the slice's D * sizeof(T) bytes and 8 otherwise
+// (bf16 at hd 96: a 24-byte slice, three 8-byte vectors), vector c of
+// d-slice ds at column c * kSlices * VE + ds * VE, so the 8 slices of one
+// vector index read 8 neighbouring vectors (no bank conflict in shared
+// memory; the 4 query-row groups read the same ones).
 template <typename T, int HD>
 struct Slice {
   static constexpr int D = HD / kSlices;
-  static constexpr int VE = D * sizeof(T) >= 16 ? 16 / sizeof(T) : D;
+  static constexpr int VE = (D * sizeof(T)) % 16 == 0 ? 16 / sizeof(T) : 8 / sizeof(T);
   static constexpr int NV = D / VE;
+  static_assert(HD % kSlices == 0 && NV * VE == D, "a slice is whole vectors");
   static_assert(VE * sizeof(T) == 16 || VE * sizeof(T) == 8, "8- or 16-byte vectors");
   __device__ static int col(int c, int ds) { return c * kSlices * VE + ds * VE; }
 };
@@ -509,8 +512,10 @@ struct Instance {
 };
 
 // Calls f(Instance<T, HD, GPL>{}) for the decode instance of (dtype, hd, G):
-// float32 (0) or bf16 (1), hd 32, 64 or 128, GPL = ceil(G / 4) query rows a
-// lane, G <= 16.
+// float32 (0) or bf16 (1), hd 32, 64, 96 or 128, GPL = ceil(G / 4) query
+// rows a lane, G <= 16. Every row is a whole number of 16-byte chunks at
+// these head dims (hd 96: 12 in bf16, 24 in float32), which stage_page, the
+// new-row write and the merge's float4 columns (HD / 4 = 24 threads) need.
 template <typename T, int HD, typename F>
 cudaError_t with_rows(int G, F&& f) {
   switch ((G + kGroups - 1) / kGroups) {
@@ -527,6 +532,7 @@ cudaError_t with_hd(int hd, int G, F&& f) {
   switch (hd) {
     case 32: return with_rows<T, 32>(G, f);
     case 64: return with_rows<T, 64>(G, f);
+    case 96: return with_rows<T, 96>(G, f);
     case 128: return with_rows<T, 128>(G, f);
     default: return cudaErrorInvalidValue;
   }
@@ -547,7 +553,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; active is bool bytes; part is the
 // float32 workspace of B * Hkv * splits * G * (hd + 2) floats. Head dims
-// 32, 64 and 128 and G <= 16 only. Returns a cudaError_t.
+// 32, 64, 96 and 128 and G <= 16 only. Returns a cudaError_t.
 int paged_decode_attention_launch(int dtype, const void* q, void* k_pool, void* v_pool,
                                   const void* k_new, const void* v_new,
                                   const int* page_table, const int* pos,

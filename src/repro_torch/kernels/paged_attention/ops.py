@@ -35,7 +35,7 @@ def reset_launches() -> None:
 
 # csrc/paged_attention.cu's decode: the head dims it is built for, and G <=
 # 4 * (query rows a lane)
-_DECODE_HEAD_DIMS = (32, 64, 128)
+_DECODE_HEAD_DIMS = (32, 64, 96, 128)
 _DECODE_MAX_G = 16
 
 # csrc/paged_attention.cu's C interface; every launch returns a cudaError_t

@@ -12,8 +12,12 @@ and ``"mask"`` always run the plain versions and differ only in how the
 new rows reach the pool (an indexed write, or the JAX package's one-hot
 selector and ``where`` over the whole pool; the same bits). Chunked
 prefill straight into the pool (``paged_prefill_attention_block``) is
-plain torch, as its attention is plain jnp in the JAX package. The
-contiguous ring cache decode is not ported yet (ROADMAP.md A15).
+plain torch, as its attention is plain jnp in the JAX package. So is
+decode against the contiguous cache (``decode_attention_block``: rows of
+``W`` slots, a ring under SWA), which no TPU kernel touches either: there
+``"mask"`` writes through the one-hot selector and every other value,
+``"kernel"`` included, through an indexed write, as in the JAX package
+(ROADMAP.md P8).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
@@ -181,6 +186,83 @@ def prefill_kv_cache(cfg, p: Params, x, positions, *, window: int = 0,
     return KVCache(torch.roll(k[:, -W:], shift, dims=1),
                    torch.roll(v[:, -W:], shift, dims=1),
                    torch.roll(posb[:, -W:].contiguous(), shift, dims=1))
+
+
+def init_kv_cache(cfg, batch: int, seq_len: int, window: int = 0, device=None,
+                  n_layers: Optional[int] = None) -> KVCache:
+    """An empty cache of ``seq_len`` slots a row, or a ring of ``window``
+    slots (pos -1 = empty), on ``device`` (default ``cuda``); ``n_layers``
+    stacks every leaf ``[L, ...]``."""
+    W = window if window else seq_len
+    lead = () if n_layers is None else (n_layers,)
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.param_dtype)
+    shape = lead + (batch, W, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                   v=torch.zeros(shape, dtype=dt, device=dev),
+                   pos=torch.full(lead + (batch, W), -1, dtype=torch.int32, device=dev))
+
+
+def decode_attention_block(cfg, p: Params, x, cache: KVCache, pos, *, window: int = 0,
+                           cache_update: str = "kernel", active=None):
+    """One-token decode against one layer's contiguous cache. x [B,1,d], pos
+    [B] absolute position of the token -> [B,1,d]; the cache is updated in
+    place.
+
+    Ring semantics: the new token's K/V lands in slot ``pos % W``; a slot is
+    valid where its position is >= 0, not after ``pos`` and inside
+    ``window``. ``cache_update="mask"``: the JAX package's one-hot selector
+    and ``where`` over the whole cache; any other value (``"scatter"``,
+    ``"kernel"``) an indexed write of one row a slot. Both leave the same
+    bits. ``active``: optional bool [B]; inactive rows keep every cache
+    entry bit for bit and their outputs are garbage the caller ignores.
+    """
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(cfg, p, x, pos[:, None], cfg.rope)
+    W = cache.k.shape[1]
+    pos32 = pos.to(torch.int32)
+    slot = pos.to(torch.int64) % W
+    if cache_update == "mask":
+        sel = torch.arange(W, device=x.device)[None, :] == slot[:, None]  # [B, W]
+        if active is not None:
+            sel &= active[:, None]
+        cache.k.copy_(torch.where(sel[..., None, None], k_new, cache.k))
+        cache.v.copy_(torch.where(sel[..., None, None], v_new, cache.v))
+        cache.pos.copy_(torch.where(sel, pos32[:, None], cache.pos))
+    else:
+        bidx = torch.arange(B, device=x.device)
+        k_w, v_w, p_w = k_new[:, 0], v_new[:, 0], pos32
+        if active is not None:  # an inactive row writes back what it holds
+            k_w = torch.where(active[:, None, None], k_w, cache.k[bidx, slot])
+            v_w = torch.where(active[:, None, None], v_w, cache.v[bidx, slot])
+            p_w = torch.where(active, p_w, cache.pos[bidx, slot])
+        cache.k[bidx, slot] = k_w
+        cache.v[bidx, slot] = v_w
+        cache.pos[bidx, slot] = p_w
+
+    G = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(B, cfg.num_kv_heads, G, cfg.head_dim)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg, cache.k).float()
+    logits = logits * (1.0 / math.sqrt(cfg.head_dim))
+    kpos, posb = cache.pos, pos32[:, None]
+    valid = (kpos >= 0) & (kpos <= posb)
+    if window:
+        valid &= kpos > posb - window
+    logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", w.to(cache.v.dtype), cache.v)
+    return o.reshape(B, 1, cfg.q_dim) @ p["attn/w_o"]
+
+
+def insert_kv_slot(cache: KVCache, one: KVCache, slot: int) -> None:
+    """Write one request's cache (batch 1) into row ``slot`` of a B-row cache
+    in place: leaves ``[B, W, ...]``, or layer-stacked ``[L, B, W, ...]``,
+    with ``one``'s matching W. The JAX package's one-hot ``where`` leaves the
+    same bits."""
+    for dst, src, tail in ((cache.k, one.k, 3), (cache.v, one.v, 3),
+                           (cache.pos, one.pos, 1)):
+        axis = dst.ndim - tail - 1  # the batch axis
+        dst.select(axis, slot).copy_(src.select(axis, 0))
 
 
 # ---------------------------------------------------------------------------

@@ -5,16 +5,18 @@
     model.loss(params, batch[, impl=])                 -> (scalar, metrics)
     model.forward(params, batch[, impl=])              -> (logits, aux) / scores [toy]
     model.prefill(params, batch, impl=, window=, pad_to=, length=) -> (logits, DecodeCache)
+    model.init_cache(batch, seq_len[, window]) -> DecodeCache
+    model.decode_step(params, cache, token, pos, ...) -> (logits, DecodeCache)
     model.init_paged_cache(n_slots, n_pages, page_size) -> PagedDecodeCache
     model.paged_decode_step(params, cache, page_table, token, pos, ...)
     model.paged_prefill_chunk(params, cache, page_row, tokens, start, length, ...)
 
-The decoder families (dense, MoE, hybrid, xLSTM, VLM: forward and loss;
-dense, MoE and VLM: prefill; dense: paged decode and chunked prefill), the audio
+The decoder families (dense, MoE, hybrid, xLSTM, VLM: forward, loss,
+prefill and contiguous decode; every one but xLSTM: paged decode; chunked
+prefill for full-attention KV-only models, the function gates), the audio
 encoder-decoder (forward, loss, prefill; no decode, as in the JAX package)
 and the paper's toy models (svm-mnist, cnn-mnist, cnn-cifar10; training)
-are ported. The rest raise ``NotImplementedError`` naming the ROADMAP item:
-serving any family but dense and prefill of the recurrent ones (A15).
+are ported.
 """
 from __future__ import annotations
 
@@ -40,8 +42,11 @@ class Model:
     loss: Optional[Callable] = None
     forward: Optional[Callable] = None
     # chunk or suffix prefill straight into the page pool (prefix caching
-    # and chunked prefill; full-attention dense models, the function gates)
+    # and chunked prefill; full-attention KV-only models, the function gates)
     paged_prefill_chunk: Optional[Callable] = None
+    # one token a slot against the contiguous cache (ServeLoop, SerialLoop)
+    decode_step: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
 
 
 def _toy_model(cfg: ArchConfig, dev: torch.device) -> Model:
@@ -84,25 +89,26 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         init_paged_cache=functools.partial(transformer.init_paged_cache, cfg,
                                            device=dev),
         paged_prefill_chunk=functools.partial(transformer.paged_prefill_chunk, cfg),
+        decode_step=functools.partial(transformer.decode_step, cfg),
+        init_cache=functools.partial(transformer.init_cache, cfg, device=dev),
         loss=functools.partial(transformer.loss_fn, cfg),
         forward=functools.partial(transformer.forward, cfg),
     )
 
 
 def decode_capability(model: Model) -> tuple[bool, str]:
-    """Whether this model can serve the paged decode path, with the reason
-    if not."""
+    """Whether this model can serve the decode path, with the reason if not
+    (the JAX package's gate and words)."""
+    if model.decode_step is not None and model.init_cache is not None:
+        return True, ""
     if model.config.family == "audio":
         return False, (
             f"{model.config.name}: whisper's decoder is 448-token encoder-"
             "conditioned (needs `frames`, no decode_step/init_cache) — "
             "decode serving n/a; use prefill/forward (DESIGN.md §5)")
-    if model.config.family != "toy" and transformer.serving_gap(model.config):
-        return False, transformer.serving_gap(model.config)
-    if model.paged_decode_step is not None and model.init_paged_cache is not None:
-        return True, ""
-    return False, (f"{model.config.name}: family={model.config.family!r} "
-                   "exposes no paged decode path")
+    return False, (
+        f"{model.config.name}: family={model.config.family!r} exposes no "
+        "decode path (decode_step/init_cache are None)")
 
 
 def build_model_by_name(name: str, reduced: bool = False, device=None) -> Model:

@@ -1,18 +1,20 @@
 """Decoder stacks (port of ``repro/models/transformer.py``): the dense,
 MoE, hybrid (attention + SSM), xLSTM and VLM families' full-sequence
-forward and loss, prefill (dense, MoE and VLM), and paged decode and
-chunked prefill into the page pool (dense).
+forward and loss, prefill (with the recurrent states of the hybrid and
+xLSTM families), decode against the contiguous ``DecodeCache``, and paged
+decode and chunked prefill into the page pool (every family with KV rows;
+chunks full-attention KV-only models, as in the JAX package).
 
 Params are a flat dict of tensors keyed by the JAX package's keypaths
 (``embed``, ``final_norm/scale``, ``layers/attn/w_q`` ...); per-layer
 leaves are stacked ``[L, ...]`` (xLSTM: ``xlstm/m/...`` and ``xlstm/s/...``
 stacked ``[n_super, n_per_super, ...]``) and the stack is a Python loop
 over layers (the JAX package scans). KV pools are updated in place where
-the JAX package returns new (donated) buffers.
+the JAX package returns new (donated) buffers; so are the recurrent
+states, row by row, where it selects with ``where``: a decode step leaves
+the rows of inactive slots bit for bit as they were.
 
-The audio family is the encoder-decoder of ``models/encdec.py``; serving
-anything but the dense family raises (ROADMAP.md A15), and so does prefill
-of the recurrent families, whose caches come with their decode.
+The audio family is the encoder-decoder of ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -40,24 +42,6 @@ def check_full_sequence(cfg):
             f"{cfg.name}: family={cfg.family!r} is not a decoder stack of "
             "models.transformer (the audio family is models.encdec, the toy "
             "models models.simple; models.model.build_model picks the module)")
-
-
-def serving_gap(cfg) -> str:
-    """Why the port cannot serve ``cfg`` yet ("" for the dense family)."""
-    if cfg.family == "dense":
-        return ""
-    if cfg.family == "vlm":
-        return (f"{cfg.name}: serving family='vlm' is not ported yet (ROADMAP.md A15: "
-                f"serving phi-3, with paged decode at head dim {cfg.head_dim})")
-    return (f"{cfg.name}: serving family={cfg.family!r} is not ported yet (ROADMAP.md A15: "
-            "MoE serving and the hybrid/xLSTM recurrent prefill and decode)")
-
-
-def check_serving(cfg):
-    """Raise for the families the port does not serve yet (dense only)."""
-    check_full_sequence(cfg)
-    if serving_gap(cfg):
-        raise NotImplementedError(serving_gap(cfg))
 
 
 def _prefixed(prefix: str, tree: Dict[str, torch.Tensor]) -> Params:
@@ -175,13 +159,14 @@ def _hybrid_fuse(cfg, lp: Params, a_out, s_out):
     return 0.5 * (a + s)
 
 
-def _mixer(cfg, lp: Params, hn, attn_out):
-    """The layer's token mixing on ``hn = norm1(h)``: the attention output,
-    or for the hybrid family its fusion with the SSM branch on ``hn``."""
+def _mixer(cfg, lp: Params, hn, attn_out, state=None):
+    """The layer's token mixing on ``hn = norm1(h)`` -> (mix, the SSM's new
+    state or None): the attention output, or for the hybrid family its
+    fusion with the SSM branch on ``hn``, run from ``state`` (None: zero)."""
     if not cfg.hybrid_parallel_ssm:
-        return attn_out
-    s_out, _ = ssm_mod.ssm_apply(cfg, _sub(lp, "ssm"), hn)
-    return _hybrid_fuse(cfg, lp, attn_out, s_out)
+        return attn_out, None
+    s_out, st = ssm_mod.ssm_apply(cfg, _sub(lp, "ssm"), hn, state)
+    return _hybrid_fuse(cfg, lp, attn_out, s_out), st
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +179,7 @@ def layer_apply(cfg, lp: Params, h, positions, impl: str = "auto", window=None):
     family, a float32 zero otherwise."""
     hn = apply_norm(cfg, lp, "norm1", h)
     a_out = attn.attention_block(cfg, lp, hn, positions, impl=impl, window=window)
-    h, aux = _ffn(cfg, lp, h + _mixer(cfg, lp, hn, a_out))
+    h, aux = _ffn(cfg, lp, h + _mixer(cfg, lp, hn, a_out)[0])
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, aux
@@ -210,16 +195,36 @@ def _xlstm_blocks(p: Params, kind: str, i: int, n: int):
              {k: v[i, j] for k, v in cell.items()}) for j in range(n)]
 
 
-def _xlstm_stack(cfg, p: Params, h):
+def _row_update(old, new, active=None) -> None:
+    """Write the state ``new`` into ``old`` in place (NamedTuples of tensors
+    whose batch axis leads): on every row, or with ``active`` [B] on its rows
+    only, the others keeping their bits (the JAX package's ``_row_select``)."""
+    for o, n in zip(old, new):
+        if active is not None:
+            n = torch.where(active.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+        o.copy_(n)
+
+
+def _xlstm_stack(cfg, p: Params, h, cache=None, active=None):
     """Super-blocks in order; each runs its mLSTM blocks, then its sLSTM
     blocks, every block pre-normed with a residual (``_xlstm_stack`` of the
-    JAX package)."""
+    JAX package). Without ``cache`` every block starts from a zero state
+    (the forward). With one (a ``DecodeCache`` whose xLSTM leaves are
+    ``[n_super, n_per, B, ...]``) each block starts from its state there
+    and writes its final state back in place, on the rows of ``active``
+    only when given (prefill's ``_xlstm_prefill_states`` and decode's
+    ``_xlstm_decode``)."""
     n_super, n_m, n_s = _xlstm_counts(cfg)
     for i in range(n_super):
         for kind, n, apply in (("m", n_m, xlstm_mod.mlstm_apply),
                                ("s", n_s, xlstm_mod.slstm_apply)):
-            for norm, cell in _xlstm_blocks(p, kind, i, n):
-                y, _ = apply(cfg, cell, apply_norm(cfg, norm, "norm", h))
+            states = None if cache is None else (cache.xlstm_m if kind == "m"
+                                                 else cache.xlstm_s)
+            for j, (norm, cell) in enumerate(_xlstm_blocks(p, kind, i, n)):
+                st = None if states is None else type(states)(*(x[i, j] for x in states))
+                y, new = apply(cfg, cell, apply_norm(cfg, norm, "norm", h), st)
+                if st is not None:
+                    _row_update(st, new, active)
                 h = h + y
     return h
 
@@ -251,27 +256,144 @@ def loss_fn(cfg, p: Params, batch, impl: str = "auto", window=None):
 
 
 # ---------------------------------------------------------------------------
-# prefill
+# serving: the contiguous cache, decode and prefill
 # ---------------------------------------------------------------------------
 
 
 class DecodeCache(NamedTuple):
-    kv: attn.KVCache  # leaves stacked [L, B, W, ...]
+    """The contiguous decode cache of a batch of slots: KV rows (leaves
+    ``[L, B, W, ...]``) and, for the hybrid family, the SSM state
+    (``[L, B, ...]``); the xLSTM family has only its recurrent states
+    (``[n_super, n_per, B, ...]``)."""
+
+    kv: Optional[attn.KVCache]
+    ssm: Optional[ssm_mod.SSMState] = None
+    xlstm_m: Optional[xlstm_mod.MLSTMState] = None
+    xlstm_s: Optional[xlstm_mod.SLSTMState] = None
+
+
+def _stacked(state, lead):
+    """Every leaf of a state NamedTuple repeated over the axes ``lead``, each
+    in storage of its own: the cache is written in place, and leaves may
+    share a tensor (sLSTM's c and h start as one zero tensor), which an
+    expand over axes of size 1 followed by ``contiguous`` would keep."""
+    return type(state)(*(x.expand(tuple(lead) + x.shape).clone(
+        memory_format=torch.contiguous_format) for x in state))
+
+
+def init_cache(cfg, batch: int, seq_len: int, window: int = 0, device=None) -> DecodeCache:
+    """An empty ``DecodeCache`` of ``batch`` slots on ``device`` (default
+    ``cuda``): KV rows of ``seq_len`` slots, or a ring of ``window or
+    cfg.sliding_window``; zero SSM states for the hybrid family; the
+    xLSTM family's initial states."""
+    check_full_sequence(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        n_super, n_m, n_s = _xlstm_counts(cfg)
+        d = cfg.d_model
+        return DecodeCache(
+            kv=None,
+            xlstm_m=_stacked(xlstm_mod.init_mlstm_state(cfg, batch, d, device=dev), (n_super, n_m)),
+            xlstm_s=_stacked(xlstm_mod.init_slstm_state(cfg, batch, d, device=dev), (n_super, n_s)))
+    kv = attn.init_kv_cache(cfg, batch, seq_len, window=window or cfg.sliding_window,
+                            device=dev, n_layers=cfg.num_layers)
+    return DecodeCache(kv=kv, ssm=_ssm_rows(cfg, batch, dev))
+
+
+def _ssm_rows(cfg, batch: int, device):
+    """Zero SSM states of ``batch`` rows stacked ``[L, batch, ...]`` for the
+    hybrid family, None for the others."""
+    if not cfg.hybrid_parallel_ssm:
+        return None
+    st = ssm_mod.init_ssm_state(cfg, batch, cfg.d_model,
+                                dtype=getattr(torch, cfg.param_dtype), device=device)
+    return _stacked(st, (cfg.num_layers,))
+
+
+def _layer_ssm(ssm, l: int):
+    return None if ssm is None else ssm_mod.SSMState(*(x[l] for x in ssm))
+
+
+def _decode_layer(cfg, lp: Params, h, attend, ssm_l, active):
+    """One decoder layer on a one-token batch h [B, 1, d]. ``attend(hn)`` is
+    the attention sub-block against the layer's cache; the hybrid family's
+    SSM rows ``ssm_l`` advance in place on active rows; MoE layers route
+    inactive rows behind live ones (``token_mask``), so they never take an
+    expert's capacity from a live row."""
+    hn = apply_norm(cfg, lp, "norm1", h)
+    mix, new = _mixer(cfg, lp, hn, attend(hn), ssm_l)
+    if new is not None:
+        _row_update(ssm_l, new, active)
+    h, _ = _ffn(cfg, lp, h + mix, None if active is None else active[:, None])
+    return h
+
+
+def _embed_step(cfg, p: Params, token, pos):
+    """token [B] -> [B, 1, d] in the compute type, plus ``pos_embed[pos]``
+    where the config has learned positions."""
+    h = p["embed"][token.long()][:, None].to(getattr(torch, cfg.compute_dtype))
+    if cfg.learned_pos:
+        h = h + p["pos_embed"][pos.long()][:, None].to(h.dtype)
+    return h
+
+
+def decode_step(cfg, p: Params, cache: DecodeCache, token, pos, window: int = 0, unroll=1,
+                cache_update: str = "kernel", active=None):
+    """token [B], pos [B] -> (logits [B, V], cache): one token a slot against
+    the contiguous cache, which is updated in place (the returned cache is
+    ``cache``).
+
+    ``active``: optional bool [B] slot mask; inactive rows leave every
+    cache leaf (KV, SSM state, xLSTM state) bit for bit as it was and, in
+    MoE layers, never compete for expert capacity; their logits are
+    garbage the caller ignores. ``cache_update``: "mask" or an indexed
+    write (any other value, as in the JAX package: no TPU kernel touches
+    this cache). ``unroll`` is the JAX package's scan knob and is ignored.
+    """
+    del unroll
+    check_full_sequence(cfg)
+    h = _embed_step(cfg, p, token, pos)
+    if cfg.family == "ssm":
+        h = _xlstm_stack(cfg, p, h, cache, active)
+        return unembed(cfg, p, h)[:, 0], cache
+    W = window or cfg.sliding_window
+    for l, lp in enumerate(layer_params(p, cfg.num_layers)):
+        kv_l = attn.KVCache(cache.kv.k[l], cache.kv.v[l], cache.kv.pos[l])
+
+        def attend(hn):
+            return attn.decode_attention_block(cfg, lp, hn, kv_l, pos, window=W,
+                                               cache_update=cache_update, active=active)
+
+        h = _decode_layer(cfg, lp, h, attend, _layer_ssm(cache.ssm, l), active)
+    return unembed(cfg, p, h)[:, 0], cache
+
+
+def insert_cache_slot(cache: DecodeCache, one: DecodeCache, slot: int) -> DecodeCache:
+    """Admission: write one request's ``DecodeCache`` (batch 1) into row
+    ``slot`` of every leaf in place; the JAX package's one-hot ``where``
+    over all slots leaves the same bits. Returns ``cache``."""
+    if cache.kv is not None:
+        attn.insert_kv_slot(cache.kv, one.kv, slot)
+    for leaves, rows, axis in ((cache.ssm, one.ssm, 1), (cache.xlstm_m, one.xlstm_m, 2),
+                               (cache.xlstm_s, one.xlstm_s, 2)):
+        if leaves is not None:
+            for dst, src in zip(leaves, rows):
+                dst.select(axis, slot).copy_(src.select(axis, 0))
+    return cache
 
 
 def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_to: int = 0,
             unroll=1, length=None):
-    """Whole-prompt forward of a dense or MoE model -> (last-token logits
-    [B, V], DecodeCache).
+    """Whole-prompt forward -> (last-token logits [B, V], DecodeCache).
 
     ``impl`` picks the attention, as in :func:`forward`. ``window``: ring
     size of the cache, ``W = window or cfg.sliding_window``, so a
     full-attention model can prefill into a ``window``-slot ring for ring
     decode, as in the JAX package. ``pad_to``: full-attention cache
     capacity. ``length``: optional int [B] true prompt lengths of
-    right-padded prompts (full attention only): logits come from position
-    length-1 and padded cache slots get pos -1. ``unroll`` is the JAX
-    package's scan-unrolling compile knob and is ignored here.
+    right-padded prompts (full-attention KV-only models): logits come from
+    position length-1 and padded cache slots get pos -1. ``unroll`` is the
+    JAX package's scan-unrolling compile knob and is ignored here.
 
     Attention applies ``window``, or the config's sliding window when it
     is 0, as the JAX package's ``forward`` does. (The JAX ``prefill``
@@ -279,15 +401,18 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_t
     the config's window, ROADMAP.md P1/R1; for S <= W the two agree.)
     MoE layers route the padded tokens behind live ones (``token_mask``),
     so padding never displaces a live token; the capacity still counts the
-    padded tokens, as in the JAX package. The hybrid and xLSTM families
-    raise: their recurrent caches come with their decode (ROADMAP.md A15).
+    padded tokens, as in the JAX package. The hybrid family's cache holds
+    each layer's final SSM state beside its KV rows; the xLSTM family's
+    holds only its blocks' final states (it takes no ``pad_to``). The
+    recurrent families prefill at the exact prompt length: their states
+    would absorb padding.
     """
     del unroll
     check_full_sequence(cfg)
-    if cfg.family == "ssm" or cfg.hybrid_parallel_ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: prefill of family={cfg.family!r} is not ported yet (ROADMAP.md "
-            "A15: the hybrid/xLSTM recurrent caches come with their decode)")
+    if length is not None and (cfg.family == "ssm" or cfg.hybrid_parallel_ssm):
+        raise ValueError(
+            "prefill(length=) needs a KV-only cache; recurrent families "
+            "must prefill at the exact prompt length")
     W = window or cfg.sliding_window
     if length is not None and W:
         raise ValueError(
@@ -296,20 +421,28 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_t
             "tokens — prefill SWA models at the exact prompt length")
     h = embed_tokens(cfg, p, batch)
     B, S = h.shape[:2]
+    if cfg.family == "ssm":  # the blocks' final states, captured
+        cache = init_cache(cfg, B, S, device=h.device)
+        h = _xlstm_stack(cfg, p, h, cache)
+        return unembed(cfg, p, h[:, -1:])[:, 0], cache
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     # pad tokens must not compete for MoE expert capacity
     live = None if length is None else (
         positions[None, :].long() < length.to(h.device).long()[:, None])
-    ks, vs, ps_ = [], [], []
+    ks, vs, ps_, ssm = [], [], [], []
     for lp in layer_params(p, cfg.num_layers):
         hn = apply_norm(cfg, lp, "norm1", h)
         kv = attn.prefill_kv_cache(cfg, lp, hn, positions, window=W, pad_to=pad_to)
-        h, _ = _ffn(cfg, lp, h + attn.attention_block(cfg, lp, hn, positions, impl=impl,
-                                                      window=window or None), live)
+        mix, st = _mixer(cfg, lp, hn, attn.attention_block(cfg, lp, hn, positions, impl=impl,
+                                                           window=window or None))
+        if st is not None:
+            ssm.append(st)
+        h, _ = _ffn(cfg, lp, h + mix, live)
         ks.append(kv.k)
         vs.append(kv.v)
         ps_.append(kv.pos)
     kv = attn.KVCache(torch.stack(ks), torch.stack(vs), torch.stack(ps_))
+    ssm_st = ssm_mod.SSMState(*(torch.stack(x) for x in zip(*ssm))) if ssm else None
     if length is None:
         logits = unembed(cfg, p, h[:, -1:])[:, 0]
     else:
@@ -318,7 +451,7 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_t
         logits = unembed(cfg, p, last)[:, 0]
         kv = kv._replace(pos=torch.where(kv.pos < length[None, :, None], kv.pos,
                                          torch.full_like(kv.pos, -1)))
-    return logits, DecodeCache(kv=kv)
+    return logits, DecodeCache(kv=kv, ssm=ssm_st)
 
 
 # ---------------------------------------------------------------------------
@@ -329,35 +462,50 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_t
 class PagedDecodeCache(NamedTuple):
     """KV pool shared by every slot, leaves stacked [L, n_pages, page_size,
     Hkv, hd]. One page id addresses the same page in every layer, so the
-    host-owned page table is passed per dispatch, not stored here."""
+    host-owned page table is passed per dispatch, not stored here. The
+    hybrid family keeps each slot's SSM state dense beside it ([L, n_slots,
+    ...]): recurrent state has nothing to page."""
 
     kv: attn.PagedKVPool
+    ssm: Optional[ssm_mod.SSMState] = None
 
 
 def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
                      device=None) -> PagedDecodeCache:
-    check_serving(cfg)
-    return PagedDecodeCache(kv=attn.init_paged_kv_pool(
-        cfg, n_pages, page_size, resolve_device(device), n_layers=cfg.num_layers))
+    """A pool of ``n_pages * page_size`` KV rows for ``n_slots`` slots on
+    ``device`` (default ``cuda``). The xLSTM family has no KV to page and
+    raises, as in the JAX package."""
+    check_full_sequence(cfg)
+    if cfg.family == "ssm":
+        raise ValueError(
+            f"{cfg.name}: family='ssm' keeps O(1) recurrent state per slot "
+            "— there is no KV cache to page; use init_cache/decode_step")
+    dev = resolve_device(device)
+    return PagedDecodeCache(
+        kv=attn.init_paged_kv_pool(cfg, n_pages, page_size, dev, n_layers=cfg.num_layers),
+        ssm=_ssm_rows(cfg, n_slots, dev))
 
 
 def paged_decode_step(cfg, p: Params, cache: PagedDecodeCache, page_table,
                       token, pos, window: int = 0, cache_update: str = "kernel",
                       active=None):
-    """token [B], pos [B], page_table [B, P] int32 -> (logits [B, V], cache).
-    The pool is updated in place (the returned cache is ``cache``);
-    inactive rows write nothing and their logits are garbage."""
-    check_serving(cfg)
-    h = p["embed"][token.long()][:, None].to(getattr(torch, cfg.compute_dtype))  # [B, 1, d]
-    if cfg.learned_pos:
-        h = h + p["pos_embed"][pos.long()][:, None].to(h.dtype)
+    """token [B], pos [B], page_table [B, P] int32 -> (logits [B, V], cache):
+    the paged sibling of :func:`decode_step`, with its guarantees for
+    inactive rows (no KV write, SSM rows kept, no MoE capacity taken). The
+    pool and the SSM rows are updated in place (the returned cache is
+    ``cache``); inactive rows' logits are garbage."""
+    check_full_sequence(cfg)
+    h = _embed_step(cfg, p, token, pos)
     W = window or cfg.sliding_window
     for l, lp in enumerate(layer_params(p, cfg.num_layers)):
         pool = attn.PagedKVPool(cache.kv.k[l], cache.kv.v[l])
-        a_out = attn.paged_decode_attention_block(
-            cfg, lp, apply_norm(cfg, lp, "norm1", h), pool, page_table, pos,
-            window=W, cache_update=cache_update, active=active)
-        h, _ = _ffn(cfg, lp, h + a_out)
+
+        def attend(hn):
+            return attn.paged_decode_attention_block(
+                cfg, lp, hn, pool, page_table, pos, window=W, cache_update=cache_update,
+                active=active)
+
+        h = _decode_layer(cfg, lp, h, attend, _layer_ssm(cache.ssm, l), active)
     return unembed(cfg, p, h)[:, 0], cache
 
 
@@ -418,7 +566,7 @@ def paged_prefill_chunk(cfg, p: Params, cache: PagedDecodeCache, page_row, token
     :class:`KernelExtendFallbackWarning`, raised once); ``"scatter"`` and
     ``"mask"`` write as named. ``unroll`` is the JAX package's scan knob
     and is ignored. Recurrent and sliding-window configs raise, as in the
-    JAX package; families the port does not serve yet raise naming A15.
+    JAX package. MoE layers route the padding rows behind live ones.
     """
     del unroll
     if cfg.family == "ssm" or cfg.hybrid_parallel_ssm:
@@ -429,7 +577,6 @@ def paged_prefill_chunk(cfg, p: Params, cache: PagedDecodeCache, page_row, token
         raise ValueError(
             f"{cfg.name}: chunked prefill is full-attention only — the SWA "
             "ring wraps KV writes into early (possibly shared) pages")
-    check_serving(cfg)
     if cache_update == "kernel":
         warn_kernel_extend_fallback("models.transformer.paged_prefill_chunk")
     cu = extend_write(cache_update)
@@ -458,9 +605,8 @@ def insert_cache_pages(cache: PagedDecodeCache, one: DecodeCache, slot,
     allocated page is overwritten in full. ``cache_update="kernel"`` runs
     the layer-stacked insert kernel (one launch for the whole stack) for
     CUDA tensors; ``"scatter"`` its plain version; ``"mask"`` the JAX
-    package's page selector and ``where`` over the whole pool. ``slot`` is
-    unused by the dense family (hybrid models write their SSM row there)."""
-    del slot
+    package's page selector and ``where`` over the whole pool. The hybrid
+    family's SSM state lands in row ``slot`` of its dense rows."""
     ps = cache.kv.k.shape[2]
     P = page_ids.shape[0]
     cap, have = P * ps, one.kv.k.shape[2]
@@ -470,4 +616,7 @@ def insert_cache_pages(cache: PagedDecodeCache, one: DecodeCache, slot,
         k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     attn.insert_kv_pages(cache.kv, attn.KVCache(k, v, one.kv.pos), page_ids,
                          cache_update=cache_update)
+    if cache.ssm is not None:  # [L, n_slots, ...]
+        for dst, src in zip(cache.ssm, one.ssm):
+            dst[:, slot].copy_(src[:, 0])
     return cache

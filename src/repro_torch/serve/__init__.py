@@ -1,17 +1,21 @@
-"""Continuous-batching decode serving on a paged KV pool (port of
-``repro/serve``).
+"""Continuous-batching decode serving (port of ``repro/serve``).
 
 Public surface:
   * ``Request`` / ``RequestQueue`` / ``SlotTable`` / ``PageAllocator`` /
     ``PrefixCache`` — host-side bookkeeping (copied from the JAX package);
-  * ``PagedServeLoop`` — admission + paged decode + retirement;
-  * ``SamplerConfig`` / ``GREEDY`` — greedy token selection;
+  * ``ServeLoop`` — admission + decode + retirement over one contiguous
+    cache; ``PagedServeLoop`` — the same over a shared KV page pool, with
+    the front-end scheduler;
+  * ``SerialLoop`` / ``serial_generate`` — one request at a time, the
+    parity oracle of the batched loops;
+  * ``SamplerConfig`` / ``GREEDY`` — greedy or sampled token selection;
   * ``poisson_trace`` — mixed-length synthetic request traces;
   * ``ServeUnsupportedError`` — raised for models with no decode path.
 
 Run ``python -m repro_torch.serve --help`` for the command line.
 """
-from repro_torch.serve.loop import PagedServeLoop, ServeLoop, ServeUnsupportedError
+from repro_torch.serve.loop import (PagedServeLoop, SerialLoop, ServeLoop,
+                                    ServeUnsupportedError, serial_generate)
 from repro_torch.serve.sampling import GREEDY, SamplerConfig
 from repro_torch.serve.slots import (PageAllocator, PrefixCache, Request,
                                      RequestQueue, SlotTable)
@@ -25,8 +29,10 @@ __all__ = [
     "Request",
     "RequestQueue",
     "SamplerConfig",
+    "SerialLoop",
     "ServeLoop",
     "ServeUnsupportedError",
     "SlotTable",
     "poisson_trace",
+    "serial_generate",
 ]

@@ -1,25 +1,29 @@
-"""Continuous-batching decode over a shared KV page pool (port of
-``repro/serve/loop.py``: the ``ServeLoop`` base and ``PagedServeLoop`` with
-its front-end scheduler).
+"""Continuous-batching decode (port of ``repro/serve/loop.py``): the
+contiguous ``ServeLoop``, ``PagedServeLoop`` over a shared KV page pool with
+its front-end scheduler, and ``SerialLoop``, the request-at-a-time parity
+oracle.
 
-Each tick runs admit -> one paged decode step over every slot -> retire ->
-admit again (``AdmissionScheduler.tick``). Admission prefills one request
-(batch 1; full-attention prompts padded to a length bucket, SWA prompts at
-their exact length) and copies its KV rows onto freshly allocated pool
-pages; retired and never-filled slots ride along inactive and write
-nothing. With ``cache_update="kernel"`` every decode tick launches the
-paged-decode kernel once per layer, and every whole-prompt admission and
-every restore of a preempted request launches the paged-insert kernel once
-(CUDA tensors), or runs their plain versions (CPU tensors). The scheduler
-options (prefix caching, chunked prefill, preemption) and sampled decode
-are the JAX package's, with its gates and its integer behaviour.
+Each tick runs admit -> one decode step over every slot -> retire -> admit
+again (``AdmissionScheduler.tick``). Admission prefills one request (batch
+1; full-attention KV-only prompts padded to a length bucket; SWA and
+recurrent prompts at their exact length; VLM prompts with their patches)
+and writes its cache into the slot's row (``ServeLoop``) or onto freshly
+allocated pool pages (``PagedServeLoop``); retired and never-filled slots
+ride along inactive and leave every cache leaf as it was. With
+``cache_update="kernel"`` every paged decode tick launches the paged-decode
+kernel once per layer, and every whole-prompt admission and every restore
+of a preempted request launches the paged-insert kernel once (CUDA
+tensors), or runs their plain versions (CPU tensors). No TPU kernel
+touches the contiguous cache: ``ServeLoop`` writes it with "mask" or an
+indexed write, as the JAX package does. The scheduler options (prefix
+caching, chunked prefill, preemption) and sampled decode are the JAX
+package's, with its gates and its integer behaviour.
 
-Differences from the JAX loop: pools are updated in place (no donation);
+Differences from the JAX loops: caches are updated in place (no donation);
 chunk writes under ``"kernel"`` take the plain ``"scatter"`` write where
 the JAX package takes ``"mask"`` (same bits; ``stats["extend_write"]``);
-sampled streams are the port's own (``serve/sampling.py``). The contiguous
-``ServeLoop`` cache and ``SerialLoop`` (ROADMAP.md A15) and the sanitizer
-lane (A19) are not ported yet and raise ``NotImplementedError``.
+sampled streams are the port's own (``serve/sampling.py``). The sanitizer
+lane (ROADMAP.md A19) is not ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ from repro_torch import resolve_device
 from repro_torch.core.scheduler import AdmissionScheduler
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model, decode_capability
+from repro_torch.models.ssm import SSMState
 from repro_torch.models.transformer import (DecodeCache, extend_write,
-                                            insert_cache_pages,
+                                            insert_cache_pages, insert_cache_slot,
                                             warn_kernel_extend_fallback)
 from repro_torch.serve.sampling import GREEDY, SamplerConfig, make_sample_fn
 from repro_torch.serve.slots import (PageAllocator, PrefixCache, Request,
@@ -55,6 +60,31 @@ def _check_servable(model: Model):
         raise ServeUnsupportedError(why)
 
 
+def _request_batch(cfg, req: Request, tokens, device) -> dict:
+    """Prefill inputs of one request; VLM prompts must carry their patches
+    (serving them text-only would silently ignore the vision input), which
+    ride in as float32 ``[1, num_patches, vision_dim]``."""
+    if cfg.vision_dim:
+        if req.patches is None:
+            raise ServeUnsupportedError(
+                f"{cfg.name}: request {req.rid} has no `patches`; vlm "
+                "prompts need the vision input alongside tokens "
+                "(Request.patches)")
+        if req.plen < cfg.num_patches:
+            # embed_tokens splices patches in only when they fit inside the
+            # prompt; bucket padding would make the batched and serial loops
+            # disagree about whether they did
+            raise ServeUnsupportedError(
+                f"{cfg.name}: request {req.rid} prompt ({req.plen} tokens) "
+                f"is shorter than num_patches={cfg.num_patches}; the image "
+                "would be silently dropped")
+    batch = {"tokens": tokens}
+    if req.patches is not None:
+        batch["patches"] = torch.as_tensor(np.asarray(req.patches, np.float32),
+                                           device=device)[None]
+    return batch
+
+
 def _round_up(n: int, mult: int) -> int:
     return -(-n // mult) * mult
 
@@ -64,11 +94,16 @@ def _not_ported(what: str, item: str):
 
 
 class ServeLoop(AdmissionScheduler):
-    """Continuous-batching loop: admission + one decode step per tick.
+    """Continuous-batching loop over one contiguous ``DecodeCache`` of
+    ``n_slots`` rows: admission + one ``decode_step`` per tick.
 
-    The base holds the admission, fold and commit logic and the prefill;
-    the KV cache it drives is the subclass's (``PagedServeLoop``). The JAX
-    package's contiguous-cache ``ServeLoop`` is not ported yet (A15).
+    Admission writes the request's prefill cache into its slot's row in
+    place (``insert_cache_slot``); inactive rows leave every leaf (KV, SSM
+    state, xLSTM state) as it was. Greedy streams equal ``SerialLoop``'s
+    for the dense, SWA, recurrent and VLM families. MoE capacity depends
+    on which rows share a step (a static cap over the live batch), so a
+    live MoE request's stream can part from its single-request run where
+    experts overflow; retired and empty slots never influence one.
 
     Args:
       model, params: a ``Model`` and its params, on ``device``.
@@ -77,19 +112,25 @@ class ServeLoop(AdmissionScheduler):
       n_slots: decode batch rows.
       capacity: KV rows per slot for full attention (SWA models use their
         window). A request that can never fit is rejected, not fatal.
-      bucket: prompt-length rounding for full-attention prefill.
-      cache_update: "kernel" (CUDA kernels for CUDA tensors), "scatter" or
-        "mask" (the plain versions on any device; the same pool bits).
+      bucket: prompt-length rounding for full-attention KV-only prefill.
+      cache_update: "kernel", "scatter" or "mask". The paged loop's decode
+        and insert run their CUDA kernels under "kernel" (CUDA tensors) and
+        plain versions otherwise; the contiguous cache has no kernel, and
+        writes with "mask" or, for any other value, an indexed write. All
+        leave the same bits.
       sampler: ``SamplerConfig``: greedy (default) or temperature / top-k
         sampling with per-request streams of ``(seed, rid, n)``.
+      unroll: the JAX package's scan-unrolling compile knob; ignored.
+      sanitize: the JAX package's analysis lane, ROADMAP.md A19; raises.
     """
 
     def __init__(self, model: Model, params, *, device=None, n_slots: int = 8,
                  capacity: int = 256, bucket: int = 16,
-                 cache_update: str = "kernel",
-                 sampler: Optional[SamplerConfig] = None):
-        if type(self) is ServeLoop:
-            _not_ported("the contiguous-cache ServeLoop", "A15")
+                 cache_update: str = "kernel", unroll: int = 1,
+                 sampler: Optional[SamplerConfig] = None, sanitize=None):
+        del unroll
+        if sanitize:
+            _not_ported(f"{type(self).__name__}(sanitize=...), the analysis lane,", "A19")
         super().__init__()
         _check_servable(model)
         self.device = resolve_device(device)
@@ -103,20 +144,26 @@ class ServeLoop(AdmissionScheduler):
         self.cache_update = cache_update
         self.sampler = sampler or GREEDY
         self._sample = make_sample_fn(self.sampler)
-        # the SWA ring keeps the last W slots of the PADDED prompt, so SWA
-        # models prefill at the exact prompt length
-        self.exact_prefill = bool(cfg.sliding_window)
+        # exact-length prefill: recurrent state absorbs padded tokens, and
+        # the SWA ring keeps the last W slots of the PADDED prompt
+        self.exact_prefill = bool(cfg.sliding_window) or cfg.family == "ssm" \
+            or cfg.hybrid_parallel_ssm
         self.reset()
 
-    # -- subclass hooks -------------------------------------------------------
+    # -- the cache (PagedServeLoop overrides) ----------------------------------
     def _init_cache(self):
-        raise NotImplementedError
+        return self.model.init_cache(self.n_slots, self.capacity)
 
     def _insert_request(self, slot: int, req: Request, one):
-        raise NotImplementedError
+        insert_cache_slot(self.cache, one, slot)
 
     def _decode_logits(self):
-        raise NotImplementedError
+        table = self.table
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache, self._t(table.last_tok, torch.int32),
+            self._t(table.pos, torch.int32), cache_update=self.cache_update,
+            active=self._t(table.active, torch.bool))
+        return logits
 
     def reset(self):
         """Fresh slot table and cache."""
@@ -152,11 +199,11 @@ class ServeLoop(AdmissionScheduler):
             min(_round_up(plen, self.bucket), self.capacity)
         toks = np.zeros((1, padded), np.int32)
         toks[0, :plen] = req.tokens
-        kw = {"pad_to": self.capacity}
+        kw = {} if self.cfg.family == "ssm" else {"pad_to": self.capacity}
         if not self.exact_prefill:
             kw["length"] = self._t([plen], torch.int32)
-        logits, one = self.model.prefill(
-            self.params, {"tokens": self._t(toks, torch.int32)}, **kw)
+        batch = _request_batch(self.cfg, req, self._t(toks, torch.int32), self.device)
+        logits, one = self.model.prefill(self.params, batch, **kw)
         rid = self._t([req.rid], torch.int32)
         first = self._sample(logits, rid, torch.zeros_like(rid))
         self.prefill_dispatches += 1
@@ -287,6 +334,7 @@ class _Preempted:
     req: Request
     k: torch.Tensor  # [L, pages, page_size, Hkv, hd] on the host
     v: torch.Tensor
+    ssm: Optional[SSMState]  # the hybrid family's SSM row [L, ...] on the host
     pages: int  # allocated pages to re-acquire on restore
 
 
@@ -317,10 +365,13 @@ class PagedServeLoop(ServeLoop):
         and restored with priority once pages free up.
 
     prefix_cache / prefill_chunk need full attention (the SWA ring wraps
-    decode writes into early, possibly shared, pages); preemption alone
-    works for SWA too. ``unroll`` is the JAX package's scan-unrolling
-    compile knob and is ignored. ``sanitize`` (the JAX package's analysis
-    lane) is ROADMAP.md A19 and raises.
+    decode writes into early, possibly shared, pages), KV-only models
+    (recurrent carries do not live in pool pages) and text-only prompts;
+    preemption works for every paged family (the hybrid family's SSM row is
+    staged beside its pages). The xLSTM family has no KV to page: it is
+    served by ``ServeLoop``. ``unroll`` is the JAX package's
+    scan-unrolling compile knob and is ignored. ``sanitize`` (the JAX
+    package's analysis lane) is ROADMAP.md A19 and raises.
     """
 
     def __init__(self, model: Model, params, *, device=None, n_slots: int = 8,
@@ -330,11 +381,13 @@ class PagedServeLoop(ServeLoop):
                  sampler: Optional[SamplerConfig] = None,
                  prefix_cache: bool = False, prefill_chunk: Optional[int] = None,
                  preempt: bool = False, preempt_after: int = 2, sanitize=None):
-        del unroll
-        if sanitize:
-            _not_ported("PagedServeLoop(sanitize=...), the analysis lane,", "A19")
         _check_servable(model)
         cfg = model.config
+        if cfg.family == "ssm" or model.init_paged_cache is None:
+            raise ServeUnsupportedError(
+                f"{cfg.name}: family={cfg.family!r} keeps O(1) recurrent "
+                "state per slot — there is no KV cache to page; use the "
+                "contiguous ServeLoop")
         self.page_size = page_size
         W = cfg.sliding_window
         self.pages_per_slot = -(-(W if W else capacity) // page_size)
@@ -368,8 +421,8 @@ class PagedServeLoop(ServeLoop):
                 warn_kernel_extend_fallback("serve.PagedServeLoop")
         self.extend_write = extend_write(cache_update) if self._use_extend else None
         super().__init__(model, params, device=device, n_slots=n_slots,
-                         capacity=capacity, bucket=bucket,
-                         cache_update=cache_update, sampler=sampler)
+                         capacity=capacity, bucket=bucket, cache_update=cache_update,
+                         unroll=unroll, sampler=sampler, sanitize=sanitize)
 
     def _init_cache(self):
         self.allocator = PageAllocator(self.n_pages, self.page_size)
@@ -529,35 +582,40 @@ class PagedServeLoop(ServeLoop):
         return evicted
 
     def _evict(self, slot: int):
-        """Preempt a live slot: copy its allocated pool pages to the host
-        before they are freed (the pool is updated in place, and a later
-        admission may overwrite them), unbind the slot, free the pages. (The
-        JAX loop stages the whole row, -1 entries included, for a static
-        shape; the rows it restores are these.)"""
+        """Preempt a live slot: copy its allocated pool pages (and the hybrid
+        family's SSM row) to the host before they are freed (the pool is
+        updated in place, and a later admission may overwrite them), unbind
+        the slot, free the pages. (The JAX loop stages the whole row, -1
+        entries included, for a static shape; the rows it restores are
+        these.)"""
         row = self.page_table[slot].copy()
         ids = self._t(row[row >= 0], torch.int64)  # a slot's pages lead its row
+        ssm = self.cache.ssm
         self._preempted.append(_Preempted(
             req=self.table.evict(slot),
             k=self.cache.kv.k.index_select(1, ids).cpu(),
             v=self.cache.kv.v.index_select(1, ids).cpu(),
+            ssm=None if ssm is None else SSMState(*(x[:, slot].cpu() for x in ssm)),
             pages=int(ids.numel())))
         self.allocator.free(row)
         self.page_table[slot] = -1
         self.preemptions += 1
 
     def _restore(self, slot: int, ent: _Preempted):
-        """Re-admit a preempted request: fresh pages, the staged rows written
-        back verbatim through ``insert_cache_pages`` (the paged-insert
-        kernel under ``"kernel"``), the slot rebound."""
+        """Re-admit a preempted request: fresh pages, the staged rows (and SSM
+        row) written back verbatim through ``insert_cache_pages`` (the
+        paged-insert kernel under ``"kernel"``), the slot rebound."""
         ids = self.allocator.alloc(ent.pages)
         if ids is None:
             raise RuntimeError("restore raced the page allocator")
         self._bind_pages(slot, ids)
         L, P, ps, Hkv, hd = ent.k.shape
-        one = DecodeCache(kv=KVCache(
-            k=ent.k.to(self.device).reshape(L, 1, P * ps, Hkv, hd),
-            v=ent.v.to(self.device).reshape(L, 1, P * ps, Hkv, hd),
-            pos=torch.zeros((L, 1, P * ps), dtype=torch.int32, device=self.device)))
+        one = DecodeCache(
+            kv=KVCache(k=ent.k.to(self.device).reshape(L, 1, P * ps, Hkv, hd),
+                       v=ent.v.to(self.device).reshape(L, 1, P * ps, Hkv, hd),
+                       pos=torch.zeros((L, 1, P * ps), dtype=torch.int32, device=self.device)),
+            ssm=None if ent.ssm is None else SSMState(
+                *(x.to(self.device)[:, None] for x in ent.ssm)))
         insert_cache_pages(self.cache, one, slot, self._t(ids, torch.int32),
                            cache_update=self.cache_update)
         self.table.rebind(slot, ent.req)
@@ -661,3 +719,76 @@ class PagedServeLoop(ServeLoop):
             extend_s=self.extend_s,
             extend_write=self.extend_write,
         )
+
+
+# ---------------------------------------------------------------------------
+# request-at-a-time baseline
+# ---------------------------------------------------------------------------
+
+
+class SerialLoop:
+    """One request at a time: prefill [1, plen], then ``decode_step`` with
+    batch 1 until EOS or ``max_new``. The parity oracle of the batched
+    loops: their greedy streams must equal its streams token for token (and
+    sampled ones too: the streams depend only on ``(seed, rid, n)``).
+
+    ``capacity``: one KV capacity for every request; None sizes each
+    request's cache exactly (``plen + max_new - 1``). A request that does
+    not fit raises here (the oracle's semantics; the batched loops reject
+    it and keep serving).
+    """
+
+    def __init__(self, model: Model, params, *, device=None, capacity: Optional[int] = None,
+                 cache_update: str = "kernel", unroll: int = 1,
+                 sampler: Optional[SamplerConfig] = None):
+        del unroll
+        _check_servable(model)
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model is on {model.device}, loop on {self.device}")
+        self.model, self.params, self.cfg = model, params, model.config
+        self.capacity, self.cache_update = capacity, cache_update
+        self.sampler = sampler or GREEDY
+        self._sample = make_sample_fn(self.sampler)
+
+    def _t(self, x, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def run(self, requests: Sequence[Request]) -> Dict:
+        t0 = time.perf_counter()
+        steps = 0
+        for req in requests:
+            cap = self.capacity or (req.plen + req.max_new - 1)
+            if req.plen + req.max_new - 1 > cap and not self.cfg.sliding_window:
+                # pos % W would wrap the full-attention cache and overwrite
+                # live prompt KV
+                raise ValueError(
+                    f"request {req.rid}: plen {req.plen} + max_new "
+                    f"{req.max_new} exceeds cache capacity {cap}")
+            batch = _request_batch(self.cfg, req, self._t(req.tokens[None, :]), self.device)
+            kw = {} if self.cfg.family == "ssm" else {"pad_to": cap}
+            logits, cache = self.model.prefill(self.params, batch, **kw)
+            rid = self._t([req.rid])
+            req.out.append(int(self._sample(logits, rid, torch.zeros_like(rid))[0]))
+            pos = req.plen
+            while not req.finished():
+                logits, cache = self.model.decode_step(
+                    self.params, cache, self._t(req.out[-1:]), self._t([pos]),
+                    cache_update=self.cache_update)
+                req.out.append(int(self._sample(logits, rid, self._t([len(req.out)]))[0]))
+                pos += 1
+                steps += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        toks = sum(len(r.out) for r in requests)
+        return dict(wall_s=wall, ticks=steps, tokens=toks, tok_s=toks / max(wall, 1e-9),
+                    decode_dispatches=steps, prefill_dispatches=len(requests))
+
+
+def serial_generate(model: Model, params, requests: Sequence[Request], *, device=None,
+                    capacity: Optional[int] = None, cache_update: str = "kernel",
+                    unroll: int = 1, sampler: Optional[SamplerConfig] = None) -> Dict:
+    """Build a ``SerialLoop`` and drive ``requests`` through it."""
+    return SerialLoop(model, params, device=device, capacity=capacity,
+                      cache_update=cache_update, unroll=unroll, sampler=sampler).run(requests)

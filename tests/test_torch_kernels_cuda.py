@@ -162,7 +162,7 @@ def test_decode_raises_on_shapes_the_kernel_cannot_take(cuda):
     launch."""
     pt = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
-    for Hq, Hkv, hd, ps in ((4, 2, 80, 16), (34, 2, 128, 16), (4, 2, 128, 64)):
+    for Hq, Hkv, hd, ps in ((4, 2, 80, 16), (34, 2, 128, 16), (4, 2, 128, 64), (68, 4, 96, 16)):
         q = torch.zeros(2, Hq, hd, device=cuda)
         pool = torch.zeros(3, ps, Hkv, hd, device=cuda)
         new = torch.zeros(2, Hkv, hd, device=cuda)
@@ -170,6 +170,94 @@ def test_decode_raises_on_shapes_the_kernel_cannot_take(cuda):
         with pytest.raises(ValueError):
             pa_ops.paged_decode_attention(q, pool, pool.clone(), new, new.clone(), pt, pos)
         assert pa_ops.launches["paged_decode"] == before
+
+
+# (G, Hkv, window, P): phi-3-vision's G 1 on a short table (one split) and
+# a long one (the wrapper splits the walk), and G 4 with a window that the
+# ring of slot 3 has wrapped
+HD96_CASES = [(1, 4, 0, 4), (1, 4, 0, 128), (4, 2, 48, 8), (4, 2, 48, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Hkv,window,P", HD96_CASES)
+def test_decode_hd96_matches_plain_on_card(cuda, dtype, G, Hkv, window, P):
+    """The head-dim-96 instance (a bf16 lane slice is three 8-byte vectors,
+    a float32 one three 16-byte vectors): an inactive slot, an unallocated
+    page inside a live range, pools bitwise, outputs within the bars, two
+    launches on fresh clones bitwise equal."""
+    B, hd, ps = 4, 96, 16
+    arrs, pt = _scenario(960 + G + window + P, B, G * Hkv, Hkv, hd, B * P + 3, P, ps)
+    pt[2, 1] = -1
+    cap = min(P * ps, window) if window else P * ps
+    pos = torch.tensor([3, cap // 2, cap - 1, 5 * cap + 7 if window else cap - 9],
+                       dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, False, True, True], device=cuda)
+    dev = [torch.from_numpy(a).to(cuda, dtype) for a in arrs]
+    ptd = torch.from_numpy(pt).to(cuda)
+    outs, pools = [], []
+    for _ in range(2):
+        ker = [t.clone() for t in dev]
+        before = pa_ops.launches["paged_decode"]
+        outs.append(pa_ops.paged_decode_attention(*ker, ptd, pos, window=window,
+                                                  active=active))
+        assert pa_ops.launches["paged_decode"] == before + 1
+        pools.append(ker[1:3])
+    pln = [t.clone() for t in dev]
+    o_p = tref.paged_decode_attention(*pln, ptd, pos, active, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    for kp, vp in pools:
+        assert torch.equal(kp, pln[1]) and torch.equal(vp, pln[2])
+    assert bool(torch.isfinite(outs[0].float()).all())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(outs[0][active].float(), o_p[active].float(), atol=tol,
+                               rtol=tol)
+
+
+def test_decode_hd96_occupancy_from_the_kernel_on_card(cuda):
+    """The hd-96 instance's shared memory from the kernel's C side: four
+    warps' double K/V page buffers, 48 KB in bf16 and 96 KB in float32 at
+    page size 16, and at least one block an SM in both."""
+    index = torch.cuda.current_device()
+    for dtype, el in ((torch.bfloat16, 2), (torch.float32, 4)):
+        smem, blocks = pa_ops.decode_occupancy(dtype, 96, 1, 16, index)
+        assert smem == 4 * 4 * 16 * 96 * el and blocks >= 1
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "hymba-1.5b"])
+def test_paged_tick_of_the_new_families_on_card(cuda, arch):
+    """Reduced phi-3-vision widened to its head dim 96 (with patches) and
+    reduced Hymba (window, SSM rows) in float32: whole PagedServeLoop ticks
+    under "kernel", decode launched L times a tick and insert once an
+    admission; streams equal those of the plain versions ("scatter")."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import PagedServeLoop, poisson_trace
+
+    cfg = get_arch(arch).reduced()
+    if cfg.vision_dim:
+        cfg = dataclasses.replace(cfg, d_model=192, num_heads=2, num_kv_heads=2, head_dim=96,
+                                  d_ff=384)
+    model = build_model(cfg, device=cuda)
+    params = model.init(0)
+    trace = poisson_trace(5, rate=2.0, plen_choices=(8, 20, 40), max_new_choices=(6, 12),
+                          vocab_size=cfg.vocab_size, seed=4)
+    if cfg.vision_dim:
+        r = np.random.RandomState(5)
+        for q in trace:
+            q.patches = r.randn(cfg.num_patches, cfg.vision_dim).astype(np.float32)
+    outs = {}
+    for cu in ("scatter", "kernel"):
+        reqs = [r.clone() for r in trace]
+        pa_ops.reset_launches()
+        stats = PagedServeLoop(model, params, device=cuda, n_slots=3, capacity=64,
+                               page_size=16, cache_update=cu).run(reqs)
+        outs[cu] = [r.out for r in reqs]
+    assert pa_ops.launches["paged_decode"] == cfg.num_layers * stats["decode_dispatches"] > 0
+    assert pa_ops.launches["paged_insert"] == stats["prefill_dispatches"] == len(trace)
+    assert outs["kernel"] == outs["scatter"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

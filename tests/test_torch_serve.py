@@ -113,52 +113,35 @@ def test_paged_serve_loop_greedy_streams_match_jax(arch, trace_kw, loop_kw):
 
 
 def test_not_ported_parts_raise_naming_the_roadmap():
+    """What the port still refuses: whisper's decode (for the JAX package's
+    reason), the xLSTM family on the page pool (no KV to page, in the JAX
+    package's words) and the analysis lane (A19). Serving the other
+    families is held against the JAX package in
+    tests/test_torch_serve_families.py."""
     from dataclasses import replace
 
-    from repro_torch.models.model import build_model
-    from repro_torch.serve import ServeLoop
+    from repro.models.model import decode_capability as jax_decode_capability
+    from repro_torch.models.model import build_model, decode_capability
+    from repro_torch.serve import SerialLoop, ServeLoop
 
     model = torch_build("starcoder2-3b", reduced=True, device="cpu")
     params = model.init(0)
-    # the MoE, hybrid and xLSTM families run forward, loss and (MoE) prefill,
-    # but serving them, and the recurrent families' prefill, is A15
-    for arch in ("granite-moe-1b-a400m", "hymba-1.5b", "xlstm-1.3b"):
-        other = torch_build(arch, reduced=True, device="cpu")
-        oparams = other.init(0)
-        with pytest.raises(NotImplementedError, match="A15"):
-            other.init_paged_cache(2, 8, 8)
-        with pytest.raises(NotImplementedError, match="A15"):
-            other.paged_decode_step(oparams, None, torch.zeros(1, 1, dtype=torch.int32),
-                                    torch.zeros(1, dtype=torch.int32),
-                                    torch.zeros(1, dtype=torch.int32))
-        with pytest.raises(ServeUnsupportedError, match="A15"):
-            PagedServeLoop(other, oparams, device="cpu")
-        if arch != "granite-moe-1b-a400m":
-            with pytest.raises(NotImplementedError, match="A15"):
-                other.prefill(oparams, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-    # whisper builds (A13c) and has no decode, for the JAX package's reason;
-    # serving phi-3 waits for A15
-    from repro.models.model import decode_capability as jax_decode_capability
-    from repro_torch.models.model import decode_capability
-
     whisper = torch_build("whisper-medium", reduced=True, device="cpu")
     ok, why = decode_capability(whisper)
     assert not ok and (ok, why) == jax_decode_capability(jax_build("whisper-medium", reduced=True))
-    with pytest.raises(ServeUnsupportedError, match="448-token"):
-        PagedServeLoop(whisper, whisper.init(0), device="cpu")
-    phi3 = torch_build("phi-3-vision-4.2b", reduced=True, device="cpu")
-    assert decode_capability(phi3)[0] is False
-    with pytest.raises(NotImplementedError, match="A15"):
-        phi3.init_paged_cache(2, 8, 8)
-    with pytest.raises(ServeUnsupportedError, match="A15.*head dim"):
-        PagedServeLoop(phi3, phi3.init(0), device="cpu")
+    for loop_cls in (PagedServeLoop, ServeLoop, SerialLoop):
+        with pytest.raises(ServeUnsupportedError, match="448-token"):
+            loop_cls(whisper, whisper.init(0), device="cpu")
     assert build_model(replace(model.config, family="audio", encoder_layers=2, encoder_seq=16,
                                frontend_dim=model.config.d_model), device="cpu").prefill
-    # the contiguous cache's loop is A15, the analysis lane A19
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-        ServeLoop(model, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A19"):
-        PagedServeLoop(model, params, device="cpu", sanitize=True)
+    xlstm = torch_build("xlstm-1.3b", reduced=True, device="cpu")
+    with pytest.raises(ServeUnsupportedError, match="no KV cache to page"):
+        PagedServeLoop(xlstm, xlstm.init(0), device="cpu")
+    with pytest.raises(ValueError, match="no KV cache to page"):
+        xlstm.init_paged_cache(2, 8, 8)
+    for loop_cls in (PagedServeLoop, ServeLoop):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A19"):
+            loop_cls(model, params, device="cpu", sanitize=True)
 
 
 @pytest.mark.parametrize("kw", [

@@ -295,7 +295,9 @@ def test_inactive_slot_at_capacity_writes_nothing():
 
 def test_extend_gates_match_jax(qwen):
     """tests/test_serve_sched.py::test_extend_gates on both packages, plus
-    the port's own: sanitize names A19, the model function's gates."""
+    the port's own: sanitize names A19, the model function's gates (the
+    MoE chunk itself is held against the JAX package in
+    tests/test_torch_serve_families.py)."""
     jm, jp, tm, tp = qwen
     jswa = jax_build("starcoder2-3b", reduced=True)
     tswa = torch_build("starcoder2-3b", reduced=True, device="cpu")
@@ -317,9 +319,9 @@ def test_extend_gates_match_jax(qwen):
     hymba = torch_build("hymba-1.5b", reduced=True, device="cpu")
     with pytest.raises(ValueError, match="recurrent"):
         hymba.paged_prefill_chunk(None, None, row, toks, 0, 4)
-    moe = torch_build("granite-moe-1b-a400m", reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        moe.paged_prefill_chunk(None, None, row, toks, 0, 4)
+    xlstm = torch_build("xlstm-1.3b", reduced=True, device="cpu")
+    with pytest.raises(ValueError, match="recurrent"):
+        xlstm.paged_prefill_chunk(None, None, row, toks, 0, 4)
     with pytest.raises(ValueError, match="cache_update"):
         PagedServeLoop(tm, tp, device="cpu", cache_update="pallas")
 
@@ -462,7 +464,7 @@ def test_cli_runs_the_scheduler_and_sampler(capsys):
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", transformer.KernelExtendFallbackWarning)
-        main(["--device", "cpu", "--reduced", "--arch", "qwen1.5-32b", "--prefix-cache",
+        main(["--device", "cpu", "--reduced", "--arch", "qwen1.5-32b", "--paged", "--prefix-cache",
               "--prefill-chunk", "16", "--preempt", "--temperature", "0.7", "--top-k", "8",
               "--requests", "6", "--rate", "0.5", "--plens", "16,32", "--max-new", "4,8",
               "--prefix-families", "2", "--prefix-len", "32", "--burst-mult", "2"])
