@@ -181,6 +181,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``capacity_factor=100``): paged, contiguous and serial greedy streams
      identical, the step check in float32.
 
+ 14. partial participation and the prototype — the paper's CNN
+     experiment with cohorts (phase 6's data and settings over 20 clients,
+     5 a round as benchmarks/controller_driver.py draws them, stats decay
+     0.9, 40 rounds of FedVeca on the device data path): exactly 80 vecavg
+     launches, every row's cohort 5 sorted distinct ids, taus in [2, 50],
+     finite losses, the test loss every 10 rounds, ms a round, peak GB;
+     from one state a cohort
+     round through the kernel reduce and the plain tree reduce (cuDNN
+     deterministic), a cohort of all 20 against no cohort (1e-7), and a
+     cohort round on the card against the port's CPU path. Qwen1.5-0.5B
+     widths over phase 9's 4 LM clients, 2 a round, 2 rounds: vecavg 2 a
+     round and rmsnorm one launch a norm call for the vmapped cohort, ms a
+     round, peak GB. The message-passing prototype (``fed/prototype.py``)
+     on phase 6's 5 clients: 5 rounds of the batched and the serial fabric
+     in lockstep under ``strict_fp32()`` (each round from one server state:
+     taus equal, an A_min client's 19-or-20 floor excepted; params within
+     ``PROTO_PARAMS_ATOL``; bytes both ways equal to the count from the
+     parameter bytes; vecavg 2 a round in each), ms a round of each; then 3
+     batched rounds under int8 and top-1000 codecs, uplink bytes equal to
+     the codec's payload count.
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
 last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -208,10 +228,12 @@ from repro_torch import strict_fp32  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.core.controller import ControllerConfig, ControllerCore  # noqa: E402
 from repro_torch.core.engine import EngineConfig, RoundEngine  # noqa: E402
+from repro_torch.core.wire import make_codec  # noqa: E402
 from repro_torch.data.device import DeviceShards, host_stacked_batches  # noqa: E402
 from repro_torch.data.partition import partition_case3  # noqa: E402
 from repro_torch.data.synthetic import Dataset, make_classification, make_lm_tokens  # noqa: E402
 from repro_torch.fed import FederatedSimulator, FedSimConfig, fair_fixed_tau  # noqa: E402
+from repro_torch.fed.prototype import FedVecaClient, FedVecaServer  # noqa: E402
 from repro_torch.fed.train_lm import lm_config  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -300,6 +322,25 @@ ROUND_PARAMS_ATOL = 1e-6
 # windows; the round-step bars of the CPU tests against the JAX package
 # (params 1e-6) scaled by ten for the accumulation over the local steps.
 CARD_CPU_PARAMS_ATOL = 1e-5
+# Phase 14: partial participation (benchmarks/controller_driver.py's
+# _setup: C // 4 of 20 clients a round) on phase 6's data and settings
+COHORT = dict(clients=20, cohort=5, stats_decay=0.9)
+# A cohort of every client against the round without one, same state and
+# batches (tests/test_round_engine.py's bar): only the renormalised weights
+# p / sum(p) differ, by an ulp.
+COHORT_FULL_ATOL = 1e-7
+# The LM cohort round: Qwen1.5-0.5B widths over phase 9's 4 clients, 2 a
+# round (the 2 vmapped clients phase 9 fits in 80 GB)
+LM_COHORT = dict(clients=4, cohort=2, rounds=2)
+# The message-passing prototype on phase 6's clients: rounds of each fabric,
+# then batched rounds under each lossy codec
+PROTO = dict(rounds=5, wires=("int8", "topk:1000"), wire_rounds=3)
+# The prototype's batched fabric against its serial one, one round from one
+# server state under strict_fp32() and deterministic cuDNN: the fabrics
+# convolve batches of 5 x 32 and of 32 samples, so cuDNN may sum in other
+# orders. The card gave at most 1.49e-8 a round over 5 rounds (PERF.md
+# §6); the bar leaves a factor of ~7.
+PROTO_PARAMS_ATOL = 1e-7
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REBUILT = ("flash_attention", "paged_attention", "rmsnorm", "vecavg")  # ptxas reports phase 2 prints
 # Flash kernel vs its plain version: the JAX package's kernel-vs-oracle
@@ -1165,13 +1206,13 @@ def phase_profile(loop, reqs, n_ticks=8, tag="profile", start=24):
 # ---------------------------------------------------------------------------
 
 
-def fed_data():
-    """benchmarks/common.build_clients("cnn-cifar10", case 3, 5, FULL)."""
+def fed_data(n_clients=FED["clients"]):
+    """benchmarks/common.build_clients("cnn-cifar10", case 3, n_clients, FULL)."""
     kw = dict(sep=0.8, noise=0.5)
     orig = make_classification(FED["n_train"], (32, 32, 3), 10, seed=0, **kw)
     test = make_classification(FED["n_test"], (32, 32, 3), 10, seed=1, **kw)
     clients = [Dataset(orig.x[s], orig.y[s])
-               for s in partition_case3(orig.y, FED["clients"], 0)]
+               for s in partition_case3(orig.y, n_clients, 0)]
     return clients, test
 
 
@@ -3342,6 +3383,277 @@ def dense_contiguous(model, params, dev, paged_reqs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. partial participation and the message-passing prototype
+# ---------------------------------------------------------------------------
+
+
+def _weights(clients):
+    p = np.array([len(c) for c in clients], np.float64)
+    return (p / p.sum()).astype(np.float32)
+
+
+def phase_cohort(dev):
+    """The paper's CNN experiment with partial participation: 20 clients,
+    5 a round, 40 rounds of FedVeca on the device data path."""
+    model = build_model_by_name(FED["model"], device=dev)
+    clients, test = fed_data(COHORT["clients"])
+    cfg = fed_cfg("fedveca", cohort_size=COHORT["cohort"], stats_decay=COHORT["stats_decay"])
+    FederatedSimulator(model, clients, fed_cfg("fedveca", rounds=2, cohort_size=COHORT["cohort"]),
+                       test).run()  # warm-up, not counted
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    va_ops.reset_launches()
+    log, out = run_mode(model, clients, test, cfg)
+    launches = va_ops.launches["vecavg"]
+    want = 2 * FED["rounds"]
+    require(launches == want, f"[cohort] vecavg launched {launches} times, expected {want}")
+    for r in log.rows:
+        ids = np.asarray(r["cohort"])
+        require(ids.shape == (COHORT["cohort"],) and np.all(np.diff(ids) > 0)
+                and ids.min() >= 0 and ids.max() < COHORT["clients"],
+                f"[cohort] round {r['round']}: cohort {ids.tolist()}")
+    taus = np.stack(log.column("tau"))
+    require(taus.min() >= 2 and taus.max() <= FED["tau_max"],
+            f"[cohort] taus in [{taus.min()}, {taus.max()}]")
+    # The test loss is printed, not required to fall: with 5 of 20 Case-3
+    # clients a round it ends within a few 1e-3 of round 0's after 40
+    # rounds, above it in two of three card runs (PERF.md §6).
+    out["test_loss_every_10"] = [float(v) for v in log.column("test_loss")[::10]]
+    out.update(config=dict(FED, **COHORT), launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               cohorts_first=[r["cohort"] for r in log.rows[:3]],
+               taus_last=log.rows[-1]["tau"])
+    print(f"[cohort] {FED['rounds']} rounds of {COHORT['cohort']} of {COHORT['clients']} clients: "
+          f"{out['ms_per_round']:.1f} ms a round, peak {out['peak_mem_gb']:.2f} GB, vecavg "
+          f"{launches} launches, test loss {out['first_test_loss']:.4f} -> "
+          f"{out['final_test_loss']:.4f} (every 10 rounds "
+          f"{[round(v, 4) for v in out['test_loss_every_10']]})")
+    print(f"[cohort] {json.dumps(out)}")
+    out["checks"] = phase_cohort_checks(dev, model, clients, log.params)
+    return out
+
+
+def phase_cohort_checks(dev, model, clients, params):
+    """From one state: a cohort round through the kernel reduce and through
+    the plain tree reduce; a cohort of every client against no cohort; one
+    cohort round on the card against the port's CPU path."""
+    C, T, Bt = len(clients), FED["tau_max"], FED["batch"]
+    p = _weights(clients)
+    rng = np.random.default_rng(7)
+    cohorts = [np.sort(rng.choice(C, COHORT["cohort"], replace=False)).astype(np.int32)
+               for _ in range(2)]
+    b0 = host_stacked_batches(clients, rng, T, Bt, device=dev)
+    b1 = host_stacked_batches(clients, rng, T, Bt, device=dev)
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        kern, plain = _engine(model, "auto", C, T, Bt), _engine(model, "fallback", C, T, Bt)
+        st0 = kern.init_controller_state(params, np.full(C, 2, np.int32))
+        p1, st1, _, _ = kern.run_fused(params, st0, p, batches=b0, cohort=cohorts[0])
+        res = {}
+        for name, eng, cohort in (("kernel", kern, cohorts[1]), ("plain", plain, cohorts[1]),
+                                  ("all", kern, np.arange(C, dtype=np.int32)),
+                                  ("none", kern, None)):
+            va_ops.reset_launches()
+            res[name] = eng.run_fused(p1, st1, p, batches=b1, cohort=cohort)
+            sync()
+            want = 0 if name == "plain" else 2
+            require(va_ops.launches["vecavg"] == want,
+                    f"[cohort] {name} round launched vecavg {va_ops.launches['vecavg']} times")
+
+    def diff(a, b):
+        return max((res[a][0][k] - res[b][0][k]).abs().max().item() for k in p1)
+
+    def taus(name):
+        return res[name][3]["tau_next"].cpu()
+
+    err, err_all = diff("kernel", "plain"), diff("all", "none")
+    require(err <= ROUND_PARAMS_ATOL, f"[cohort] kernel vs plain round: params differ by {err}")
+    require(torch.equal(taus("kernel"), taus("plain")), "[cohort] kernel vs plain: tau_next")
+    require(err_all <= COHORT_FULL_ATOL, f"[cohort] all-20 cohort vs none: params differ by "
+            f"{err_all}")
+    require(torch.equal(taus("all"), taus("none")), "[cohort] all-20 cohort vs none: tau_next")
+    out.update(kernel_vs_plain=dict(max_abs_params=err, cohort=cohorts[1].tolist(),
+                                    tau_next=taus("kernel").tolist()),
+               all_vs_none=dict(max_abs_params=err_all))
+    print(f"[cohort] round k=1 over cohort {cohorts[1].tolist()}: kernel vs plain reduce "
+          f"max|params| {err:.3e} (tol {ROUND_PARAMS_ATOL}); a cohort of all {C} vs none "
+          f"{err_all:.3e} (tol {COHORT_FULL_ATOL}); tau_next equal")
+
+    # the card against the port's CPU path, a cohort round 0 with a few steps
+    T2, B2 = 5, 8
+    small = host_stacked_batches(clients, np.random.default_rng(8), T2, B2)
+    cpu_model = build_model_by_name(FED["model"], device="cpu")
+    outs = []
+    for d, m in ((dev, model), (torch.device("cpu"), cpu_model)):
+        eng = _engine(m, "auto", C, T2, B2)
+        prm = {k: v.to(d) for k, v in params.items()}
+        st = eng.init_controller_state(prm, np.full(C, T2, np.int32))
+        outs.append(eng.run_fused(prm, st, p, batches=small, cohort=cohorts[0]))
+    sync()
+    (card, cst, _, gc), (cpu, pst, _, gp) = outs
+    perr = max((card[k].cpu() - cpu[k]).abs().max().item() for k in params)
+    berr = max(((gc[k].cpu() - gp[k]).abs() / gp[k].abs().clamp_min(1e-30)).max().item()
+               for k in ("beta", "delta"))
+    require(perr <= CARD_CPU_PARAMS_ATOL, f"[cohort] card vs CPU round: params differ by {perr}")
+    require(berr <= 1e-3, f"[cohort] card vs CPU round: beta/delta rel err {berr}")
+    require(torch.equal(cst.ever.cpu(), pst.ever), "[cohort] card vs CPU round: ever")
+    out["card_vs_cpu_round"] = dict(max_abs_params=perr, beta_delta_rel=berr)
+    print(f"[cohort] round 0 over cohort {cohorts[0].tolist()}, card vs CPU path: max|params| "
+          f"{perr:.3e} (tol {CARD_CPU_PARAMS_ATOL}), beta/delta rel {berr:.3e} (tol 1e-3)")
+    return out
+
+
+def phase_lm_cohort(dev):
+    """Qwen1.5-0.5B widths through ``FederatedSimulator`` with a cohort: 2
+    of phase 9's 4 clients a round."""
+    cfg = qwen05_config()
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    clients, test = lm_data(cfg.vocab_size, LM_COHORT["clients"])
+    R = LM_COHORT["rounds"]
+    sim = FederatedSimulator(model, clients, FedSimConfig(
+        mode=LM["mode"], eta=LM["eta"], tau_max=LM["tau_max"], batch_size=LM["batch"],
+        rounds=R, seed=0, eval_every=1, cohort_size=LM_COHORT["cohort"]), test)
+    sim.run(params=params, rounds=1)  # warm-up, not counted
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    va_ops.reset_launches()
+    rn_ops.reset_launches()
+    t0 = time.perf_counter()
+    log = sim.run(params=params, rounds=R)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(vecavg=va_ops.launches["vecavg"], rmsnorm=rn_ops.launches["rmsnorm"])
+    # one launch a norm call whatever the cohort: the m clients are vmapped
+    want = expected_rmsnorm_launches(cfg, R)
+    require(launches["vecavg"] == 2 * R,
+            f"[lm-cohort] vecavg launched {launches['vecavg']} times, expected {2 * R}")
+    require(launches["rmsnorm"] == want,
+            f"[lm-cohort] rmsnorm launched {launches['rmsnorm']} times, expected {want}")
+    train, test_ce = log.column("train_loss"), log.column("test_loss")
+    require(bool(np.isfinite(train).all() and np.isfinite(test_ce).all()),
+            "[lm-cohort] non-finite cross entropy")
+    for r in log.rows:
+        require(len(r["cohort"]) == LM_COHORT["cohort"], f"[lm-cohort] cohort {r['cohort']}")
+    out = dict(model="qwen1.5-0.5b", config=LM_COHORT, wall_s=wall, ms_per_round=1e3 * wall / R,
+               train_ce=[float(v) for v in train], test_ce=[float(v) for v in test_ce],
+               cohorts=[r["cohort"] for r in log.rows], launches=launches,
+               rmsnorm_launches_expected=want,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"[lm-cohort] qwen1.5-0.5b, {LM_COHORT['cohort']} of {LM_COHORT['clients']} clients, "
+          f"{R} rounds: {out['ms_per_round']:.1f} ms a round, peak {out['peak_mem_gb']:.2f} GB, "
+          f"vecavg {launches['vecavg']}, rmsnorm {launches['rmsnorm']} (expected {want})")
+    print(f"[lm-cohort] {json.dumps(out)}")
+    return out
+
+
+def _proto_server(model, clients, params, batched, wire="none"):
+    cs = [FedVecaClient(i, model, c, batch_size=FED["batch"], eta=FED["eta"])
+          for i, c in enumerate(clients)]
+    srv = FedVecaServer(model, cs, _weights(clients), eta=FED["eta"], alpha=FED["alpha"],
+                        tau_max=FED["tau_max"], batched=batched, wire=wire)
+    srv.params = dict(params)
+    return srv
+
+
+def _proto_round(srv, times, launches):
+    va_ops.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    row = srv.round()
+    sync()
+    times.append(1e3 * (time.perf_counter() - t0))
+    launches.append(va_ops.launches["vecavg"])
+    return row
+
+
+def phase_prototype(dev):
+    """The paper's prototype system on phase 6's 5 clients: the batched and
+    the serial fabric in lockstep, then batched rounds under lossy codecs."""
+    model = build_model_by_name(FED["model"], device=dev)
+    clients, _ = fed_data()
+    params = model.init(0)
+    C = len(clients)
+    P = sum(v.numel() * v.element_size() for v in params.values())
+    boundary = {int(np.floor(1 / (1 - np.float32(FED["alpha"])))) - 1,
+                int(np.floor(1 / (1 - np.float32(FED["alpha"]))))}
+    out = {}
+    with strict_fp32(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                   deterministic=True, allow_tf32=False):
+        _proto_server(model, clients, params, True).round()  # warm-up, not counted
+        _proto_server(model, clients, params, False).round()
+        bat, ser = _proto_server(model, clients, params, True), \
+            _proto_server(model, clients, params, False)
+        ms = {"batched": [], "serial": []}
+        launches = {"batched": [], "serial": []}
+        errs, flips = [], 0
+        for k in range(PROTO["rounds"]):
+            rb = _proto_round(bat, ms["batched"], launches["batched"])
+            rs = _proto_round(ser, ms["serial"], launches["serial"])
+            tb, ts = np.asarray(rb["tau"]), np.asarray(rs["tau"])
+            # the A_min client's ratio is 1 / (1 - alpha) = 20 in real
+            # arithmetic: its float32 floor is 19 or 20 by the last bits
+            differ = tb != ts
+            require(all({int(tb[i]), int(ts[i])} == boundary for i in np.flatnonzero(differ)),
+                    f"[prototype] round {k}: taus {tb.tolist()} (batched) vs {ts.tolist()}")
+            flips += int(differ.sum())
+            errs.append(max((bat.params[n] - ser.params[n]).abs().max().item() for n in params))
+            require(errs[-1] <= PROTO_PARAMS_ATOL,
+                    f"[prototype] round {k}: batched vs serial params differ by {errs[-1]}")
+            # lockstep: the serial server continues from the batched one's
+            # state, so each round compares one round of the two fabrics
+            ser.params, ser.taus = dict(bat.params), bat.taus.copy()
+            ser.ctrl_state, ser.gprev_sqnorm = bat.ctrl_state, bat.gprev_sqnorm
+        R = PROTO["rounds"]
+        sent, recv = R * C * (P + 16), R * C * (2 * P + 24)
+        for name, srv in (("batched", bat), ("serial", ser)):
+            require((srv.bytes_sent, srv.bytes_recv) == (sent, recv),
+                    f"[prototype] {name}: bytes {srv.bytes_sent}/{srv.bytes_recv}, expected "
+                    f"{sent}/{recv}")
+            require(launches[name] == [2] * R,
+                    f"[prototype] {name}: vecavg launches a round {launches[name]}")
+        require(all(c._engine is None for c in bat.clients),
+                "[prototype] the batched fabric built a per-client engine")
+        taus = [r["tau"].tolist() for r in bat.history]
+        out.update(rounds=R, params_bytes=P, bytes_sent=sent, bytes_recv=recv,
+                   max_abs_params_per_round=errs, boundary_flips=flips, taus=taus,
+                   ms_per_round={n: float(np.mean(v[1:])) for n, v in ms.items()},
+                   ms_rounds=ms, launches=launches)
+        print(f"[prototype] batched vs serial, {R} rounds in lockstep: taus equal "
+              f"({flips} A_min-boundary entries took the other floor), bytes "
+              f"{sent}/{recv} both, max|params| a round {max(errs):.3e} (tol "
+              f"{PROTO_PARAMS_ATOL}), vecavg 2 a round in both; ms a round (rounds 1-{R - 1}): "
+              f"batched {out['ms_per_round']['batched']:.1f}, serial "
+              f"{out['ms_per_round']['serial']:.1f}")
+
+        wires = {}
+        for wire in PROTO["wires"]:
+            srv = _proto_server(model, clients, params, True, wire)
+            per = make_codec(wire).payload_nbytes(params)
+            wt, wl = [], []
+            for _ in range(PROTO["wire_rounds"]):
+                _proto_round(srv, wt, wl)
+            want = PROTO["wire_rounds"] * C * (2 * per + 24)
+            require(srv.bytes_recv == want,
+                    f"[prototype] {wire}: bytes_recv {srv.bytes_recv}, expected {want}")
+            wtaus = np.stack([r["tau"] for r in srv.history])
+            require(wtaus.min() >= 2 and wtaus.max() <= FED["tau_max"],
+                    f"[prototype] {wire}: taus in [{wtaus.min()}, {wtaus.max()}]")
+            require(wl == [2] * PROTO["wire_rounds"], f"[prototype] {wire}: vecavg {wl}")
+            wires[wire] = dict(payload_bytes_per_update=per, bytes_recv=srv.bytes_recv,
+                               dense_ratio=per / P, ms_rounds=wt, taus=wtaus.tolist(),
+                               launches=sum(wl))
+            print(f"[prototype] wire {wire}: {per} payload bytes an update ({per / P:.4f} of "
+                  f"dense), bytes_recv {srv.bytes_recv} as counted, taus in "
+                  f"[{wtaus.min()}, {wtaus.max()}], ms a round {[round(t, 1) for t in wt]}")
+        out["wires"] = wires
+    print(f"[prototype] {json.dumps(out)}")
+    return out
+
+
+
 def granite_config():
     """granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base) at full
     width, 4 of 24 layers, float32: the FedVeca round's model."""
@@ -3440,6 +3752,12 @@ def main() -> int:
     fam13["phi-3"], phi3_row = run("13 phi-3 serve", phase_fam_phi3, dev)
     phi3_row["parity_max_abs_err_hd96"] = errs["paged_decode_hd96"]
     rows[1:1] = [sched_row, phi3_row]  # beside StarCoder2-3B's decode row
+    torch.cuda.empty_cache()
+    part = {"cohort": run("14 cohort", phase_cohort, dev)}
+    torch.cuda.empty_cache()
+    part["lm_cohort"] = run("14 lm cohort", phase_lm_cohort, dev)
+    torch.cuda.empty_cache()
+    part["prototype"] = run("14 prototype", phase_prototype, dev)
     paged = {f"{arch} {name}": v["launches"]
              for arch, key in ((FAM_MOE, "moe"), (FAM_HYMBA, "hymba"), (FAM_PHI3, "phi-3"))
              for name, v in fam13[key].items() if isinstance(v, dict) and "launches" in v}
@@ -3454,7 +3772,7 @@ def main() -> int:
            for n, v in sched["variants"].items()},
         **{f"{k} (admissions + restores)": v["paged_insert"] for k, v in paged.items()}}
     # each kernel's launches on every main path that runs it (phases 4, 6, 8,
-    # 9, 10, 11; whisper's path runs none)
+    # 9, 10, 11, 14; whisper's path runs none)
     flash_row["launches_by_path"] = {
         "starcoder2-3b forward (30 layers)": fwd["bf16"]["launches"],
         "qwen1.5-moe-a2.7b forward (24 layers)": fam["moe"]["flash_launches"],
@@ -3468,17 +3786,29 @@ def main() -> int:
         "phi-3-vision-4.2b forward": fam["phi-3"]["rmsnorm_launches"],
         "whisper-medium forward": fam["whisper"]["kernel_launches"],
         f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["rmsnorm"],
-        **{f"{k} serve": v["rmsnorm"] for k, v in paged.items()}}
+        **{f"{k} serve": v["rmsnorm"] for k, v in paged.items()},
+        f"qwen1.5-0.5b LM cohort, {LM_COHORT['rounds']} rounds":
+            part["lm_cohort"]["launches"]["rmsnorm"]}
+    proto = part["prototype"]
     tree_row["launches_by_path"] = {
         "cnn experiment": fed["launches"]["vecavg"],
-        f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["vecavg"]}
+        f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["vecavg"],
+        f"cnn cohort, {FED['rounds']} rounds of {COHORT['cohort']} of {COHORT['clients']}":
+            part["cohort"]["launches"],
+        f"qwen1.5-0.5b LM cohort, {LM_COHORT['rounds']} rounds":
+            part["lm_cohort"]["launches"]["vecavg"],
+        **{f"prototype {n}, {PROTO['rounds']} rounds": sum(proto["launches"][n])
+           for n in ("batched", "serial")},
+        **{f"prototype {w}, {PROTO['wire_rounds']} rounds": proto["wires"][w]["launches"]
+           for w in PROTO["wires"]}}
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
     print(f"[time] phases (s): {json.dumps(clock)}; total {sum(clock.values()):.1f} s")
     print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
-                      "families": fam, "sched": sched, "families_serve": fam13, "ptxas": ptxas,
-                      "seconds": clock, "card": smi}))
+                      "families": fam, "sched": sched, "families_serve": fam13,
+                      "partial_participation": part, "ptxas": ptxas, "seconds": clock,
+                      "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

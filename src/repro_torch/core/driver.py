@@ -95,7 +95,9 @@ class TrainDriver:
     """K rounds of the fused round+controller step, pipelined against host.
 
     The engine must be built with ``controller=ControllerCore``. ``p`` is
-    the client weight vector; ``batches_fn(rng)`` (optional) supplies
+    the full-C client weight vector; each round's cohort comes from
+    ``engine.sample_cohort`` (all clients without ``cohort_size``) and is
+    logged in its row; ``batches_fn(rng)`` (optional) supplies
     host-built batches per round; ``eval_fn(params)`` (optional, see
     ``make_dataset_evaluator``) must not block.
     """
@@ -150,16 +152,19 @@ class TrainDriver:
         self.tau_all = 0
 
         for k in range(rounds):
+            # the cohort is drawn before the batches from the one RNG, as the
+            # JAX package's driver draws them, so host batches stay in step
+            cohort = engine.sample_cohort(rng)
             batches = self.batches_fn(rng) if self.batches_fn else None
             key = None if batches is not None else round_key(self.seed, k)
             t0 = time.perf_counter()
             params, cstate, scaffold, diag = engine.run_fused(
-                params, cstate, p, key=key, batches=batches, scaffold=scaffold)
+                params, cstate, p, key=key, batches=batches, scaffold=scaffold, cohort=cohort)
             self.dispatch_s += time.perf_counter() - t0
             ev = None
             if self.eval_fn and ((k % self.eval_every) == 0 or k == rounds - 1):
                 ev = self.eval_fn(params)
-            pending.append((k, diag, ev))
+            pending.append((k, cohort, diag, ev))
             while len(pending) > self.overlap:
                 self._finalize(pending.popleft(), log)
         while pending:
@@ -175,7 +180,7 @@ class TrainDriver:
 
     # -- deferred device-to-host read + logging -----------------------------
     def _finalize(self, entry, log: RunLogger) -> None:
-        k, diag, ev = entry
+        k, cohort, diag, ev = entry
         t0 = time.perf_counter()
         host = {name: v.cpu().numpy() for name, v in diag.items()}  # blocks
         ev_host = None if ev is None else {name: float(v) for name, v in ev.items()}
@@ -191,6 +196,7 @@ class TrainDriver:
             tau_all=self.tau_all,
             beta=host["beta"],
             delta=host["delta"],
+            cohort=None if cohort is None else cohort.copy(),
             A=host["A"],
             L=float(host["L"]),
             premise=float(host["premise"]),

@@ -106,6 +106,15 @@ class Strategy:
         return g
 
     # -- server half (Alg. 1 line 7) ----------------------------------------
+    def delta_from_normalized(self, G, tau_f, p, eta, reduce: Reduce):
+        """Global step from *normalized* client vectors G_i = cum_g_i/tau_i.
+
+        This is the message-passing server's entry point: the wire carries
+        G_i (Eq. 5), not raw accumulators.
+        """
+        raise NotImplementedError(
+            f"mode {self.name!r} aggregates no normalized client vectors")
+
     def server_delta(self, outs, params, tau_f, p, eta, reduce: Reduce):
         """Global step from the round's stacked outputs dict."""
         raise NotImplementedError
@@ -119,6 +128,11 @@ class FedVecaStrategy(Strategy):
     driven by the adaptive bi-directional tau controller)."""
 
     name = "fedveca"
+
+    def delta_from_normalized(self, G, tau_f, p, eta, reduce):
+        tau_k = global_sum(p * tau_f)
+        delta_w, _ = reduce(G, p, -eta * tau_k)
+        return delta_w
 
     def server_delta(self, outs, params, tau_f, p, eta, reduce):
         tau_k = global_sum(p * tau_f)
@@ -137,6 +151,11 @@ class FedAvgStrategy(Strategy):
     """Eq. 4: unnormalized sums, w' = w - eta * sum_i p_i sum_l g_i^l."""
 
     name = "fedavg"
+
+    def delta_from_normalized(self, G, tau_f, p, eta, reduce):
+        cum_g = tree_map(lambda x: x * _per_client(tau_f, x), G)
+        delta_w, _ = reduce(cum_g, p, -eta)
+        return delta_w
 
     def server_delta(self, outs, params, tau_f, p, eta, reduce):
         delta_w, _ = reduce(outs["cum_g"], p, -eta)

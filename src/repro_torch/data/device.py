@@ -9,10 +9,10 @@ upload of a ``[C, tau_max, batch, ...]`` tensor.
 
 **Per-client index streams.** ``sample`` draws client i's indices from a
 ``torch.Generator`` seeded from (round key, i), so they depend only on
-(key, i, size_i). They cannot match the JAX package's ``jax.random``
-streams; cross-framework tests draw their batches with
-``host_stacked_batches`` instead, which both packages implement with the
-same numpy calls.
+(key, i, size_i), whatever cohort the client is drawn in. They cannot
+match the JAX package's ``jax.random`` streams; cross-framework tests
+draw their batches with ``host_stacked_batches`` instead, which both
+packages implement with the same numpy calls.
 
 Two batch layouts, as in the JAX package:
 
@@ -94,17 +94,26 @@ class DeviceShards:
         return DeviceShards(pad_stack([d.x for d in datasets]),
                             None if lm else pad_stack([d.y for d in datasets]), sizes)
 
-    def sample(self, key: int, tau_max: int, batch: int) -> dict:
-        """Draw leaves [C, tau_max, batch, ...] on the device; client i's
-        indices come from a generator seeded from (key, i)."""
+    def sample(self, key: int, tau_max: int, batch: int, ids=None) -> dict:
+        """Draw leaves [M, tau_max, batch, ...] on the device for the clients
+        ``ids`` (host global ids, [M]; all C when None). Client i's indices
+        come from a generator seeded from (key, i), so its rows do not
+        depend on which other clients are drawn (the JAX package folds the
+        key with the global id the same way)."""
         dev = self.device
+        if ids is None:
+            ids, rows = range(self.num_clients), torch.arange(self.num_clients, device=dev)
+        else:
+            ids = np.asarray(ids, np.int64).reshape(-1)
+            # a pageable source is staged before the call returns
+            rows = torch.from_numpy(ids).to(dev, non_blocking=True)
         idx = torch.stack([
-            torch.randint(0, size, (tau_max, batch), device=dev,
-                          generator=torch.Generator(device=dev).manual_seed(_seed(key, i)))
-            for i, size in enumerate(self.sizes)])
-        ids = torch.arange(self.num_clients, device=dev)[:, None, None]
-        y = None if self.y is None else self.y[ids, idx]
-        return format_batch(self.x[ids, idx], y, device=dev)
+            torch.randint(0, self.sizes[i], (tau_max, batch), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(_seed(key, int(i))))
+            for i in ids])
+        rows = rows[:, None, None]
+        y = None if self.y is None else self.y[rows, idx]
+        return format_batch(self.x[rows, idx], y, device=dev)
 
 
 def host_stacked_batches(datasets: List[Dataset], rng, tau_max: int, batch: int,

@@ -36,7 +36,7 @@ def main(argv=None):
     ap.add_argument("--tau-max", type=int, default=20)
     ap.add_argument("--eta", type=float, default=0.05)
     ap.add_argument("--cohort", type=int, default=None,
-                    help="participating clients per round (not ported: ROADMAP A16)")
+                    help="participating clients per round (default: all)")
     ap.add_argument("--aggregator", default="auto", choices=("auto", "pallas", "fallback"),
                     help="server reduce: the vecavg kernel (auto, pallas) or the "
                     "plain per-leaf tree path (fallback)")

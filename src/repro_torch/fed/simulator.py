@@ -13,7 +13,11 @@ Implements the paper's experimental protocol (§IV-A):
 The round and the controller run on the model's device (``build_model``
 defaults to the card). The server reduce is the vecavg kernel unless
 ``aggregator="fallback"`` is named. Float32 work runs in full float32
-(``repro_torch.strict_fp32``: no TF32 convolutions).
+(``repro_torch.strict_fp32``: no TF32 convolutions). Partial participation
+is a config knob (``cohort_size``): each round's cohort is drawn by the
+engine, and the controller sees staleness-weighted statistics, where
+non-participants decay from their last observed beta/delta toward the
+observed mean (``stats_decay``; ``core/controller.CohortStats``).
 
 Client and test sets are vision datasets (float ``x``, labels ``y``) or LM
 token sets (integer ``x`` of ``[n, L+1]`` sequences, from
@@ -26,8 +30,7 @@ whose ``jax.random`` init cannot be reproduced here); without one they
 init from a ``torch.Generator`` seeded with ``cfg.seed``.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``cohort_size`` (A16), ``wire`` (A17), ``buffered`` (A17), ``mesh``
-(A18).
+item: ``wire`` (A17), ``buffered`` (A17), ``mesh`` (A18).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import torch
 from torch.func import grad_and_value
 
 from repro_torch import strict_fp32
-from repro_torch.core.controller import ControllerConfig, ControllerCore
+from repro_torch.core.controller import ControllerConfig, ControllerCore, FedVecaController
 from repro_torch.core.driver import TrainDriver, make_dataset_evaluator
 from repro_torch.core.engine import EngineConfig, RoundEngine, not_ported
 from repro_torch.data.device import DeviceShards, format_batch, host_stacked_batches
@@ -64,8 +67,9 @@ class FedSimConfig:
     aggregator: str = "auto"  # 'auto' | 'pallas' (vecavg kernel) | 'fallback'
     data_path: str = "device"  # 'device' (resident shards) | 'host' (numpy batches)
     overlap: int = 1  # in-flight rounds before host sync; 0 = sync mode
+    cohort_size: Optional[int] = None  # m <= C participating clients a round
+    stats_decay: float = 0.9  # staleness retention for unobserved clients
     # -- not ported yet (NotImplementedError naming the ROADMAP item) -------
-    cohort_size: Optional[int] = None  # A16
     wire: str = "none"  # A17
     buffered: bool = False  # A17
     mesh: Optional[object] = None  # A18
@@ -74,8 +78,6 @@ class FedSimConfig:
 class FederatedSimulator:
     def __init__(self, model, client_data: List[Dataset], cfg: FedSimConfig,
                  test_data: Optional[Dataset] = None):
-        if cfg.cohort_size is not None:
-            raise not_ported("cohort_size (partial participation)", "A16")
         if cfg.buffered:
             raise not_ported("buffered=True (asynchronous rounds)", "A17")
         self.model = model
@@ -89,16 +91,20 @@ class FederatedSimulator:
 
         shards = (DeviceShards.from_datasets(client_data, device=self.device)
                   if cfg.data_path == "device" else None)
-        ctrl_cfg = ControllerConfig(eta=cfg.eta, alpha=cfg.alpha, tau_max=cfg.tau_max)
+        ctrl_cfg = ControllerConfig(eta=cfg.eta, alpha=cfg.alpha, tau_max=cfg.tau_max,
+                                    tau_init=cfg.tau_init, decay=cfg.stats_decay)
         self.engine = RoundEngine(
             model.loss,
             EngineConfig(mode=cfg.mode, eta=cfg.eta, tau_max=cfg.tau_max, mu=cfg.mu,
-                         batch_size=cfg.batch_size, aggregator=cfg.aggregator,
-                         wire=cfg.wire),
+                         batch_size=cfg.batch_size, cohort_size=cfg.cohort_size,
+                         aggregator=cfg.aggregator, wire=cfg.wire),
             shards=shards,
+            num_clients=self.C,
             controller=ControllerCore(ctrl_cfg, self.C, adapt=(cfg.mode == "fedveca")),
             mesh=cfg.mesh,
         )
+        # the numpy twin stays constructible, as in the JAX package
+        self.controller = FedVecaController(ctrl_cfg, self.C)
         self.driver = TrainDriver(
             self.engine, self.p,
             overlap=cfg.overlap, seed=cfg.seed, mode=cfg.mode,

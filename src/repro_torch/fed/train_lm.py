@@ -57,7 +57,7 @@ def main(argv=None):
     ap.add_argument("--eta", type=float, default=0.05)
     ap.add_argument("--mode", default="fedveca")
     ap.add_argument("--cohort", type=int, default=None,
-                    help="participating clients per round (not ported: ROADMAP A16)")
+                    help="participating clients per round (default: all)")
     ap.add_argument("--data-path", default="device", choices=("device", "host"),
                     help="device-resident shards vs numpy host-built batches")
     ap.add_argument("--overlap", type=int, default=1,

@@ -271,7 +271,9 @@ def _state_to_torch(js) -> CoreState:
                      prev_grad_sqnorm=t(js.prev_grad_sqnorm),
                      params0_sqnorm=t(js.params0_sqnorm),
                      prev_update_sqnorm=t(js.prev_update_sqnorm),
-                     prev2_update_sqnorm=t(js.prev2_update_sqnorm), taus=t(js.taus))
+                     prev2_update_sqnorm=t(js.prev2_update_sqnorm), taus=t(js.taus),
+                     ever=t(js.ever), stale_w=t(js.stale_w),
+                     vals={k: t(v) for k, v in js.vals.items()})
 
 
 def _stats_to_torch(js) -> RoundStats:
@@ -308,6 +310,7 @@ def test_controller_matches_jax_on_recorded_stats(alpha):
         params, stats, _ = eng.run_round(params, taus, p, jstate.prev_grad_sqnorm,
                                          batches=jax_host_batches(clients, rng, tau_max, 16))
         tstate, tdiag = tcore.step(_state_to_torch(jstate), _stats_to_torch(stats),
+                                   torch.arange(C, dtype=torch.int32),
                                    torch.from_numpy(np.array(taus)))
         jstate, jdiag = jcore.step(jstate, stats, members, taus)
         np.testing.assert_array_equal(_np(tdiag["tau_next"]), np.asarray(jdiag["tau_next"]))
@@ -346,6 +349,7 @@ def test_amin_client_floor_is_19_or_20_and_both_controllers_agree():
             params_sqnorm=jnp.float32(1.0), global_grad_sqnorm=jnp.float32(0.0))
         _, jdiag = jcore.step(jstate, stats, jnp.arange(C, dtype=jnp.int32), stats.tau)
         _, tdiag = tcore.step(_state_to_torch(jstate), _stats_to_torch(stats),
+                              torch.arange(C, dtype=torch.int32),
                               torch.full((C,), 2, dtype=torch.int32))
         np.testing.assert_array_equal(_np(tdiag["tau_next"]), np.asarray(jdiag["tau_next"]))
         assert float(jdiag["alpha_k"]) == float(np.float32(0.95))  # no Theorem-2 clamp

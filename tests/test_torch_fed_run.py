@@ -107,7 +107,9 @@ def _state_to_torch(js) -> CoreState:
                      prev_grad_sqnorm=t(js.prev_grad_sqnorm),
                      params0_sqnorm=t(js.params0_sqnorm),
                      prev_update_sqnorm=t(js.prev_update_sqnorm),
-                     prev2_update_sqnorm=t(js.prev2_update_sqnorm), taus=t(js.taus))
+                     prev2_update_sqnorm=t(js.prev2_update_sqnorm), taus=t(js.taus),
+                     ever=t(js.ever), stale_w=t(js.stale_w),
+                     vals={k: t(v) for k, v in js.vals.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -329,8 +331,7 @@ def test_fed_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(cohort_size=3), "A16"), (dict(wire="int8"), "A17"), (dict(buffered=True), "A17"),
-    (dict(mesh=object()), "A18")])
+    (dict(wire="int8"), "A17"), (dict(buffered=True), "A17"), (dict(mesh=object()), "A18")])
 def test_options_not_ported_raise(setup, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         FederatedSimulator(setup["tm"], setup["tclients"], FedSimConfig(**kw))
@@ -338,9 +339,8 @@ def test_options_not_ported_raise(setup, kw, item):
 
 def test_engine_halves_not_ported_raise(setup):
     eng = RoundEngine(setup["tm"].loss, EngineConfig())
-    for name in ("client_update", "client_update_many", "server_aggregate", "wave_update"):
-        with pytest.raises(NotImplementedError, match="A16"):
-            getattr(eng, name)()
+    with pytest.raises(NotImplementedError, match="A17"):
+        eng.wave_update()
     with pytest.raises(NotImplementedError, match="A19"):
         from repro_torch.core.driver import TrainDriver
 

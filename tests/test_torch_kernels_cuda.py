@@ -16,7 +16,9 @@ flash bars), rows with no live key exactly 0, two launches bitwise equal; rmsnor
 (tests/test_kernels.py's bar) and one bf16 ulp of the output in bf16
 (kernel and plain version each round their own float32 result, which may
 differ in the last float32 bit: the sums of squares run in other orders),
-two launches on one input bitwise equal.
+two launches on one input bitwise equal. The engine's cohort round and the
+prototype server's two reduces through vecavg against the plain tree
+reduce: 1e-6, with their launch counts.
 """
 import numpy as np
 import pytest
@@ -353,6 +355,69 @@ def test_round_reduces_launch_the_kernel_on_card(cuda):
     for k in params:
         assert torch.equal(outs["auto"][0][k], outs["pallas"][0][k])
         torch.testing.assert_close(outs["auto"][0][k], outs["fallback"][0][k], atol=1e-6, rtol=0)
+
+
+def test_cohort_round_launches_the_kernel_on_card(cuda):
+    """A cohort of 2 of 4 clients through the engine: vecavg twice a round
+    under 'auto', never under 'fallback'; the two rounds agree within 1e-6
+    (deterministic cuDNN: only the reduce differs) and take the same taus."""
+    from repro_torch.core.controller import ControllerConfig, ControllerCore
+    from repro_torch.core.engine import EngineConfig, RoundEngine
+    from repro_torch.models.model import build_model_by_name
+
+    model = build_model_by_name("cnn-cifar10", device=cuda)
+    params = model.init(0)
+    g = torch.Generator().manual_seed(1)
+    C, T, B = 4, 3, 4
+    batches = dict(x=torch.randn(C, T, B, 32, 32, 3, generator=g),
+                   y=torch.randint(0, 10, (C, T, B), generator=g).to(torch.int32))
+    p, cohort = np.float32([0.4, 0.1, 0.3, 0.2]), np.array([1, 3], np.int32)
+    outs = {}
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        for agg in ("auto", "fallback"):
+            eng = RoundEngine(model.loss, EngineConfig(eta=0.01, tau_max=T, aggregator=agg),
+                              controller=ControllerCore(ControllerConfig(eta=0.01, tau_max=T), C))
+            st = eng.init_controller_state(params, np.array([3, 2, 3, 1], np.int32))
+            va_ops.reset_launches()
+            outs[agg] = eng.run_fused(params, st, p, batches=batches, cohort=cohort)
+            torch.cuda.synchronize()
+            assert va_ops.launches["vecavg"] == (2 if agg == "auto" else 0), agg
+    (pk, sk, _, dk), (pf, sf, _, df) = outs["auto"], outs["fallback"]
+    for k in params:
+        torch.testing.assert_close(pk[k], pf[k], atol=1e-6, rtol=0)
+    assert int(dk["tau_round_sum"]) == 3
+    assert sk.ever.cpu().tolist() == [False, True, False, True]
+    assert torch.equal(dk["tau_next"], df["tau_next"])
+
+
+@pytest.mark.parametrize("mode", ["fedveca", "fedavg"])
+def test_server_halves_launch_the_kernel_on_card(cuda, mode):
+    """The prototype server's reduces: ``server_aggregate`` and
+    ``weighted_average`` launch vecavg once a call under 'auto' and agree
+    with the plain tree reduce within 1e-6 (float32 sums in another
+    order)."""
+    from repro_torch.core.engine import EngineConfig, RoundEngine
+
+    g = torch.Generator().manual_seed(2)
+    C = 5
+    params = {k: torch.randn(s, generator=g).to(cuda) for k, s in CNN_LEAVES.items()}
+    G = {k: torch.randn((C,) + s, generator=g).to(cuda) for k, s in CNN_LEAVES.items()}
+    tau = torch.randint(2, 51, (C,), generator=g).to(torch.int32)
+    p = torch.rand(C, generator=g).add_(0.1)
+    p = p / p.sum()
+    res = {}
+    for agg in ("auto", "fallback"):
+        eng = RoundEngine(lambda *a: None, EngineConfig(mode=mode, eta=0.01, aggregator=agg))
+        va_ops.reset_launches()
+        new, tau_k = eng.server_aggregate(params, G, tau, p)
+        avg = eng.weighted_average(G, p)
+        torch.cuda.synchronize()
+        assert va_ops.launches["vecavg"] == (2 if agg == "auto" else 0), agg
+        res[agg] = (new, tau_k, avg)
+    for k in params:
+        torch.testing.assert_close(res["auto"][0][k], res["fallback"][0][k], atol=1e-6, rtol=0)
+        torch.testing.assert_close(res["auto"][2][k], res["fallback"][2][k], atol=1e-6, rtol=0)
+    assert torch.equal(res["auto"][1], res["fallback"][1])
 
 
 # The CNN's leaves (cnn-cifar10, D 555178): bf2 is 10 floats, 40 B a row,
