@@ -92,8 +92,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (rmsnorm, 464 M float32 parameters; 2 of the 4 clients, which is what
      fits the card's 80 GB); ms a round, train and test
      cross entropy each round, peak memory; the vecavg counter must read 2
-     a round and the rmsnorm counter exactly tau_max * (2L + 1) a round for
-     the local steps plus 2L + 1 an evaluation chunk; one round through
+     a round and the rmsnorm counter exactly tau_max * (4L + 1) a round for
+     the local steps (each gradient call runs every layer's two norms again
+     in its rematerialized backward, ``remat=True`` being the default) plus
+     2L + 1 an evaluation chunk; one round through
      the rmsnorm kernel against the same round through the plain op; a
      torch.profiler breakdown of one round of each model; a
      checkpoint saved and restored bitwise on the card, with a bf16 leaf;
@@ -201,6 +203,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      parameter bytes; vecavg 2 a round in each), ms a round of each; then 3
      batched rounds under int8 and top-1000 codecs, uplink bytes equal to
      the codec's payload count.
+ 15. remat   — rematerialization (``loss(remat=)``, True by default): one
+     float32 FedVeca round with remat True and False in turns (True,
+     False, False, True) from one state, of xLSTM-1.3B at full width cut
+     to 16 of 48 layers (2 clients, batch 1, tau_max 2, S 16) and of
+     Qwen1.5-0.5B's widths at phase 9's traffic: new params bitwise equal
+     across the four, vecavg 2 a round, rmsnorm exactly tau_max (4L + 1)
+     against tau_max (2L + 1), ms and peak GB of each; the parameter
+     arithmetic of full-depth xLSTM-1.3B; then one xLSTM round with remat
+     at the longest S that, extrapolated from the measured peaks, fits
+     only with remat, with its peak GB (remat=False is not run there);
+ 16. wire and buffered — the engine's wire state and the buffered engine
+     on phase 6's CNN data and settings: 10 sync rounds under int8 and
+     top-1000 over 5 clients (every row's ``wire_bytes`` the codec's
+     payload times 5, vecavg 2 a round, the test loss); over 20 clients, 5
+     a round, the buffered parity mode (one wave, instant arrivals, no
+     decay, 5 commits, without a codec and with int8) bitwise equal to the
+     synchronous simulator (params, taus, losses, bytes), and 20 buffered
+     commits with 2 waves, ``exp`` latency and decay 0.9 (ms a commit,
+     mean and max age, ``sim_time``, folds, vecavg 2 a commit).
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
 last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -228,6 +249,7 @@ from repro_torch import strict_fp32  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.core.controller import ControllerConfig, ControllerCore  # noqa: E402
 from repro_torch.core.engine import EngineConfig, RoundEngine  # noqa: E402
+from repro_torch.core.fedveca import make_round_step  # noqa: E402
 from repro_torch.core.wire import make_codec  # noqa: E402
 from repro_torch.data.device import DeviceShards, host_stacked_batches  # noqa: E402
 from repro_torch.data.partition import partition_case3  # noqa: E402
@@ -341,6 +363,26 @@ PROTO = dict(rounds=5, wires=("int8", "topk:1000"), wire_rounds=3)
 # orders. The card gave at most 1.49e-8 a round over 5 rounds (PERF.md
 # §6); the bar leaves a factor of ~7.
 PROTO_PARAMS_ATOL = 1e-7
+# Phase 15: rematerialization at full width, one float32 round of each
+# setting under strict_fp32(): xLSTM-1.3B (arXiv:2405.04517) cut to 2 of its
+# 6 super-blocks (16 of 48 layers; remat wraps a super-block, so 2 is the
+# least depth where it bites), 2 clients, batch 1, tau_max 2, S 16; then
+# the same at the longest S (a multiple of 4, at most 128 to keep the
+# phase's time) whose remat=True peak, extrapolated from what S 16
+# measured, stays under REMAT_FIT of the card while remat=False's passes
+# the card. Qwen1.5-0.5B widths at phase 9's traffic (2
+# clients, batch 4, S 128, tau_max 4).
+REMAT = dict(clients=2, batch=1, tau_max=2, seq=16, super_blocks=2, eta=0.05, max_seq=128,
+             probe_seqs={True: (16, 48), False: (16, 24)})
+REMAT_FIT = 0.92
+# Phase 16: the engine's wire state and the buffered engine on phase 6's CNN
+# data and settings: sync rounds under each lossy codec over phase 6's 5
+# clients; the buffered parity mode (one wave, instant arrivals, no decay)
+# against the sync simulator, and a real buffered run (two waves in
+# flight, exponential latency, decay 0.9), both over phase 14's 20 clients,
+# 5 a round (the buffer's 5 slots).
+WIRE16 = dict(rounds=10, wires=("int8", "topk:1000"))
+BUF16 = dict(parity_commits=5, commits=20, waves=2, latency="exp", grad_decay=0.9)
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REBUILT = ("flash_attention", "paged_attention", "rmsnorm", "vecavg")  # ptxas reports phase 2 prints
 # Flash kernel vs its plain version: the JAX package's kernel-vs-oracle
@@ -1914,18 +1956,28 @@ def lm_data(vocab, n_clients):
     return clients, test
 
 
+def grad_call_norms(cfg, remat=True) -> int:
+    """rmsnorm launches of one vmapped gradient call of the loss: 2L + 1
+    norm calls in the forward, each launched once for all clients (the op's
+    vmap rule), and under ``remat`` (the default) each layer's two norms
+    once more in its recompute, the final norm not: 4L + 1."""
+    L = cfg.num_layers
+    return (4 if remat else 2) * L + 1
+
+
 def expected_rmsnorm_launches(cfg, rounds: int) -> int:
     """What the code implies for ``rounds`` simulator rounds: the local loop
     runs tau_max trips whatever the taus (core/fedveca.make_local_update),
-    each one vmapped loss call whose 2L + 1 norm calls launch once for all
-    clients (the op's vmap rule); the evaluator makes one loss call a chunk
+    each one vmapped gradient call (``grad_call_norms``); the evaluator
+    makes one loss call a chunk under ``no_grad``, 2L + 1 norm calls
     (core/driver.make_dataset_evaluator: floor(n / b) chunks of
     b = min(n, 2048), plus one for a remainder). A layernorm model: 0."""
     if cfg.norm != "rmsnorm":
         return 0
     b = min(LM["n_test"], EVAL_MAX_BATCH)
     k, rem = divmod(LM["n_test"], b)
-    return rounds * (LM["tau_max"] + k + int(rem > 0)) * (2 * cfg.num_layers + 1)
+    return rounds * (LM["tau_max"] * grad_call_norms(cfg)
+                     + (k + int(rem > 0)) * (2 * cfg.num_layers + 1))
 
 
 def phase_lm(dev, name, cfg, n_clients, rounds=LM["rounds"]):
@@ -1988,14 +2040,14 @@ def phase_lm_round_check(dev, model, clients, params):
     """One fused round from one state and batches, through the rmsnorm
     kernel and through the plain op (``layers.rmsnorm`` swapped for
     ``use_pallas=False`` for that call only)."""
-    C, T, L = len(clients), LM["tau_max"], model.config.num_layers
+    C, T = len(clients), LM["tau_max"]
     p = np.full(C, 1.0 / C, np.float32)  # equal shards
     batches = host_stacked_batches(clients, np.random.default_rng(11), T, LM["batch"], device=dev)
     eng = _lm_engine(model, C)
     st0 = eng.init_controller_state(params, np.full(C, 2, np.int32))
     plain = functools.partial(rn_ops.rmsnorm, use_pallas=False)
     res = {}
-    for name, norm, want in (("kernel", layers.rmsnorm, T * (2 * L + 1)),
+    for name, norm, want in (("kernel", layers.rmsnorm, T * grad_call_norms(model.config)),
                              ("plain", lambda x, s, eps=1e-6: plain(x, s, eps=eps), 0)):
         kernel_norm, layers.rmsnorm = layers.rmsnorm, norm
         rn_ops.reset_launches()
@@ -3654,6 +3706,292 @@ def phase_prototype(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# 15. rematerialization
+# ---------------------------------------------------------------------------
+
+
+def remat_round(model, params, batches, remat, dev):
+    """One FedVeca round (``make_round_step``) of ``model.loss(remat=)``
+    from ``params`` -> (new params, ms, peak GB, rmsnorm launches, vecavg
+    launches); the counters and the peak are reset just before."""
+    C = next(iter(batches.values())).shape[0]
+    step = make_round_step(functools.partial(model.loss, remat=remat), eta=REMAT["eta"])
+    tau = torch.full((C,), next(iter(batches.values())).shape[1], dtype=torch.int32, device=dev)
+    p = torch.full((C,), 1.0 / C, device=dev)
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rn_ops.reset_launches()
+    va_ops.reset_launches()
+    t0 = time.perf_counter()
+    with strict_fp32():
+        new, _, _ = step(params, batches, tau, p, torch.tensor(0.0, device=dev))
+    sync()
+    return (new, 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated(dev) / 1e9,
+            rn_ops.launches["rmsnorm"], va_ops.launches["vecavg"])
+
+
+def remat_pair(tag, model, params, batches, dev):
+    """remat True and False in turns (True, False, False, True) from one
+    state and batches: every new param bitwise equal across the four runs,
+    vecavg 2 a round, rmsnorm as ``grad_call_norms`` implies."""
+    T = next(iter(batches.values())).shape[1]
+    runs = {True: [], False: []}
+    first, vecavg = None, 0
+    for remat in (True, False, False, True):
+        new, ms, peak, n_rms, n_va = remat_round(model, params, batches, remat, dev)
+        want = T * grad_call_norms(model.config, remat) if model.config.norm == "rmsnorm" else 0
+        require(n_rms == want, f"[remat] {tag} remat={remat}: rmsnorm launched {n_rms} times, "
+                f"expected {want}")
+        require(n_va == 2, f"[remat] {tag} remat={remat}: vecavg launched {n_va} times")
+        vecavg += n_va
+        if first is None:
+            first = new
+        else:
+            bad = [k for k in new if not torch.equal(new[k], first[k])]
+            err = max([(new[k] - first[k]).abs().max().item() for k in bad] + [0.0])
+            require(not bad, f"[remat] {tag}: remat={remat} params differ from remat=True's in "
+                    f"{len(bad)} leaves, first {bad[:1]}: max {err:.3e}")
+        runs[remat].append((ms, peak))
+        del new
+    out = {f"remat_{str(r).lower()}": dict(ms=[m for m, _ in v], peak_gb=max(g for _, g in v),
+                                           rmsnorm=T * grad_call_norms(model.config, r)
+                                           if model.config.norm == "rmsnorm" else 0)
+           for r, v in runs.items()}
+    out["vecavg"] = vecavg
+    print(f"[remat] {tag}: a round with remat=True "
+          f"{np.mean(out['remat_true']['ms']):.1f} ms, peak {out['remat_true']['peak_gb']:.2f} "
+          f"GB; remat=False {np.mean(out['remat_false']['ms']):.1f} ms, peak "
+          f"{out['remat_false']['peak_gb']:.2f} GB; new params bitwise equal in all four runs; "
+          f"rmsnorm {out['remat_true']['rmsnorm']} vs {out['remat_false']['rmsnorm']} a round")
+    return out
+
+
+def grad_call_peak(model, params, batches, remat, dev):
+    """Peak GB above what was allocated before one vmapped gradient call of
+    ``model.loss(remat=)`` over the clients' first minibatch."""
+    C = next(iter(batches.values())).shape[0]
+    pc = {k: v.expand((C,) + v.shape) for k, v in params.items()}
+    vg = torch.func.vmap(torch.func.grad_and_value(
+        functools.partial(model.loss, remat=remat), has_aux=True))
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with strict_fp32():
+        g, _ = vg(pc, {k: v[:, 0] for k, v in batches.items()})
+    sync()
+    del g
+    return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+
+def xlstm_remat_config(super_blocks):
+    cfg = get_arch("xlstm-1.3b")
+    return _f32(cfg, num_layers=super_blocks * len(cfg.xlstm_pattern))
+
+
+def _xlstm_batches(cfg, S, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    C, T, Bt = REMAT["clients"], REMAT["tau_max"], REMAT["batch"]
+    toks = torch.randint(0, cfg.vocab_size, (C, T, Bt, S + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return {"tokens": toks[..., :-1].contiguous(), "targets": toks[..., 1:].contiguous()}
+
+
+def phase_remat(dev):
+    """Rematerialization on the card: remat True against False on xLSTM-1.3B
+    (two super-blocks) and Qwen1.5-0.5B widths, then a longer xLSTM round
+    that only remat=True fits."""
+    out = {}
+    cfg = xlstm_remat_config(REMAT["super_blocks"])
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    n16 = sum(v.numel() for v in params.values())
+    per_sb = sum(v.numel() for k, v in params.items() if k.startswith("xlstm/")) \
+        // REMAT["super_blocks"]
+    full_sb = get_arch("xlstm-1.3b").num_layers // len(cfg.xlstm_pattern)
+    n_full = n16 + (full_sb - REMAT["super_blocks"]) * per_sb
+    C = REMAT["clients"]
+    arith = dict(params_16_layers=n16, params_a_super_block=per_sb,
+                 params_full_depth=n_full, full_depth_f32_gb=4 * n_full / 1e9,
+                 full_depth_client_stack_gb=4 * n_full * C / 1e9)
+    print(f"[remat] xLSTM-1.3B: {per_sb / 1e6:.1f} M parameters a super-block, "
+          f"{n16 / 1e6:.1f} M at 16 layers, {n_full / 1e6:.1f} M at full depth "
+          f"({arith['full_depth_f32_gb']:.1f} GB in float32; the local loop holds four "
+          f"[C, ...] stacks of it, params, g0, cum_g and a gradient, "
+          f"{arith['full_depth_client_stack_gb']:.1f} GB each at C {C}): full depth waits "
+          f"for the client-axis sharding (ROADMAP A18)")
+    S = REMAT["seq"]
+    batches = _xlstm_batches(cfg, S, dev, seed=15)
+    remat_round(model, params, batches, True, dev)  # warm-up at the pair's shapes
+    out["xlstm"] = dict(arith, layers=cfg.num_layers, seq=S,
+                        **remat_pair(f"xlstm-1.3b 16 of 48 layers S {S}", model, params,
+                                     batches, dev))
+    # A depth that fits only with remat. A round peaks inside a gradient
+    # call, so its peak grows with S as that call's does: from the round's
+    # peak at S 16 (the pair above), by the slope of a gradient call's own
+    # peak in S, measured alone at two lengths for each setting (remat
+    # holds one super-block's activations at a time, False all of them).
+    cap = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    probes = {r: {x: grad_call_peak(model, params, _xlstm_batches(cfg, x, dev, seed=18), r, dev)
+                  for x in REMAT["probe_seqs"][r]} for r in (True, False)}
+    slope = {}
+    for r, v in probes.items():
+        (x1, p1), (x2, p2) = sorted(v.items())
+        slope[r] = (p2 - p1) / (x2 - x1)
+    peak16 = {r: out["xlstm"][f"remat_{str(r).lower()}"]["peak_gb"] for r in (True, False)}
+
+    def pred(seq, remat):
+        return peak16[remat] + slope[remat] * (seq - S)
+
+    window = [x for x in range(S, REMAT["max_seq"] + 1, 4)
+              if pred(x, True) <= REMAT_FIT * cap and pred(x, False) > cap]
+    require(slope[False] > slope[True] > 0 and window,
+            f"[remat] no sequence length fits only with remat: round peaks at S {S} "
+            f"{peak16}, gradient calls {probes}, card {cap:.2f} GB")
+    s_b = window[-1]
+    pred_t, pred_f = pred(s_b, True), pred(s_b, False)
+    print(f"[remat] xLSTM at 16 layers: a gradient call alone peaks "
+          f"{', '.join(f'{p:.2f} GB at S {x}' for x, p in sorted(probes[True].items()))} with "
+          f"remat ({slope[True] * 1e3:.1f} MB a token), "
+          f"{', '.join(f'{p:.2f} GB at S {x}' for x, p in sorted(probes[False].items()))} "
+          f"without ({slope[False] * 1e3:.1f} MB a token). At S {s_b}: remat=True "
+          f"{peak16[True]:.2f} + {slope[True]:.4f} x {s_b - S} = {pred_t:.2f} GB (under "
+          f"{REMAT_FIT} of the card's {cap:.2f} GB); remat=False {peak16[False]:.2f} + "
+          f"{slope[False]:.4f} x {s_b - S} = {pred_f:.2f} GB, past the card: not run")
+    new, ms, peak, _, n_va = remat_round(model, params, _xlstm_batches(cfg, s_b, dev, seed=17),
+                                         True, dev)
+    require(n_va == 2, f"[remat] xLSTM S {s_b}: vecavg launched {n_va} times")
+    require(all(bool(torch.isfinite(v).all()) for v in new.values()),
+            f"[remat] xLSTM S {s_b}: non-finite params")
+    out["xlstm_long"] = dict(seq=s_b, ms=ms, peak_gb=peak, predicted_peak_gb=pred_t,
+                             remat_false_predicted_gb=pred_f, card_gb=cap,
+                             grad_call_peak_gb={f"remat={r} S {x}": p for r, v in
+                                                probes.items() for x, p in v.items()},
+                             gb_a_token={f"remat={r}": v for r, v in slope.items()},
+                             vecavg=n_va)
+    print(f"[remat] xLSTM 16 of 48 layers, S {s_b}, remat=True: one round {ms:.1f} ms, peak "
+          f"{peak:.2f} GB (predicted {pred_t:.2f})")
+    del model, params, batches, new
+    torch.cuda.empty_cache()
+
+    qcfg = qwen05_config()
+    qwen = build_model(qcfg, device=dev)
+    qparams = qwen.init(0)
+    clients, _ = lm_data(qcfg.vocab_size, QWEN05_CLIENTS)
+    qb = host_stacked_batches(clients, np.random.default_rng(15), LM["tau_max"], LM["batch"],
+                              device=dev)
+    remat_round(qwen, qparams, qb, True, dev)  # warm-up
+    out["qwen1.5-0.5b"] = dict(layers=qcfg.num_layers, seq=LM["seq"], clients=QWEN05_CLIENTS,
+                               **remat_pair("qwen1.5-0.5b", qwen, qparams, qb, dev))
+    print(f"[remat] {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 16. the engine's wire state and the buffered engine
+# ---------------------------------------------------------------------------
+
+
+def _sim_run(model, clients, cfg, test=None, params=None):
+    sim = FederatedSimulator(model, clients, cfg, test)
+    sync()
+    va_ops.reset_launches()
+    t0 = time.perf_counter()
+    log = sim.run(params=params)
+    sync()
+    return sim, log, 1e3 * (time.perf_counter() - t0) / cfg.rounds, va_ops.launches["vecavg"]
+
+
+def phase_wire_buffered(dev):
+    """Sync rounds under each lossy codec; the buffered parity mode against
+    the sync simulator; a real buffered run."""
+    model = build_model_by_name(FED["model"], device=dev)
+    params = model.init(0)
+    clients, test = fed_data()
+    out = {"wire": {}}
+    R = WIRE16["rounds"]
+    for wire in WIRE16["wires"]:
+        cfg = fed_cfg("fedveca", rounds=R, wire=wire, eval_every=R)
+        _, log, ms, n_va = _sim_run(model, clients, cfg, test)
+        per = make_codec(wire).payload_nbytes(params)
+        bytes_ = [r["wire_bytes"] for r in log.rows]
+        require(all(b == per * len(clients) for b in bytes_) and
+                all(r["wire"] == wire for r in log.rows),
+                f"[wire] {wire}: rows' wire_bytes {sorted(set(bytes_))}, expected "
+                f"{per} x {len(clients)}")
+        require(n_va == 2 * R, f"[wire] {wire}: vecavg launched {n_va} times, expected {2 * R}")
+        losses = [r["test_loss"] for r in log.rows if "test_loss" in r]  # rounds 0 and R - 1
+        require(len(losses) == 2 and bool(np.isfinite(losses).all()
+                                           and np.isfinite(log.column("train_loss")).all()),
+                f"[wire] {wire}: non-finite loss")
+        out["wire"][wire] = dict(payload_bytes_per_update=per, wire_bytes_a_round=bytes_[0],
+                                 ms_per_round=ms, launches=n_va,
+                                 test_loss=[float(losses[0]), float(losses[-1])],
+                                 taus_last=log.rows[-1]["tau"])
+        print(f"[wire] {R} sync rounds under {wire}: {per} bytes an update x "
+              f"{len(clients)} = {bytes_[0]} a round in every row, {ms:.1f} ms a round, vecavg "
+              f"{n_va}, test loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    clients20, test20 = fed_data(COHORT["clients"])
+    m = COHORT["cohort"]
+    coh = dict(cohort_size=m, stats_decay=COHORT["stats_decay"])
+    parity = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for wire in ("none", "int8"):
+            n = BUF16["parity_commits"]
+            _, ls, ms_s, va_s = _sim_run(model, clients20, fed_cfg(
+                "fedveca", rounds=n, wire=wire, **coh), params=params)
+            sim_b, lb, ms_b, va_b = _sim_run(model, clients20, fed_cfg(
+                "fedveca", rounds=n, wire=wire, buffered=True, **coh), params=params)
+            require(sim_b.buffered_engine is not None, "[buffered] no buffered engine")
+            bad = [k for k in params if not torch.equal(ls.params[k], lb.params[k])]
+            require(not bad, f"[buffered] parity {wire}: params differ in {bad}")
+            for rs, rb in zip(ls.rows, lb.rows, strict=True):
+                require(np.array_equal(rs["tau"], rb["tau"]) and
+                        np.array_equal(np.sort(rs["cohort"]), rb["cohort"]) and
+                        rs["train_loss"] == rb["train_loss"] and
+                        rs["wire_bytes"] == rb["wire_bytes"],
+                        f"[buffered] parity {wire} round {rs['round']}: taus {rs['tau']} vs "
+                        f"{rb['tau']}")
+            require(va_s == va_b == 2 * n, f"[buffered] parity {wire}: vecavg {va_s} / {va_b}")
+            parity[wire] = dict(commits=n, ms_per_round_sync=ms_s, ms_per_commit=ms_b,
+                                taus=[r["tau"] for r in lb.rows], launches=va_b)
+            print(f"[buffered] parity mode under {wire}: {n} commits bitwise equal to the sync "
+                  f"simulator (params and tau trace), {ms_b:.1f} ms a commit against "
+                  f"{ms_s:.1f} a sync round, vecavg {va_b}")
+    out["parity"] = parity
+
+    n = BUF16["commits"]
+    cfg = fed_cfg("fedveca", rounds=n, buffered=True, buffer_waves=BUF16["waves"],
+                  grad_decay=BUF16["grad_decay"], latency_kind=BUF16["latency"],
+                  eval_every=n, **coh)
+    sim, log, ms, n_va = _sim_run(model, clients20, cfg, test20, params=params)
+    ages = np.array([r["mean_age"] for r in log.rows])
+    max_age = max(r["max_age"] for r in log.rows)
+    require(n_va == 2 * n, f"[buffered] vecavg launched {n_va} times, expected {2 * n}")
+    require(len(log.rows) == n and max_age > 0, f"[buffered] {len(log.rows)} commits, max age "
+            f"{max_age}")
+    losses = [r["test_loss"] for r in log.rows if "test_loss" in r]  # commits 0 and n - 1
+    require(len(losses) == 2 and bool(np.isfinite(losses).all()
+                                       and np.isfinite(log.column("train_loss")).all()),
+            "[buffered] non-finite loss")
+    eng = sim.buffered_engine
+    out["buffered"] = dict(BUF16, slots=m, clients=COHORT["clients"], ms_per_commit=ms,
+                           mean_age=float(ages.mean()), max_age=float(max_age),
+                           sim_time=float(log.rows[-1]["sim_time"]), launches=n_va,
+                           wave_dispatches=eng.wave_dispatches,
+                           fold_dispatches=eng.fold_dispatches,
+                           test_loss=[float(losses[0]), float(losses[-1])])
+    print(f"[buffered] {n} commits, {m} slots of {COHORT['clients']} clients, "
+          f"{BUF16['waves']} waves, {BUF16['latency']} latency, decay {BUF16['grad_decay']}: "
+          f"{ms:.1f} ms a commit, mean age {ages.mean():.3f}, max age {max_age:.0f}, sim_time "
+          f"{log.rows[-1]['sim_time']:.3f}, {eng.fold_dispatches} folds, vecavg {n_va}, test "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"[wire-buffered] {json.dumps(out)}")
+    return out
+
+
 def granite_config():
     """granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base) at full
     width, 4 of 24 layers, float32: the FedVeca round's model."""
@@ -3758,6 +4096,10 @@ def main() -> int:
     part["lm_cohort"] = run("14 lm cohort", phase_lm_cohort, dev)
     torch.cuda.empty_cache()
     part["prototype"] = run("14 prototype", phase_prototype, dev)
+    torch.cuda.empty_cache()
+    remat = run("15 remat", phase_remat, dev)
+    torch.cuda.empty_cache()
+    wire_buf = run("16 wire and buffered", phase_wire_buffered, dev)
     paged = {f"{arch} {name}": v["launches"]
              for arch, key in ((FAM_MOE, "moe"), (FAM_HYMBA, "hymba"), (FAM_PHI3, "phi-3"))
              for name, v in fam13[key].items() if isinstance(v, dict) and "launches" in v}
@@ -3788,7 +4130,9 @@ def main() -> int:
         f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["rmsnorm"],
         **{f"{k} serve": v["rmsnorm"] for k, v in paged.items()},
         f"qwen1.5-0.5b LM cohort, {LM_COHORT['rounds']} rounds":
-            part["lm_cohort"]["launches"]["rmsnorm"]}
+            part["lm_cohort"]["launches"]["rmsnorm"],
+        **{f"qwen1.5-0.5b one round, {k.replace('_', '=')}": v["rmsnorm"]
+           for k, v in remat["qwen1.5-0.5b"].items() if k.startswith("remat_")}}
     proto = part["prototype"]
     tree_row["launches_by_path"] = {
         "cnn experiment": fed["launches"]["vecavg"],
@@ -3800,14 +4144,23 @@ def main() -> int:
         **{f"prototype {n}, {PROTO['rounds']} rounds": sum(proto["launches"][n])
            for n in ("batched", "serial")},
         **{f"prototype {w}, {PROTO['wire_rounds']} rounds": proto["wires"][w]["launches"]
-           for w in PROTO["wires"]}}
+           for w in PROTO["wires"]},
+        **{f"cnn sync under {w}, {WIRE16['rounds']} rounds": v["launches"]
+           for w, v in wire_buf["wire"].items()},
+        **{f"cnn buffered parity {w}, {v['commits']} commits": v["launches"]
+           for w, v in wire_buf["parity"].items()},
+        f"cnn buffered, {BUF16['commits']} commits": wire_buf["buffered"]["launches"],
+        "remat rounds, xlstm-1.3b (16 of 48 layers), 5 rounds":
+            remat["xlstm"]["vecavg"] + remat["xlstm_long"]["vecavg"],
+        "remat rounds, qwen1.5-0.5b, 4 rounds": remat["qwen1.5-0.5b"]["vecavg"]}
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
     print(f"[time] phases (s): {json.dumps(clock)}; total {sum(clock.values()):.1f} s")
     print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
                       "families": fam, "sched": sched, "families_serve": fam13,
-                      "partial_participation": part, "ptxas": ptxas, "seconds": clock,
+                      "partial_participation": part, "remat": remat,
+                      "wire_buffered": wire_buf, "ptxas": ptxas, "seconds": clock,
                       "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)

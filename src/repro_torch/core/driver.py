@@ -141,6 +141,10 @@ class TrainDriver:
         logger with ``.params`` (final) and ``.tau_all``."""
         engine = self.engine
         log = logger or RunLogger(None, name=self.mode)
+        engine.reset_wire()  # fresh error-feedback residuals a run
+        # what one client's update costs on the wire under the engine's
+        # codec (the dense float32 bytes for the identity codec)
+        self._wire_bpc = engine.wire_bytes_per_client(params)
         dev = next(iter(params.values())).device
         p = torch.as_tensor(self.p, device=dev)  # device-resident once
         rng = np.random.default_rng(self.seed)
@@ -201,6 +205,9 @@ class TrainDriver:
             L=float(host["L"]),
             premise=float(host["premise"]),
             alpha_k=float(host["alpha_k"]),
+            wire=self.engine.wire_codec.name,
+            wire_bytes=self._wire_bpc * (
+                len(cohort) if cohort is not None else self.engine.controller.C),
         )
         if ev_host:
             row.update(ev_host)

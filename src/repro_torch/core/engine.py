@@ -15,21 +15,28 @@ The engine composes:
     client id, and the controller sees the cohort as its members;
   * the fused round + controller step (``run_fused``): the Alg. 1 update
     runs right after the round on the same device, so the next round's
-    taus and ||grad F(w_{k-1})||^2 never visit the host.
+    taus and ||grad F(w_{k-1})||^2 never visit the host;
+  * the wire stage (``EngineConfig.wire``, ``core/wire.py``): a lossy
+    codec compresses each client's update with error feedback, and the
+    per-client residual rows (``[C, ...]``, built at the first round,
+    dropped by ``reset_wire``) are engine state, gathered and scattered
+    by client id under a cohort exactly like SCAFFOLD's ``c_i``; the
+    identity codec bypasses the stage, bit for bit.
 
 The message-passing prototype (``fed/prototype.py``) uses the engine's
 half-round entry points: ``client_update`` (one client, ``tau`` trips),
 ``client_update_many`` (M clients in one batched call, masked taus) and
 ``server_aggregate`` / ``weighted_average``, which reduce through the
-engine's reduce, so on the card they reach the vecavg kernel.
+engine's reduce, so on the card they reach the vecavg kernel. The
+buffered engine (``core/buffered.py``) uses ``wave_update``: the client
+half of the fused round for one cohort against one params version.
 
 The JAX package donates the params (and scaffold) buffers to its jitted
 round; here the round is a plain functional update — a new params tree is
 returned and the caller's is never modified.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-the buffered engine's ``wave_update`` and the engine's wire codecs with
-their error-feedback rows (A17), and the client-axis mesh (A18).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
+client-axis mesh (A18).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from repro_torch.core.controller import ControllerCore
 from repro_torch.core.fedveca import ScaffoldState, make_local_update, make_round_step
 from repro_torch.core.strategy import get_strategy, global_sum, make_reduce
 from repro_torch.core.tree import tree_axpy
+from repro_torch.core.wire import make_codec, wire_fold
 from repro_torch.data.device import DeviceShards
 
 
@@ -62,7 +70,9 @@ class EngineConfig:
     batch_size: int = 32  # per-client per-step minibatch (device data path)
     cohort_size: Optional[int] = None  # m <= C participating clients; None = all
     aggregator: str = "auto"  # 'auto' | 'pallas' (vecavg kernel) | 'fallback'
-    wire: Any = "none"  # the engine's client->server codecs: ROADMAP A17
+    wire: Any = "none"  # client->server update codec (core/wire.py):
+    #   'none'/'identity' | 'int8' | 'topk:K' | a WireCodec. Lossy codecs
+    #   keep per-client error-feedback rows ([C, ...]) as engine state.
 
 
 class RoundEngine:
@@ -88,8 +98,6 @@ class RoundEngine:
     ):
         if cfg.cohort_size is not None and cfg.cohort_size < 1:
             raise ValueError(f"cohort_size must be >= 1, got {cfg.cohort_size}")
-        if cfg.wire not in ("none", "identity", None):
-            raise not_ported(f"wire={cfg.wire!r}", "A17")
         if mesh is not None:
             raise not_ported("mesh (client-axis sharding)", "A18")
         self.cfg = cfg
@@ -99,8 +107,16 @@ class RoundEngine:
             shards.num_clients if shards is not None else None)
         self._strategy = get_strategy(cfg.mode, mu=cfg.mu)
         self._reduce = make_reduce(cfg.aggregator)
+        self.wire_codec = make_codec(cfg.wire)
+        self._wire_active = not self.wire_codec.is_identity
+        if self._wire_active and self._strategy.uses_scaffold:
+            raise ValueError(
+                f"mode {cfg.mode!r} aggregates parameter deltas, not cum_g; "
+                "wire compression is not supported (use wire='none')")
+        self._wire_res = None  # [C, ...] error-feedback rows, built lazily
         self._round = make_round_step(
-            loss_fn, eta=cfg.eta, mode=cfg.mode, mu=cfg.mu, aggregator=self._reduce)
+            loss_fn, eta=cfg.eta, mode=cfg.mode, mu=cfg.mu, aggregator=self._reduce,
+            wire=self.wire_codec if self._wire_active else None)
         self._local = make_local_update(loss_fn, eta=cfg.eta, strategy=self._strategy)
 
     # -- full round ---------------------------------------------------------
@@ -113,9 +129,10 @@ class RoundEngine:
         ids, cohort = self._prep_cohort(cohort, C, dev)
         p = torch.as_tensor(p, dtype=torch.float32, device=dev)
         scaffold = self._materialize_scaffold(scaffold, params, C)
+        residual = self._wire_state(params, C)
         with strict_fp32():
-            new_params, stats, new_scaffold, _ = self._round_body(
-                params, key, batches, tau, p, gprev_sqnorm, scaffold, ids, cohort)
+            new_params, stats, new_scaffold, _, self._wire_res = self._round_body(
+                params, key, batches, tau, p, gprev_sqnorm, scaffold, ids, cohort, residual)
         return new_params, stats, new_scaffold
 
     # -- fused round + controller (core/driver.TrainDriver) -----------------
@@ -140,10 +157,12 @@ class RoundEngine:
         ids, cohort = self._prep_cohort(cohort, C, dev)
         p = torch.as_tensor(p, dtype=torch.float32, device=dev)
         scaffold = self._materialize_scaffold(scaffold, params, C)
+        residual = self._wire_state(params, C)
         with strict_fp32():
             taus = torch.clamp(cstate.taus, 1, self.cfg.tau_max)
-            new_params, stats, new_scaffold, pw = self._round_body(
-                params, key, batches, taus, p, cstate.prev_grad_sqnorm, scaffold, ids, cohort)
+            new_params, stats, new_scaffold, pw, self._wire_res = self._round_body(
+                params, key, batches, taus, p, cstate.prev_grad_sqnorm, scaffold, ids, cohort,
+                residual)
             if cohort is None:
                 members, tau_round_sum = torch.arange(C, dtype=torch.int32, device=dev), taus.sum()
             else:
@@ -153,32 +172,42 @@ class RoundEngine:
                         tau_round_sum=tau_round_sum, update_sqnorm=stats.update_sqnorm)
         return new_params, new_cstate, new_scaffold, diag
 
-    def _round_body(self, params, key, batches, tau, p, gprev_sqnorm, scaffold, ids, cohort):
+    def _round_body(self, params, key, batches, tau, p, gprev_sqnorm, scaffold, ids, cohort,
+                    residual):
         """The cohort's gathers and scatters around the round: full-C taus,
-        weights, host batches and SCAFFOLD rows in, the cohort's rows through
-        the round (weights renormalised), ``c_i`` rows back by client id.
-        -> (new_params, stats, new_scaffold, the weights used)."""
+        weights, host batches, SCAFFOLD rows and wire residual rows in, the
+        cohort's rows through the round (weights renormalised), ``c_i`` and
+        residual rows back by client id. -> (new_params, stats,
+        new_scaffold, the weights used, new_residual)."""
         dev = tau.device
-        sub_scaffold, pw = scaffold, p
+        sub_scaffold, pw, res_rows = scaffold, p, residual
         if cohort is not None:
             tau = tau[cohort]
             pw = p[cohort] / global_sum(p[cohort])
             if scaffold is not None:
                 sub_scaffold = ScaffoldState(
                     c=scaffold.c, c_i={k: v[cohort] for k, v in scaffold.c_i.items()})
+            if residual is not None:
+                res_rows = {k: v[cohort] for k, v in residual.items()}
         if batches is not None:
             batches = {k: v.to(dev) for k, v in batches.items()}
             if cohort is not None:
                 batches = {k: v[cohort] for k, v in batches.items()}
         else:
             batches = self._sample(key, ids)
-        new_params, stats, new_scaffold = self._round(
-            params, batches, tau, pw, gprev_sqnorm, sub_scaffold)
+        new_residual = residual
+        if residual is None:
+            new_params, stats, new_scaffold = self._round(
+                params, batches, tau, pw, gprev_sqnorm, sub_scaffold)
+        else:
+            new_params, stats, new_scaffold, new_residual = self._round(
+                params, batches, tau, pw, gprev_sqnorm, sub_scaffold, res_rows)
+            if cohort is not None:
+                new_residual = _scatter_rows(residual, cohort, new_residual)
         if cohort is not None and scaffold is not None and new_scaffold is not None:
-            rows = cohort.long()
-            new_scaffold = ScaffoldState(c=new_scaffold.c, c_i={
-                k: v.index_copy(0, rows, new_scaffold.c_i[k]) for k, v in scaffold.c_i.items()})
-        return new_params, stats, new_scaffold, pw
+            new_scaffold = ScaffoldState(
+                c=new_scaffold.c, c_i=_scatter_rows(scaffold.c_i, cohort, new_scaffold.c_i))
+        return new_params, stats, new_scaffold, pw, new_residual
 
     # -- message-passing halves (fed/prototype.py) --------------------------
     def client_update(self, params, batches_c, tau: int, gprev_sqnorm):
@@ -204,11 +233,7 @@ class RoundEngine:
         gprev = torch.as_tensor(gprev_sqnorm, dtype=torch.float32, device=dev)
         M = int(taus.shape[0])
         with strict_fp32():
-            zeros = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
-                     for k, v in params.items()}
-            zrows = {k: torch.zeros((M,) + v.shape, dtype=v.dtype, device=dev)
-                     for k, v in params.items()}
-            out = self._local(params, batches, taus, gprev, zeros, zrows)
+            out = self._local(params, batches, taus, gprev, *self._zero_variates(params, M))
             tau_f = taus.float()
             G = {k: x / tau_f.reshape((M,) + (1,) * (x.dim() - 1))
                  for k, x in out["cum_g"].items()}
@@ -233,8 +258,64 @@ class RoundEngine:
         with strict_fp32():
             return self._reduce(stacked, w, 1.0)[0]
 
-    def wave_update(self, *args, **kwargs):
-        raise not_ported("RoundEngine.wave_update (buffered rounds)", "A17")
+    # -- one wave of the buffered engine (core/buffered.py) ------------------
+    def wave_update(self, params, taus, gprev_sqnorm, cohort, *, key):
+        """The client half of the fused round for the clients ``cohort``
+        (host int ids [m]) against ONE params version, with the server's
+        fold and step left to the caller: the same tau clip, the same
+        per-client draws from the device shards (``key``, as the driver's
+        ``round_key``) and the same masked local loop as ``run_fused``, so
+        a wave committed at once reproduces the synchronous round bit for
+        bit. ``taus`` [C] are the controller's. Under a lossy codec the
+        clients' residual rows advance here, keyed by client id, so an
+        arrival folded rounds later still composes with the client's next
+        wave. -> dict(cum_g, g0 [m, ...] trees; loss0, beta, delta [m];
+        tau [m] int), the raw accumulators (not divided by tau)."""
+        dev = self._device(params)
+        C = int(taus.shape[0])
+        ids, rows = self._prep_cohort(cohort, C, dev)
+        residual = self._wire_state(params, C)
+        with strict_fp32():
+            tau = torch.clamp(taus, 1, self.cfg.tau_max)[rows]
+            batches = self._sample(key, ids)
+            gprev = torch.as_tensor(gprev_sqnorm, dtype=torch.float32, device=dev)
+            outs = self._local(params, batches, tau, gprev,
+                               *self._zero_variates(params, len(ids)))
+            cum_g = outs["cum_g"]
+            if residual is not None:
+                cum_g, new_rows = wire_fold(
+                    self.wire_codec, cum_g, {k: v[rows] for k, v in residual.items()})
+                self._wire_res = _scatter_rows(residual, rows, new_rows)
+        return dict(cum_g=cum_g, g0=outs["g0"], loss0=outs["loss0"], beta=outs["beta"],
+                    delta=outs["delta"], tau=tau)
+
+    # -- wire stage state (core/wire.py) -------------------------------------
+    @property
+    def wire_active(self) -> bool:
+        """True when a non-identity codec compresses the update wire."""
+        return self._wire_active
+
+    def reset_wire(self) -> None:
+        """Drop the error-feedback residuals (start of a fresh run)."""
+        self._wire_res = None
+
+    def _wire_state(self, params, C: int):
+        """The full-C residual rows ([C, ...] float32 zeros at first use),
+        or None when the stage is off. Like SCAFFOLD's ``c_i`` they exist
+        for every client from round 0, so cohort rows stay keyed by id."""
+        if not self._wire_active:
+            return None
+        if self._wire_res is None:
+            self._wire_res = {k: torch.zeros((C,) + v.shape, dtype=torch.float32,
+                                             device=v.device) for k, v in params.items()}
+        return self._wire_res
+
+    def wire_bytes_per_client(self, params) -> int:
+        """Wire bytes of ONE client's update under the codec (float32
+        rows; the dense bytes for the identity codec)."""
+        like = {k: torch.empty(v.shape, dtype=torch.float32, device="meta")
+                for k, v in params.items()}
+        return self.wire_codec.payload_nbytes(like)
 
     # -- cohort sub-sampling ------------------------------------------------
     def sample_cohort(self, rng: np.random.Generator) -> Optional[np.ndarray]:
@@ -274,6 +355,16 @@ class RoundEngine:
             raise ValueError("device data path needs key=")
         return self.shards.sample(key, self.cfg.tau_max, self.cfg.batch_size, ids)
 
+    def _zero_variates(self, params, M: int):
+        """Zero SCAFFOLD variates (a tree and [M, ...] rows) for the local
+        loop of the half-round entry points; None for the other modes."""
+        if not self._strategy.uses_scaffold:
+            return None, None
+        return ({k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+                 for k, v in params.items()},
+                {k: torch.zeros((M,) + v.shape, dtype=v.dtype, device=v.device)
+                 for k, v in params.items()})
+
     def _materialize_scaffold(self, scaffold, params, C: int):
         if not self._strategy.uses_scaffold or scaffold is not None:
             return scaffold
@@ -283,3 +374,10 @@ class RoundEngine:
             c_i={k: torch.zeros((C,) + v.shape, dtype=torch.float32, device=v.device)
                  for k, v in params.items()},
         )
+
+
+def _scatter_rows(full, rows, new):
+    """``full`` (leaves [C, ...]) with the rows ``rows`` (int [m]) replaced
+    by ``new`` (leaves [m, ...]); a new tree, ``full`` is left as it was."""
+    rows = rows.long()
+    return {k: v.index_copy(0, rows, new[k].to(v.dtype)) for k, v in full.items()}

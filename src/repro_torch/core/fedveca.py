@@ -29,12 +29,12 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core.strategy import MODES, Strategy, get_strategy, global_sum, make_reduce
 from repro_torch.core.tree import (
     tree_axpy,
-    tree_map,
     tree_sqnorm,
     tree_sqnorm_per_client,
     tree_sub,
     tree_zeros_like,
 )
+from repro_torch.core.wire import wire_fold
 
 __all__ = ["MODES", "RoundStats", "ScaffoldState", "make_local_update", "make_round_step"]
 
@@ -64,6 +64,24 @@ def _col(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((v.shape[0],) + (1,) * (like.dim() - 1))
 
 
+def _remap(tree, f: Callable, *others):
+    """``tree_map(f, tree, *others)`` that drops each old leaf of ``tree`` as
+    soon as its new one exists (``tree``, a dict of the caller's own, is
+    emptied): the local loop's trees are model-sized [C, ...] stacks, and a
+    whole second copy of one would add a stack to the round's peak."""
+    out = {}
+    for k in sorted(tree):
+        out[k] = f(tree.pop(k), *(o[k] for o in others))
+    return out
+
+
+def _sqdist_per_client(a, b) -> torch.Tensor:
+    """``tree_sqnorm_per_client(tree_sub(a, b))`` a leaf at a time, in the
+    same order of operations, without the difference tree."""
+    return sum((a[k] - b[k]).float().square().reshape(a[k].shape[0], -1).sum(1)
+               for k in sorted(a))
+
+
 def make_local_update(loss_fn: Callable, *, eta: float, strategy: Strategy) -> Callable:
     """Build the clients' local loops (Alg. 2 lines 3-19), batched over C.
 
@@ -85,35 +103,36 @@ def make_local_update(loss_fn: Callable, *, eta: float, strategy: Strategy) -> C
         start = {k: v.expand((C,) + v.shape) for k, v in params0.items()}
         zeros = {k: torch.zeros((C,) + v.shape, dtype=torch.float32, device=dev)
                  for k, v in params0.items()}
-        params, g0, cum_g = start, zeros, zeros
+        params, g0, cum_g = dict(start), zeros, dict(zeros)
         beta = torch.zeros(C, dtype=torch.float32, device=dev)
         delta, loss0 = beta, beta
         for lam in range(T):
             active = (lam < tau).float()
             g, (loss, _) = vg(params, {k: v[:, lam] for k, v in batches.items()})
             is0 = float(lam == 0)
-            g0 = tree_map(lambda a, b: (a.float() + is0 * b.float()).to(a.dtype), g0, g)
+            g0 = _remap(g0, lambda a, b: (a.float() + is0 * b.float()).to(a.dtype), g)
             loss0 = loss0 + is0 * loss.float()
 
             # --- Assumption-3/4 statistics (masked, lam >= 1 only) --------
-            drift = tree_sub(params, start)  # w^l - w_k
-            dist_sq = tree_sqnorm_per_client(drift)
-            gdiff_sq = tree_sqnorm_per_client(tree_sub(g, g0))
+            dist_sq = _sqdist_per_client(params, start)  # ||w^l - w_k||^2
+            gdiff_sq = _sqdist_per_client(g, g0)
             lam_ge1 = float(lam >= 1) * active
             beta_l = torch.sqrt(gdiff_sq / torch.clamp_min(dist_sq, 1e-20))
             beta = torch.maximum(beta, lam_ge1 * beta_l)
 
-            cum_g = tree_map(
-                lambda a, b: (a.float() + _col(active, b) * b.float()).to(a.dtype), cum_g, g)
+            cum_g = _remap(
+                cum_g, lambda a, b: (a.float() + _col(active, b) * b.float()).to(a.dtype), g)
             cumsum_sq = tree_sqnorm_per_client(cum_g)
             denom = (float(lam) + 1.0) * torch.clamp_min(gprev_sqnorm, 1e-20)
             delta = torch.maximum(delta, lam_ge1 * (cumsum_sq / denom))
 
             # --- local SGD update (Eq. 1), strategy-adjusted --------------
+            drift = tree_sub(params, start) if strategy.uses_drift else None  # w^l - w_k
             upd = strategy.local_direction(g, drift, c_server, c_client)
             step = eta * active
-            params = tree_map(
-                lambda w, u: (w.float() - _col(step, u) * u.float()).to(w.dtype), params, upd)
+            params = _remap(
+                params, lambda w, u: (w.float() - _col(step, u) * u.float()).to(w.dtype), upd)
+            del g, drift, upd  # not held through the next gradient call
         return dict(params=params, g0=g0, cum_g=cum_g, beta=beta, delta=delta, loss0=loss0)
 
     return local_update
@@ -126,6 +145,9 @@ def make_round_step(
     mode: str = "fedveca",
     mu: float = 0.0,  # fedprox proximal coefficient
     aggregator="auto",  # 'auto' | 'pallas' (the vecavg kernel) | 'fallback' | Reduce
+    wire=None,  # a WireCodec (core/wire.py): the per-client cum_g rows pass
+    #   through an error-feedback encode/decode before the reduce; None or
+    #   identity is the round without the stage, bit for bit
 ) -> Callable:
     """Build the federated round.
 
@@ -140,25 +162,48 @@ def make_round_step(
                     line 14/17); 0 in round 0 (delta falls back to 1)
       -> (new_params, RoundStats, new_scaffold)
 
+    With ``wire`` a trailing ``residual`` argument (leaves [C, ...], the
+    clients' error-feedback rows) is consumed and the return grows to
+    ``(new_params, stats, new_scaffold, new_residual)``: the raw ``cum_g``
+    rows are folded through the codec (``core/wire.wire_fold``) before the
+    strategy reduces them, so every mode and both reduces see decoded
+    dense rows and stay as they are.
+
     The server reduce runs twice a round (the global step and the Eq. 8
     global gradient), so the vecavg kernel launches twice a round.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; valid: {MODES}")
+    if wire is not None and wire.is_identity:
+        wire = None  # identity short-circuits: the round without the stage
+    if wire is not None and mode == "scaffold":
+        raise ValueError(
+            "wire compression applies to the cum_g update; scaffold "
+            "aggregates parameter deltas and is not supported with a "
+            "non-identity wire codec")
     strategy = get_strategy(mode, mu=mu)
     reduce = make_reduce(aggregator)
     local_update = make_local_update(loss_fn, eta=eta, strategy=strategy)
 
     def round_step(params, batches, tau, p, gprev_sqnorm,
-                   scaffold: Optional[ScaffoldState] = None):
+                   scaffold: Optional[ScaffoldState] = None, residual=None):
         C = tau.shape[0]
         tau_f = tau.float()
         gprev_sqnorm = torch.as_tensor(gprev_sqnorm, dtype=torch.float32, device=tau.device)
-        c_server = scaffold.c if scaffold is not None else tree_zeros_like(params)
-        c_client = (scaffold.c_i if scaffold is not None else
-                    {k: torch.zeros((C,) + v.shape, dtype=v.dtype, device=v.device)
-                     for k, v in params.items()})
+        # the control variates exist for SCAFFOLD alone: every other mode's
+        # local direction ignores them, and two zero trees of the model's
+        # size (one of them [C, ...]) would only take memory
+        c_server = c_client = None
+        if strategy.uses_scaffold:
+            c_server = scaffold.c if scaffold is not None else tree_zeros_like(params)
+            c_client = (scaffold.c_i if scaffold is not None else
+                        {k: torch.zeros((C,) + v.shape, dtype=v.dtype, device=v.device)
+                         for k, v in params.items()})
         outs = local_update(params, batches, tau, gprev_sqnorm, c_server, c_client)
+        new_residual = residual
+        if wire is not None:
+            decoded, new_residual = wire_fold(wire, outs["cum_g"], residual)
+            outs = dict(outs, cum_g=decoded)
 
         tau_k = global_sum(p * tau_f)
         delta_w = strategy.server_delta(outs, params, tau_f, p, eta, reduce)
@@ -183,6 +228,8 @@ def make_round_step(
             params_sqnorm=tree_sqnorm(params),
             global_grad_sqnorm=tree_sqnorm(global_grad),
         )
+        if wire is not None:
+            return new_params, stats, new_scaffold, new_residual
         return new_params, stats, new_scaffold
 
     return round_step

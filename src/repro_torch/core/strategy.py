@@ -94,14 +94,16 @@ class Strategy:
 
     name: str = "base"
     uses_scaffold: bool = False
+    uses_drift: bool = False  # local_direction reads w^l - w_k (FedProx)
 
     # -- client half (Alg. 2 line 7) ----------------------------------------
     def local_direction(self, g, drift, c_server, c_client):
         """Gradient -> local SGD direction, stacked over the clients.
 
-        g: minibatch gradients [C, ...]; drift: w^l - w_k [C, ...];
-        c_server [...] / c_client [C, ...]: SCAFFOLD control variates (zero
-        trees for other modes).
+        g: minibatch gradients [C, ...]; drift: w^l - w_k [C, ...] (None
+        unless ``uses_drift``);
+        c_server [...] / c_client [C, ...]: SCAFFOLD control variates (None
+        for the other modes, which ignore them).
         """
         return g
 
@@ -166,6 +168,7 @@ class FedProxStrategy(FedAvgStrategy):
     """FedAvg aggregation + proximal local objective (mu/2)||w - w_k||^2."""
 
     name = "fedprox"
+    uses_drift = True
 
     def __init__(self, mu: float = 0.0):
         self.mu = mu

@@ -16,8 +16,8 @@
 ``IdentityCodec.is_identity`` tells callers to bypass the stage entirely
 (no residual, no extra op), which keeps wire-off runs bitwise equal to
 runs without the stage. The message-passing prototype
-(``fed/prototype.py``) uses the codecs; the engine's own wire state is
-ROADMAP A17.
+(``fed/prototype.py``) uses the codecs, and so does the engine
+(``EngineConfig.wire``), whose per-client residual rows are its state.
 """
 from __future__ import annotations
 

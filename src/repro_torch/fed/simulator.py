@@ -29,8 +29,16 @@ tree (e.g. carried over from the JAX package with ``repro_torch.bridge``,
 whose ``jax.random`` init cannot be reproduced here); without one they
 init from a ``torch.Generator`` seeded with ``cfg.seed``.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``wire`` (A17), ``buffered`` (A17), ``mesh`` (A18).
+``wire`` compresses each client's update with error feedback
+(``core/wire.py``; the residual rows are engine state) and the rows carry
+``wire`` and ``wire_bytes``. ``buffered=True`` hands the run to
+``core/buffered.BufferedRoundEngine`` (FedBuff-style continuous admission
+instead of the synchronous barrier; ``buffer_waves=1``, ``instant``
+latency and ``grad_decay=1.0`` reproduce the synchronous driver bit for
+bit); it needs the device data path.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+``mesh`` (A18).
 """
 from __future__ import annotations
 
@@ -42,9 +50,10 @@ import torch
 from torch.func import grad_and_value
 
 from repro_torch import strict_fp32
+from repro_torch.core.buffered import BufferedConfig, BufferedRoundEngine, LatencyModel
 from repro_torch.core.controller import ControllerConfig, ControllerCore, FedVecaController
 from repro_torch.core.driver import TrainDriver, make_dataset_evaluator
-from repro_torch.core.engine import EngineConfig, RoundEngine, not_ported
+from repro_torch.core.engine import EngineConfig, RoundEngine
 from repro_torch.data.device import DeviceShards, format_batch, host_stacked_batches
 from repro_torch.data.synthetic import Dataset
 from repro_torch.metrics.logger import RunLogger
@@ -69,17 +78,24 @@ class FedSimConfig:
     overlap: int = 1  # in-flight rounds before host sync; 0 = sync mode
     cohort_size: Optional[int] = None  # m <= C participating clients a round
     stats_decay: float = 0.9  # staleness retention for unobserved clients
+    wire: str = "none"  # client->server codec: none | int8 | topk:K
+    # -- buffered asynchronous rounds (core/buffered.py) ----------------------
+    buffered: bool = False  # continuous admission instead of the barrier
+    buffer_waves: int = 1  # cohorts in flight
+    grad_decay: float = 1.0  # staleness weight decay ** age on arrivals
+    latency_kind: str = "instant"  # instant | uniform | exp | hetero
+    latency_scale: float = 1.0
+    latency_spread: float = 1.0  # hetero: per-client lognormal spread
     # -- not ported yet (NotImplementedError naming the ROADMAP item) -------
-    wire: str = "none"  # A17
-    buffered: bool = False  # A17
     mesh: Optional[object] = None  # A18
 
 
 class FederatedSimulator:
     def __init__(self, model, client_data: List[Dataset], cfg: FedSimConfig,
                  test_data: Optional[Dataset] = None):
-        if cfg.buffered:
-            raise not_ported("buffered=True (asynchronous rounds)", "A17")
+        if cfg.buffered and cfg.data_path != "device":
+            raise ValueError("buffered rounds need data_path='device' "
+                             "(arrival waves sample from the device shards)")
         self.model = model
         self.device = model.device
         self.client_data = client_data
@@ -105,14 +121,24 @@ class FederatedSimulator:
         )
         # the numpy twin stays constructible, as in the JAX package
         self.controller = FedVecaController(ctrl_cfg, self.C)
+        eval_fn = (make_dataset_evaluator(model.loss, test_data, device=self.device)
+                   if test_data is not None else None)
         self.driver = TrainDriver(
             self.engine, self.p,
             overlap=cfg.overlap, seed=cfg.seed, mode=cfg.mode,
-            eval_fn=(make_dataset_evaluator(model.loss, test_data, device=self.device)
-                     if test_data is not None else None),
-            eval_every=cfg.eval_every,
+            eval_fn=eval_fn, eval_every=cfg.eval_every,
             batches_fn=self._host_batches if cfg.data_path == "host" else None,
         )
+        self.buffered_engine = None
+        if cfg.buffered:
+            self.buffered_engine = BufferedRoundEngine(
+                self.engine, self.p,
+                BufferedConfig(
+                    waves=cfg.buffer_waves, grad_decay=cfg.grad_decay,
+                    latency=LatencyModel(cfg.latency_kind, scale=cfg.latency_scale,
+                                         spread=cfg.latency_spread, seed=cfg.seed),
+                    seed=cfg.seed, overlap=max(cfg.overlap, 1)),
+                mode=cfg.mode, eval_fn=eval_fn, eval_every=cfg.eval_every)
 
     # -- data ---------------------------------------------------------------
     def _host_batches(self, rng: np.random.Generator):
@@ -159,6 +185,8 @@ class FederatedSimulator:
             params = self.model.init(cfg.seed)
         params = {k: v.to(self.device) for k, v in params.items()}
         log = RunLogger(cfg.log_dir, name=f"{cfg.mode}")
+        if self.buffered_engine is not None:
+            return self.buffered_engine.run(params, rounds, self.init_taus(), logger=log)
         return self.driver.run(params, rounds, self.init_taus(), logger=log)
 
 

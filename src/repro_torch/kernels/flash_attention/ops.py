@@ -113,13 +113,22 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """Forward only. Written in ``torch.func``'s form (``forward`` without
+    ctx, ``setup_context``), so that a backward reached through
+    ``torch.func.vjp`` (a rematerialized layer's recompute) raises the same
+    error as plain autograd."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(q, k, v, causal, window, q_offset):
         if q.device.type == "cpu":
             return ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
         if q.device.type != "cuda":
             raise ValueError(f"flash_attention: no kernel for {q.device}")
         return _launch(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -11,9 +11,10 @@ Params are a flat dict keyed by the JAX package's keypaths: ``frame_proj``,
 ``enc_pos``, ``embed``, ``pos_embed``, ``enc_final_norm/*``,
 ``final_norm/*``, and the stacks ``enc_layers/{norm1,norm2,attn,mlp}/*``
 and ``dec_layers/{norm1,norm_x,norm2,self_attn,cross_attn,mlp}/*``, each
-``[L, ...]``. The stacks are Python loops over layers; the JAX package's
-``jax.checkpoint`` around each layer is rematerialization for its
-backward and changes no number, so it is not ported.
+``[L, ...]``. The stacks are Python loops over layers. As in the JAX
+package, ``forward(remat=True)`` (the default) rematerializes each
+decoder layer for the backward (``transformer._remat_wrap``), and the
+encoder's layers are rematerialized whatever ``remat`` says.
 
 The JAX package's functions take ``impl`` and every other keyword through
 ``**_`` and ignore them: whisper's attention is ``attention_block``'s
@@ -33,7 +34,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (Params, apply_norm, cross_entropy,
                                        dense_init, embed_init, mlp_apply,
                                        mlp_init, norm_init, promoted_matmul)
-from repro_torch.models.transformer import _prefixed, _sub, layer_params
+from repro_torch.models.transformer import _prefixed, _remat_wrap, _sub, layer_params
 
 
 def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
@@ -70,53 +71,84 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
 
 
 def encode(cfg, p: Params, frames):
-    """frames [B, T_enc, frontend_dim] -> [B, T_enc, d]."""
+    """frames [B, T_enc, frontend_dim] -> [B, T_enc, d]. Each layer is
+    rematerialized for the backward whatever ``remat`` says, as the JAX
+    package's ``encode`` always wraps its layers in ``jax.checkpoint``."""
     dt = getattr(torch, cfg.compute_dtype)
     h = promoted_matmul(frames, p["frame_proj"]).to(dt)
     h = h + p["enc_pos"][:h.shape[1]][None].to(dt)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    for lp in layer_params(p, cfg.encoder_layers, "enc_layers"):
+
+    def body(h, lp, positions):
         h = h + attn.attention_block(cfg, lp, apply_norm(cfg, lp, "norm1", h), positions,
                                      causal=False)
-        h = h + mlp_apply(cfg, lp, apply_norm(cfg, lp, "norm2", h))
+        return (h + mlp_apply(cfg, lp, apply_norm(cfg, lp, "norm2", h)),)
+
+    layer = _remat_wrap(body, True)
+    for lp in layer_params(p, cfg.encoder_layers, "enc_layers"):
+        (h,) = layer(h, lp, positions)
     return apply_norm(cfg, p, "enc_final_norm", h)
 
 
-def _cross_attention(cfg, lp: Params, h, enc_out):
-    """Queries from the decoder states, K/V from the encoder's output, no
-    RoPE, no mask. ``lp`` holds one layer's ``cross_attn/*`` leaves without
-    the prefix."""
-    B, S, _ = h.shape
-    T = enc_out.shape[1]
-    q, k, v = h @ lp["w_q"], enc_out @ lp["w_k"], enc_out @ lp["w_v"]
+_CROSS_KV = ("cross_attn/w_k", "cross_attn/w_v", "cross_attn/b_k", "cross_attn/b_v")
+
+
+def _cross_kv(cfg, lp: Params, enc_out):
+    """The cross-attention's K and V [B, T, Hkv, hd] from the encoder's
+    output, no RoPE. ``lp`` holds one layer's ``cross_attn/*`` leaves
+    without the prefix."""
+    B, T, _ = enc_out.shape
+    k, v = enc_out @ lp["w_k"], enc_out @ lp["w_v"]
     if "b_q" in lp:
-        q, k, v = q + lp["b_q"], k + lp["b_k"], v + lp["b_v"]
+        k, v = k + lp["b_k"], v + lp["b_v"]
+    return (k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _cross_attention(cfg, lp: Params, h, k, v):
+    """Queries from the decoder states against :func:`_cross_kv`'s K/V,
+    no RoPE, no mask. ``lp`` holds one layer's ``cross_attn/*`` leaves
+    without the prefix."""
+    B, S, _ = h.shape
+    q = h @ lp["w_q"]
+    if "b_q" in lp:
+        q = q + lp["b_q"]
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     o = attn._direct_attention(q, k, v, torch.arange(S, device=h.device),
-                               torch.arange(T, device=h.device), causal=False, window=0)
+                               torch.arange(k.shape[1], device=h.device), causal=False, window=0)
     return o.reshape(B, S, cfg.q_dim) @ lp["w_o"]
 
 
-def _decoder(cfg, p: Params, batch, enc_out, kv_out=None):
+def _decoder(cfg, p: Params, batch, enc_out, kv_out=None, remat=False):
     """The decoder stack on ``batch["tokens"]`` -> final hidden states
     (before ``final_norm``); with ``kv_out`` a list, each layer's prefill
-    KV cache of its self-attention is appended to it."""
+    KV cache of its self-attention is appended to it. ``remat``
+    rematerializes each layer (``transformer._remat_wrap``) but for its
+    cross-attention K/V, which are projected from the encoder's output
+    outside the block and enter it as tensors: the encoder's output feeds
+    every layer, and with the projections outside, its gradient sums the
+    layers' terms in one order with and without ``remat``, so the two
+    agree bit for bit."""
     dt = getattr(torch, cfg.compute_dtype)
     h = p["embed"][batch["tokens"].long()].to(dt)
     S = h.shape[1]
     h = h + p["pos_embed"][:S][None].to(dt)
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    for lp in layer_params(p, cfg.num_layers, "dec_layers"):
+
+    def body(h, lp, k, v, positions):
         self_attn = _prefixed("attn", _sub(lp, "self_attn"))
         hn = apply_norm(cfg, lp, "norm1", h)
         if kv_out is not None:
             kv_out.append(attn.prefill_kv_cache(cfg, self_attn, hn, positions))
         h = h + attn.attention_block(cfg, self_attn, hn, positions, causal=True)
         h = h + _cross_attention(cfg, _sub(lp, "cross_attn"), apply_norm(cfg, lp, "norm_x", h),
-                                 enc_out)
-        h = h + mlp_apply(cfg, lp, apply_norm(cfg, lp, "norm2", h))
+                                 k, v)
+        return (h + mlp_apply(cfg, lp, apply_norm(cfg, lp, "norm2", h)),)
+
+    layer = _remat_wrap(body, remat)
+    for lp in layer_params(p, cfg.num_layers, "dec_layers"):
+        k, v = _cross_kv(cfg, _sub(lp, "cross_attn"), enc_out)
+        (h,) = layer(h, {n: x for n, x in lp.items() if n not in _CROSS_KV}, k, v, positions)
     return h
 
 
@@ -124,20 +156,23 @@ def _unembed(cfg, p: Params, h):
     return apply_norm(cfg, p, "final_norm", h) @ p["embed"].T
 
 
-def forward(cfg, p: Params, batch, impl: str = "auto", **_):
+def forward(cfg, p: Params, batch, impl: str = "auto", remat=True, **_):
     """batch {frames [B, T, frontend_dim], tokens [B, S]} -> (logits [B, S,
-    V], aux 0). ``impl`` and any other keyword are accepted and ignored, as
-    the JAX ``forward``'s ``**_`` does: no kernel is on this path."""
+    V], aux 0). ``remat`` (True by default, as in the JAX package)
+    rematerializes each decoder layer for the backward; ``"dots"`` raises
+    (ROADMAP.md A18). ``impl`` and any other keyword are accepted and
+    ignored, as the JAX ``forward``'s ``**_`` does: no kernel is on this
+    path."""
     del impl
     enc_out = encode(cfg, p, batch["frames"])
-    logits = _unembed(cfg, p, _decoder(cfg, p, batch, enc_out))
+    logits = _unembed(cfg, p, _decoder(cfg, p, batch, enc_out, remat=remat))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def loss_fn(cfg, p: Params, batch, impl: str = "auto", **_):
+def loss_fn(cfg, p: Params, batch, impl: str = "auto", remat=True, **_):
     """-> (cross entropy + aux, {"ce", "aux"}); ``batch["loss_mask"]``
-    optional; ``impl`` ignored, as in :func:`forward`."""
-    logits, aux = forward(cfg, p, batch, impl=impl)
+    optional; ``impl`` ignored and ``remat`` as in :func:`forward`."""
+    logits, aux = forward(cfg, p, batch, impl=impl, remat=remat)
     ce = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 

@@ -2,8 +2,8 @@
 
     model = build_model(cfg, device="cuda")
     params = model.init(seed)                          -> flat dict of tensors
-    model.loss(params, batch[, impl=])                 -> (scalar, metrics)
-    model.forward(params, batch[, impl=])              -> (logits, aux) / scores [toy]
+    model.loss(params, batch[, impl=, remat=])         -> (scalar, metrics)
+    model.forward(params, batch[, impl=, remat=])      -> (logits, aux) / scores [toy]
     model.prefill(params, batch, impl=, window=, pad_to=, length=) -> (logits, DecodeCache)
     model.init_cache(batch, seq_len[, window]) -> DecodeCache
     model.decode_step(params, cache, token, pos, ...) -> (logits, DecodeCache)

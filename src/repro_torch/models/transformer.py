@@ -174,6 +174,92 @@ def _mixer(cfg, lp: Params, hn, attn_out, state=None):
 # ---------------------------------------------------------------------------
 
 
+class _Remat(torch.autograd.Function):
+    """Rematerialization of one block: ``apply(fn, *tensors)`` runs
+    ``fn(*tensors)`` (a tuple of tensors) without keeping its activations
+    and saves only its inputs; the backward runs ``fn`` again through
+    ``torch.func.vjp`` on them, differentiating the floating-point ones
+    (integer inputs such as positions ride along). ``fn`` must close over
+    no tensor: a tensor made inside a ``torch.func`` transform and read
+    from a closure is not visible at the level where the block runs.
+
+    Written for ``torch.func`` (``forward`` without ctx,
+    ``setup_context``, a generated ``vmap`` rule), so it composes with the
+    round's ``vmap(grad_and_value)`` and with the rmsnorm op's own
+    ``vmap`` rule inside ``fn``. ``torch.utils.checkpoint`` cannot serve
+    here: its non-reentrant form rests on saved-tensor hooks, which
+    ``torch.func``'s transforms refuse, and its reentrant form has no
+    ``setup_context``. The recompute runs the same ops on the same inputs,
+    so it rebuilds the forward's values (MoE routing included) bit for
+    bit."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # torch.func's grad runs the backward with create_graph=True: were
+        # the recompute's inputs and cotangents still tracked here, its
+        # backward would be recorded, and that graph would keep every
+        # block's recomputed activations alive to the end of the whole
+        # backward. Detached, nothing is recorded at this level. Grad mode
+        # itself stays as the caller set it: some backward formulas depend
+        # on it (SiLU's), and turning it off would change the bits.
+        args = [a.detach() for a in ctx.saved_tensors]
+        grads = tuple(g.detach() for g in grads)
+        diff = [i for i, a in enumerate(args) if a.is_floating_point()]
+
+        def fn(*xs):
+            full = list(args)
+            for i, x in zip(diff, xs):
+                full[i] = x
+            return ctx.fn(*full)
+
+        _, pull = torch.func.vjp(fn, *(args[i] for i in diff))
+        out = [None] * len(args)
+        for i, g in zip(diff, pull(grads)):
+            out[i] = g
+        return (None, *out)
+
+
+def _remat_wrap(body, remat):
+    """``body(h, lp, *extra) -> tuple of tensors`` -> the same function,
+    rematerialized when ``remat`` is True (the JAX package's
+    ``jax.checkpoint`` around a block): the block's tensors (``h``, the
+    extra tensors and the leaves of the params dict ``lp``) go to
+    :class:`_Remat` flat; ``body`` closes over everything else, which
+    must hold no tensor. ``remat=False`` returns ``body`` itself.
+    ``"dots"`` (keep the matmul outputs) would need selective
+    checkpointing, which rests on the same saved-tensor hooks, and
+    raises."""
+    if remat is False:
+        return body
+    if remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" is not ported to repro_torch yet (ROADMAP.md A18, '
+            "with the step bundles that pass it); use remat=True or False")
+    if remat is not True:
+        raise ValueError(f'remat must be True, False or "dots", got {remat!r}')
+
+    def run(h, lp: Params, *extra):
+        keys, n = list(lp), len(extra)
+
+        def flat(h, *xs):
+            return body(h, dict(zip(keys, xs[n:])), *xs[:n])
+
+        return _Remat.apply(flat, h, *extra, *lp.values())
+
+    return run
+
+
 def layer_apply(cfg, lp: Params, h, positions, impl: str = "auto", window=None):
     """One decoder layer -> (h, aux): the router's aux loss for the MoE
     family, a float32 zero otherwise."""
@@ -185,14 +271,15 @@ def layer_apply(cfg, lp: Params, h, positions, impl: str = "auto", window=None):
     return h, aux
 
 
-def _xlstm_blocks(p: Params, kind: str, i: int, n: int):
-    """Views of super-block ``i``'s ``n`` blocks of ``kind`` (m or s): each
-    ``(norm leaves keyed norm/*, cell leaves keyed without a prefix)``."""
-    norm = {k: v for k, v in p.items() if k.startswith(f"xlstm/{kind}_norm/")}
-    cell = _sub(p, f"xlstm/{kind}")
-    off = len(f"xlstm/{kind}_")
-    return [({k[off:]: v[i, j] for k, v in norm.items()},
-             {k: v[i, j] for k, v in cell.items()}) for j in range(n)]
+def _blocks(sp: Params, kind: str, n: int):
+    """Views of a super-block's ``n`` blocks of ``kind`` (m or s): each
+    ``(norm leaves keyed norm/*, cell leaves keyed without a prefix)``.
+    Views by ``unbind``, as ``layer_params`` makes them: its backward
+    stacks the blocks' gradients into one buffer, where indexing block by
+    block would add a zero buffer of the whole leaf for each block."""
+    norms = layer_params(sp, n, f"{kind}_norm")
+    return [({f"norm/{k}": v for k, v in nm.items()}, cell)
+            for nm, cell in zip(norms, layer_params(sp, n, kind))]
 
 
 def _row_update(old, new, active=None) -> None:
@@ -205,52 +292,75 @@ def _row_update(old, new, active=None) -> None:
         o.copy_(n)
 
 
-def _xlstm_stack(cfg, p: Params, h, cache=None, active=None):
+def _xlstm_stack(cfg, p: Params, h, cache=None, active=None, remat=True):
     """Super-blocks in order; each runs its mLSTM blocks, then its sLSTM
     blocks, every block pre-normed with a residual (``_xlstm_stack`` of the
     JAX package). Without ``cache`` every block starts from a zero state
-    (the forward). With one (a ``DecodeCache`` whose xLSTM leaves are
+    (the forward), and ``remat`` rematerializes each super-block, as in
+    the JAX package. With one (a ``DecodeCache`` whose xLSTM leaves are
     ``[n_super, n_per, B, ...]``) each block starts from its state there
     and writes its final state back in place, on the rows of ``active``
     only when given (prefill's ``_xlstm_prefill_states`` and decode's
-    ``_xlstm_decode``)."""
+    ``_xlstm_decode``); ``remat`` does not apply there."""
     n_super, n_m, n_s = _xlstm_counts(cfg)
-    for i in range(n_super):
-        for kind, n, apply in (("m", n_m, xlstm_mod.mlstm_apply),
-                               ("s", n_s, xlstm_mod.slstm_apply)):
-            states = None if cache is None else (cache.xlstm_m if kind == "m"
-                                                 else cache.xlstm_s)
-            for j, (norm, cell) in enumerate(_xlstm_blocks(p, kind, i, n)):
-                st = None if states is None else type(states)(*(x[i, j] for x in states))
+    cells = (("m", n_m, xlstm_mod.mlstm_apply), ("s", n_s, xlstm_mod.slstm_apply))
+    if cache is None:
+        def super_block(h, sp):
+            for kind, n, apply in cells:
+                for norm, cell in _blocks(sp, kind, n):
+                    h = h + apply(cfg, cell, apply_norm(cfg, norm, "norm", h), None)[0]
+            return (h,)
+
+        block = _remat_wrap(super_block, remat)
+        for sp in layer_params(p, n_super, "xlstm"):
+            (h,) = block(h, sp)
+        return h
+    for i, sp in enumerate(layer_params(p, n_super, "xlstm")):
+        for kind, n, apply in cells:
+            states = cache.xlstm_m if kind == "m" else cache.xlstm_s
+            for j, (norm, cell) in enumerate(_blocks(sp, kind, n)):
+                st = type(states)(*(x[i, j] for x in states))
                 y, new = apply(cfg, cell, apply_norm(cfg, norm, "norm", h), st)
-                if st is not None:
-                    _row_update(st, new, active)
+                _row_update(st, new, active)
                 h = h + y
     return h
 
 
-def forward(cfg, p: Params, batch, impl: str = "auto", window=None):
+def forward(cfg, p: Params, batch, impl: str = "auto", window=None, remat=True, unroll=1):
     """-> (logits [B, S, V], aux loss: the routers' mean over layers, 0
     without). ``impl`` picks the attention (``attention.attention_block``);
-    ``window=None`` applies the config's. The JAX ``forward``'s ``remat``
-    and ``unroll`` are XLA compile knobs (rematerialization and scan
-    unrolling) and are not ported: this runs eagerly, layer by layer."""
+    ``window=None`` applies the config's. ``remat`` (True by default, as
+    in the JAX package) rematerializes each decoder layer, or each xLSTM
+    super-block, for the backward: a gradient call keeps only the blocks'
+    inputs and runs every block's forward twice, so the rmsnorm kernel
+    launches 4L + 1 times a gradient call against 2L + 1 with
+    ``remat=False`` or under ``no_grad``; values and gradients are the
+    same bits either way. ``"dots"`` raises (ROADMAP.md A18). ``unroll``
+    is the JAX package's scan-unrolling compile knob and is ignored: this
+    runs eagerly, layer by layer."""
+    del unroll
     check_full_sequence(cfg)
     h = embed_tokens(cfg, p, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
-        return unembed(cfg, p, _xlstm_stack(cfg, p, h)), aux
+        return unembed(cfg, p, _xlstm_stack(cfg, p, h, remat=remat)), aux
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+
+    def body(h, lp, positions):
+        return layer_apply(cfg, lp, h, positions, impl=impl, window=window)
+
+    layer = _remat_wrap(body, remat)
     for lp in layer_params(p, cfg.num_layers):
-        h, a = layer_apply(cfg, lp, h, positions, impl=impl, window=window)
+        h, a = layer(h, lp, positions)
         aux = aux + a
     return unembed(cfg, p, h), aux / max(cfg.num_layers, 1)
 
 
-def loss_fn(cfg, p: Params, batch, impl: str = "auto", window=None):
+def loss_fn(cfg, p: Params, batch, impl: str = "auto", window=None, remat=True, unroll=1):
     """-> (cross entropy + aux, {"ce", "aux"}); ``batch["loss_mask"]``
-    optional."""
-    logits, aux = forward(cfg, p, batch, impl=impl, window=window)
+    optional; ``remat`` and ``unroll`` as in :func:`forward`."""
+    logits, aux = forward(cfg, p, batch, impl=impl, window=window, remat=remat,
+                          unroll=unroll)
     ce = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 

@@ -14,6 +14,8 @@ batches: round 0's tau and train loss (rtol 1e-5) against the JAX
 package's simulator, and the MoE round launches rmsnorm once a norm call
 for all clients.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,9 +86,11 @@ def test_round_step_matches_jax(arch):
 
 def test_moe_round_launches_rmsnorm_once_a_norm_call(monkeypatch):
     """What chip_smoke.py's MoE round is held to: tau_max trips of one
-    vmapped loss call each, 2L + 1 norm calls a loss call (the router adds
-    none), counted on the plain version, which the op runs exactly where
-    the card launches the kernel."""
+    vmapped gradient call each, 4L + 1 norm calls a gradient call under the
+    default remat (each layer's two norms run again in its recompute; the
+    final norm is not recomputed) and 2L + 1 with ``remat=False`` (the
+    router adds none), counted on the plain version, which the op runs
+    exactly where the card launches the kernel."""
     _, _, tm, tp = _pair("granite-moe-1b-a400m")
     L = tm.config.num_layers
     calls = []
@@ -94,9 +98,12 @@ def test_moe_round_launches_rmsnorm_once_a_norm_call(monkeypatch):
     monkeypatch.setattr(rn_ops.ref, "rmsnorm", lambda *a, **k: calls.append(1) or real(*a, **k))
     C, T, B, S = 2, 3, 2, 8
     seqs = np.random.RandomState(2).randint(0, 512, (C, T, B, S + 1)).astype(np.int32)
-    make_round_step(tm.loss, eta=0.05)(tp, format_batch(seqs), torch.tensor([3, 1]),
-                                      torch.tensor([0.5, 0.5]), torch.tensor(0.0))
-    assert len(calls) == T * (2 * L + 1)
+    for loss, per_call in ((tm.loss, 4 * L + 1),
+                           (functools.partial(tm.loss, remat=False), 2 * L + 1)):
+        calls.clear()
+        make_round_step(loss, eta=0.05)(tp, format_batch(seqs), torch.tensor([3, 1]),
+                                        torch.tensor([0.5, 0.5]), torch.tensor(0.0))
+        assert len(calls) == T * per_call
 
 
 def test_simulator_runs_the_moe_family_like_jax():

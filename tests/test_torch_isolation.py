@@ -54,7 +54,8 @@ def test_port_modules_found():
                  "repro_torch.models.moe", "repro_torch.models.ssm",
                  "repro_torch.models.xlstm", "repro_torch.optim.optimizers",
                  "repro_torch.models.encdec", "repro_torch.configs.phi_3_vision_4_2b",
-                 "repro_torch.configs.whisper_medium"):
+                 "repro_torch.configs.whisper_medium", "repro_torch.core.wire",
+                 "repro_torch.core.buffered"):
         assert want in mods
 
 

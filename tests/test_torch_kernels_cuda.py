@@ -972,7 +972,8 @@ def test_rmsnorm_kernel_raises_rather_than_falls_back(cuda):
 
 def test_lm_round_launches_rmsnorm_per_norm_call_on_card(cuda):
     """A reduced Qwen1.5 (rmsnorm) FedVeca round on the card: rmsnorm
-    launches once a norm call for all clients, tau_max * (2L + 1) a round,
+    launches once a norm call for all clients, tau_max * (4L + 1) a round
+    (each gradient call's rematerialized layers run their two norms again),
     vecavg twice; the round through the kernel equals the round through the
     plain op within 1e-5 on the params."""
     import functools
@@ -997,7 +998,7 @@ def test_lm_round_launches_rmsnorm_per_norm_call_on_card(cuda):
         va_ops.reset_launches()
         pk, sk, _ = step(params, batches, tau, pw, torch.tensor(0.05, device=cuda))
         torch.cuda.synchronize()
-        assert rn_ops.launches["rmsnorm"] == T * (2 * cfg.num_layers + 1)
+        assert rn_ops.launches["rmsnorm"] == T * (4 * cfg.num_layers + 1)
         assert va_ops.launches["vecavg"] == 2
         plain = functools.partial(rn_ops.rmsnorm, use_pallas=False)
         orig, layers.rmsnorm = layers.rmsnorm, lambda x, s, eps=1e-6: plain(x, s, eps=eps)
@@ -1006,10 +1007,45 @@ def test_lm_round_launches_rmsnorm_per_norm_call_on_card(cuda):
         finally:
             layers.rmsnorm = orig
         torch.cuda.synchronize()
-    assert rn_ops.launches["rmsnorm"] == T * (2 * cfg.num_layers + 1)
+    assert rn_ops.launches["rmsnorm"] == T * (4 * cfg.num_layers + 1)
     for k in params:
         torch.testing.assert_close(pk[k], pp[k], atol=1e-5, rtol=0)
     torch.testing.assert_close(sk.loss0, sp.loss0, atol=1e-6, rtol=1e-5)
+
+
+def test_remat_gradients_bitwise_equal_to_none_on_card(cuda):
+    """A 2-layer rmsnorm decoder (reduced Qwen1.5) under the round's
+    ``vmap(grad_and_value)`` on the card: ``remat=True`` gives the
+    gradients and values of ``remat=False`` bit for bit (the recompute
+    launches the same kernels on the same inputs), with rmsnorm launched
+    4L + 1 times against 2L + 1."""
+    import functools
+
+    from repro_torch import strict_fp32
+    from repro_torch.models.model import build_model_by_name
+
+    model = build_model_by_name("qwen1.5-32b", reduced=True, device=cuda)
+    cfg = model.config
+    L = cfg.num_layers
+    params = model.init(0)
+    g = torch.Generator().manual_seed(3)
+    C, B, S = 3, 2, 32
+    seqs = torch.randint(0, cfg.vocab_size, (C, B, S + 1), generator=g).to(cuda, torch.int32)
+    batch = {"tokens": seqs[..., :-1], "targets": seqs[..., 1:]}
+    pc = {k: v.expand((C,) + v.shape) for k, v in params.items()}
+    out = {}
+    with strict_fp32():
+        for remat in (True, False):
+            vg = torch.func.vmap(torch.func.grad_and_value(
+                functools.partial(model.loss, remat=remat), has_aux=True))
+            rn_ops.reset_launches()
+            out[remat] = vg(pc, batch)
+            torch.cuda.synchronize()
+            assert rn_ops.launches["rmsnorm"] == (4 if remat else 2) * L + 1, remat
+    (g1, (l1, _)), (g0, (l0, _)) = out[True], out[False]
+    assert torch.equal(l1, l0)
+    for k in g0:
+        assert torch.equal(g1[k], g0[k]), k
 
 
 # ---------------------------------------------------------------------------

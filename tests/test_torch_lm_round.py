@@ -26,6 +26,7 @@ Tolerances and why:
     means over other reduction orders).
 """
 import dataclasses
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -197,9 +198,12 @@ def test_lm_round_step_matches_jax(which):
 
 def test_rmsnorm_forward_runs_once_a_norm_call_in_the_round(monkeypatch):
     """The launch count the card is held to: tau_max trips of one vmapped
-    loss call each, 2L + 1 norm calls a loss call, one forward each for all
-    clients (the op's vmap rule). Counted here on the plain version, which
-    the op runs exactly where the card launches the kernel."""
+    gradient call each, 4L + 1 norm calls a gradient call under the default
+    remat (each layer's two norms run again in its recompute; the final
+    norm is not recomputed) and 2L + 1 with ``remat=False``, one forward
+    each for all clients (the op's vmap rule). Counted here on the plain
+    version, which the op runs exactly where the card launches the kernel;
+    the evaluation, under ``no_grad``, stays at 2L + 1 a chunk."""
     _, _, tm, tp = _pair("qwen-twin")
     L = tm.config.num_layers
     calls = []
@@ -207,9 +211,12 @@ def test_rmsnorm_forward_runs_once_a_norm_call_in_the_round(monkeypatch):
     monkeypatch.setattr(rn_ops.ref, "rmsnorm", lambda *a, **k: calls.append(1) or real(*a, **k))
     C, T, B, S = 3, 3, 2, 8
     seqs, tau, p = _round_inputs(tm.config.vocab_size, C, T, B, S, seed=2)
-    make_round_step(tm.loss, eta=0.05)(tp, format_batch(seqs), torch.from_numpy(tau),
-                                      torch.from_numpy(p), torch.tensor(0.0))
-    assert len(calls) == T * (2 * L + 1)
+    for loss, per_call in ((tm.loss, 4 * L + 1),
+                           (functools.partial(tm.loss, remat=False), 2 * L + 1)):
+        calls.clear()
+        make_round_step(loss, eta=0.05)(tp, format_batch(seqs), torch.from_numpy(tau),
+                                        torch.from_numpy(p), torch.tensor(0.0))
+        assert len(calls) == T * per_call
     calls.clear()
     test = tsyn.make_lm_tokens(5, S, tm.config.vocab_size)
     make_dataset_evaluator(tm.loss, test, max_batch=2)(tp)  # chunks of 2, 2, then 1
