@@ -135,7 +135,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and peak GB, bf16 against float32 (cross entropy 1e-3, logits 5e-2
      relative). The flash timing rows add phi-3's shape in bf16 and
      float32.
- 12. sched   — the serving scheduler on Qwen1.5-32B at full width, 16 of 64
+ 12. sched   — the serving scheduler on Qwen1.5-32B at full width, 8 of 64
      layers, bf16 (random weights from seed 0): one Poisson trace with
      shared 512-token prefixes and bursts (24 requests, no EOS) through
      ``PagedServeLoop(cache_update="kernel")`` as base, prefix cache,
@@ -160,8 +160,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      every tick and every restore checked bitwise: greedy streams identical
      across the variants, integer stats equal to bf16's.
  13. families serving — the rest of serving at full width and depth in
-     bf16 (random weights from seed 0), ``cache_update="kernel"``, traces
-     from ``poisson_trace``: Qwen1.5-MoE-A2.7B through ``PagedServeLoop``
+     bf16 (random weights from seed 0; the MoE cut to 12 of its 24 layers),
+     ``cache_update="kernel"``, traces from ``poisson_trace``:
+     Qwen1.5-MoE-A2.7B through ``PagedServeLoop``
      (8 slots, capacity 1024) as base and with prefix caching and 128-token
      chunks on a trace with shared 256-token prefixes (the MoE chunk's live
      mask); Hymba-1.5B through ``PagedServeLoop`` with one 2100-token prompt
@@ -221,7 +222,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      decay, 5 commits, without a codec and with int8) bitwise equal to the
      synchronous simulator (params, taus, losses, bytes), and 20 buffered
      commits with 2 waves, ``exp`` latency and decay 0.9 (ms a commit,
-     mean and max age, ``sim_time``, folds, vecavg 2 a commit).
+     mean and max age, ``sim_time``, folds, vecavg 2 a commit);
+ 17. sharded — the client-axis sharded round on gloo ranks that share the
+     card (``fed.simulator.run_on_ranks``: the package's simulator with
+     ``FedSimConfig(mesh=)`` on each rank): phase 14's 20 Case-3 CNN
+     clients on ``make_federated_mesh(4)``, 5 a rank, one teacher-forced
+     round (host batches from the seed's init) against the same round in
+     this process (params 1e-6, the statistics rtol 1e-5 / atol 1e-6,
+     tau_k rtol 1e-6) and 10 rounds of the device data path (tau traces
+     equal, or parting only at the A_min client's 19-or-20 floor; params
+     2e-5 / 1e-4 while they agree), vecavg exactly 2 a round on every
+     rank, ms a round sharded and unsharded, the collectives a round and
+     one all-reduce's ms at the CNN's size; Qwen1.5-0.5B's widths at
+     phase 9's traffic on 2 ranks of one client, one teacher-forced round
+     against the C = 2 round (tests/test_torch_lm_round.py's bars), rmsnorm
+     on each rank equal to the unsharded round's, each rank's peak GB;
+     beside it, ``python -m repro_torch.launch.train --mesh data=4`` as two
+     subprocesses (sync, and buffered under int8), each exiting 0 with 3
+     rows and vecavg 6 on each of its ranks.
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
 last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -233,6 +251,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -255,6 +274,7 @@ from repro_torch.data.device import DeviceShards, host_stacked_batches  # noqa: 
 from repro_torch.data.partition import partition_case3  # noqa: E402
 from repro_torch.data.synthetic import Dataset, make_classification, make_lm_tokens  # noqa: E402
 from repro_torch.fed import FederatedSimulator, FedSimConfig, fair_fixed_tau  # noqa: E402
+from repro_torch.fed.simulator import run_on_ranks  # noqa: E402
 from repro_torch.fed.prototype import FedVecaClient, FedVecaServer  # noqa: E402
 from repro_torch.fed.train_lm import lm_config  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
@@ -383,6 +403,23 @@ REMAT_FIT = 0.92
 # 5 a round (the buffer's 5 slots).
 WIRE16 = dict(rounds=10, wires=("int8", "topk:1000"))
 BUF16 = dict(parity_commits=5, commits=20, waves=2, latency="exp", grad_decay=0.9)
+# Phase 17, the client-axis sharded round: gloo ranks sharing the one card.
+# The CNN experiment over 20 clients (phase 14's) on 4 ranks of 5 clients,
+# 10 rounds; Qwen1.5-0.5B widths at phase 9's traffic on 2 ranks of 1
+# client; the launcher on 4 ranks. Bars of tests/test_sharded_round.py:
+# one teacher-forced round params 1e-6, per-client statistics rtol 1e-5 /
+# atol 1e-6, tau_k rtol 1e-6; the whole run's params 2e-5 / 1e-4 while the
+# tau traces agree; the LM round at tests/test_torch_lm_round.py's bars
+# (params 1e-6, beta/delta rtol 1e-3 atol 1e-5, loss0 rtol 1e-5 atol 1e-6,
+# g0 norms rtol 1e-4).
+SHARD = dict(clients=20, ranks=4, rounds=10)
+SHARD_LM_RANKS = 2
+SHARD_STAT = dict(rtol=1e-5, atol=1e-6)
+SHARD_RUN = dict(atol=2e-5, rtol=1e-4)
+LM_STAT = {"loss0": dict(rtol=1e-5, atol=1e-6), "g0_sqnorm": dict(rtol=1e-4, atol=0),
+           "beta": dict(rtol=1e-3, atol=1e-5), "delta": dict(rtol=1e-3, atol=1e-5)}
+SHARD_LAUNCHER = ["--arch", "starcoder2-3b", "--reduced", "--mesh", "data=4", "--backend",
+                  "gloo", "--rounds", "3", "--seq", "64", "--batch-per-client", "2"]
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REBUILT = ("flash_attention", "paged_attention", "rmsnorm", "vecavg")  # ptxas reports phase 2 prints
 # Flash kernel vs its plain version: the JAX package's kernel-vs-oracle
@@ -521,14 +558,15 @@ WHISPER_ARCH, WHISPER_S = "whisper-medium", 448
 WHISPER_BF16_LOSS_ATOL, WHISPER_BF16_LOGITS_REL = 1e-3, 5e-2
 # The serving scheduler of phase 12: qwen1.5-32b (hf:Qwen/Qwen1.5-32B widths:
 # d_model 5120, 40/40 heads of 128, d_ff 27392, vocab 152064) at full width,
-# cut to 16 of 64 layers in bf16 (the full depth's ~70 GB of weights leave
-# the pool no room); its float32 run cut to 2 layers. benchmarks/serve_slo.py's
+# cut to 8 of 64 layers in bf16 (the full depth's ~70 GB of weights leave
+# the pool no room; 16 layers until phase 17 needed the script's time); its
+# float32 run cut to 2 layers. benchmarks/serve_slo.py's
 # trace shape at real lengths: two shared 512-token prefixes, suffixes of
 # 64-256, 16-64 new tokens, bursts of 3x every 4 ticks, no EOS (so the
 # scheduler's integer stats cannot depend on the tokens). 160 pages of 16
 # rows: a request needs up to 52 and 8 slots would take up to 416, so the
 # whole-prompt loop backpressures and the full scheduler preempts.
-SCHED_ARCH, SCHED_LAYERS, SCHED_F32_LAYERS = "qwen1.5-32b", 16, 2
+SCHED_ARCH, SCHED_LAYERS, SCHED_F32_LAYERS = "qwen1.5-32b", 8, 2
 SCHED_TRACE = dict(n_requests=24, rate=2.0, plen_choices=(64, 128, 256),
                    max_new_choices=(16, 32, 64), prefix_families=2, prefix_len=512,
                    burst_mult=3.0, burst_period=4, seed=0)
@@ -549,8 +587,9 @@ SCHED_ONE_SLOT = 8
 # The families of phase 13 (configs of src/repro_torch/configs), served at
 # full width and depth in bf16 from random weights (seed 0), traces made by
 # the port's poisson_trace (no EOS, so the integer stats cannot depend on
-# the tokens): Qwen1.5-MoE-A2.7B through PagedServeLoop (8 slots, pages of
-# 16, capacity 1024: a 1.6 GB pool), base and then prefix caching with
+# the tokens): Qwen1.5-MoE-A2.7B, cut to 12 of 24 layers (full depth until
+# phase 17 needed the script's time), through PagedServeLoop (8 slots,
+# pages of 16, capacity 1024), base and then prefix caching with
 # 128-token chunks on the same trace shape with two shared 256-token
 # prefixes; Hymba-1.5B (window 2048, parallel SSM) through PagedServeLoop,
 # base on the default pool (128 pages a slot) and with preemption after one
@@ -568,6 +607,7 @@ SCHED_ONE_SLOT = 8
 FAM_MOE, FAM_HYMBA, FAM_XLSTM, FAM_PHI3 = ("qwen2-moe-a2.7b", "hymba-1.5b", "xlstm-1.3b",
                                            "phi-3-vision-4.2b")
 FAM_SLOTS, FAM_PS, FAM_CAPACITY = 8, 16, 1024
+FAM_MOE_LAYERS = 12
 FAM_MOE_TRACE = dict(n_requests=16, rate=2.0, plen_choices=(128, 256, 512),
                      max_new_choices=(32, 64), seed=0)
 FAM_MOE_PREFIX = dict(prefix_families=2, prefix_len=256)
@@ -1370,7 +1410,7 @@ def phase_fed_checks(dev, model, clients, params):
     # (b) the card against the port's CPU path (held against the JAX
     # package by the CPU tests), round 0, a few local steps
     T2, B2 = 5, 8
-    small = host_stacked_batches(clients, np.random.default_rng(8), T2, B2)
+    small = host_stacked_batches(clients, np.random.default_rng(8), T2, B2, device="cpu")
     cpu_model = build_model_by_name(FED["model"], device="cpu")
     outs = []
     for d, m in ((dev, model), (torch.device("cpu"), cpu_model)):
@@ -3006,8 +3046,9 @@ def sched_decode_row(loop, st, launches, seed=12):
 
 
 def phase_sched(dev):
-    """Phase 12: the scheduler's four variants on full-width Qwen1.5-32B (16
-    layers, bf16), its checks, then the float32 run at 2 layers."""
+    """Phase 12: the scheduler's four variants on full-width Qwen1.5-32B
+    (SCHED_LAYERS layers, bf16), its checks, then the float32 run at 2
+    layers."""
     t0 = time.perf_counter()
     model, params = sched_model(dev, SCHED_LAYERS, "bfloat16")
     cfg = model.config
@@ -3295,7 +3336,7 @@ def phase_fam_moe(dev):
     with 128-token chunks on a trace with shared prefixes (the chunk's
     live mask); the step check; float32 at 2 layers."""
     tag, t0 = "fam-moe", time.perf_counter()
-    model, params = fam_model(dev, FAM_MOE)
+    model, params = fam_model(dev, FAM_MOE, num_layers=FAM_MOE_LAYERS)
     fam_header(tag, model, params, t0)
     cfg = model.config
     cont_kw = dict(n_slots=FAM_SLOTS, capacity=FAM_CAPACITY)
@@ -3535,7 +3576,7 @@ def phase_cohort_checks(dev, model, clients, params):
 
     # the card against the port's CPU path, a cohort round 0 with a few steps
     T2, B2 = 5, 8
-    small = host_stacked_batches(clients, np.random.default_rng(8), T2, B2)
+    small = host_stacked_batches(clients, np.random.default_rng(8), T2, B2, device="cpu")
     cpu_model = build_model_by_name(FED["model"], device="cpu")
     outs = []
     for d, m in ((dev, model), (torch.device("cpu"), cpu_model)):
@@ -3992,6 +4033,249 @@ def phase_wire_buffered(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 17. the client-axis sharded round: gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+def _close(a, b, atol, rtol):
+    """The largest |a - b| / (atol + rtol |b|): at most 1 where every
+    element is within the bar."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+
+
+def _first_parting(ref_rows, rows):
+    """(round, clients) where two tau traces first differ, or None."""
+    for a, b in zip(ref_rows, rows):
+        bad = np.flatnonzero(np.asarray(a["tau"]) != np.asarray(b["tau"]))
+        if bad.size:
+            return a["round"], bad
+    return None
+
+
+def phase_sharded_cnn(dev):
+    """17a: the CNN experiment over 20 clients on ``make_federated_mesh(4)``
+    (4 gloo ranks on the card, 5 clients each) against the same runs
+    unsharded in this process: one teacher-forced round (host batches from
+    one state) and 10 rounds of the device data path."""
+    model = build_model_by_name(FED["model"], device=dev)
+    clients, _ = fed_data(SHARD["clients"])
+    one = fed_cfg("fedveca", rounds=1, data_path="host")
+    run = fed_cfg("fedveca", rounds=SHARD["rounds"])
+    K, R = SHARD["ranks"], SHARD["rounds"]
+    refs = {}
+    for name, cfg in (("one", one), ("run", run)):
+        sim = FederatedSimulator(model, clients, cfg)
+        sync()
+        va_ops.reset_launches()
+        t0 = time.perf_counter()
+        log = sim.run()
+        sync()
+        refs[name] = dict(log=log, ms=1e3 * (time.perf_counter() - t0) / cfg.rounds,
+                          launches=va_ops.launches["vecavg"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the teacher-forced round runs first and warms the ranks' processes
+    outs = run_on_ranks(K, "gloo", model.config, clients, [one, run])
+    world_s = time.perf_counter() - t0
+    out = dict(config=dict(SHARD, model=FED["model"], tau_max=FED["tau_max"]),
+               world_s=world_s, ms_per_round_unsharded=refs["run"]["ms"])
+
+    # one teacher-forced round
+    ref = refs["one"]["log"]
+    for r, (o, _) in enumerate(outs):
+        require(o["launches"]["vecavg"] == 2,
+                f"[sharded] rank {r}: vecavg {o['launches']['vecavg']} in one round, expected 2")
+        for k, v in o["params"].items():
+            require(torch.equal(v, outs[0][0]["params"][k]),
+                    f"[sharded] rank {r}: params {k} differ from rank 0's")
+    perr = max((o0 - ref.params[k].cpu()).abs().max().item()
+               for k, o0 in outs[0][0]["params"].items())
+    require(perr <= ROUND_PARAMS_ATOL, f"[sharded] one round: params differ by {perr}")
+    stats = {}  # each statistic's largest error as a share of its bar
+    for k in ("loss0", "beta", "delta", "g0_sqnorm"):
+        stats[k] = _close(outs[0][0]["vals"][k], ref.controller_state.vals[k].cpu(), **SHARD_STAT)
+        require(stats[k] <= 1, f"[sharded] one round: {k} at {stats[k]:.3f} of its bar "
+                "(rtol 1e-5, atol 1e-6)")
+    tk, tk_ref = outs[0][0]["rows"][0]["tau_k"], ref.rows[0]["tau_k"]
+    require(abs(tk - tk_ref) <= 1e-6 * abs(tk_ref), f"[sharded] tau_k {tk} vs {tk_ref}")
+    require(np.array_equal(outs[0][0]["rows"][0]["tau"], ref.rows[0]["tau"]),
+            "[sharded] one round: tau_next differ")
+    out["one_round"] = dict(max_abs_params=perr, stats_share_of_bar=stats, tau_k=[tk, tk_ref])
+    print(f"[sharded] cnn, 20 clients on {K} ranks of cuda:0, one teacher-forced round: "
+          f"max|params| {perr:.3e} (tol {ROUND_PARAMS_ATOL}), statistics at "
+          f"{ {k: f'{v:.3f}' for k, v in stats.items()} } of their bar (rtol 1e-5, atol "
+          f"1e-6), tau_k {tk} vs {tk_ref}, vecavg 2 on each rank")
+
+    # the whole run
+    ref = refs["run"]["log"]
+    mine = outs[0][1]
+    launches = [o[1]["launches"]["vecavg"] for o in outs]
+    require(all(n == 2 * R for n in launches),
+            f"[sharded] vecavg on the ranks {launches}, expected {2 * R} each")
+    require(refs["run"]["launches"] == 2 * R, "[sharded] unsharded run's vecavg")
+    parting = _first_parting(ref.rows, mine["rows"])
+    if parting is None:
+        err = max((mine["params"][k] - ref.params[k].cpu()).abs().max().item()
+                  for k in mine["params"])
+        share = max(_close(mine["params"][k], ref.params[k].cpu(), **SHARD_RUN)
+                    for k in mine["params"])
+        require(share <= 1, f"[sharded] {R} rounds: params differ by {err} (atol 2e-5, rtol "
+                "1e-4) with equal tau traces")
+    else:
+        k, bad = parting
+        a_min = int(np.argmin(ref.rows[k]["A"]))
+        pair = {int(ref.rows[k]["tau"][bad[0]]), int(mine["rows"][k]["tau"][bad[0]])}
+        require(list(bad) == [a_min] and pair == {19, 20},
+                f"[sharded] tau traces part at round {k}, clients {bad.tolist()}: not the "
+                f"A_min client's ({a_min}) 19-or-20 floor")
+        err = None
+        print(f"[sharded] tau traces part at round {k} on the A_min client {a_min}: "
+              f"{sorted(pair)} (its float32 floor); params not compared after it")
+    ms = [o[1]["ms_per_round"] for o in outs]
+    ar = outs[0][1]["all_reduce_ms"]
+    coll = outs[0][1]["collectives"]
+    out["run"] = dict(rounds=R, launches_per_rank=launches, ms_per_round_per_rank=ms,
+                      ms_per_round_unsharded=refs["run"]["ms"], max_abs_params=err,
+                      taus_equal=parting is None,
+                      first_parting=None if parting is None else [parting[0],
+                                                                  parting[1].tolist()],
+                      taus_last=mine["rows"][-1]["tau"],
+                      all_reduce_ms_at_cnn_size=ar, all_reduces_per_round=coll["all_reduce"] / R,
+                      all_gathers_per_round=coll["all_gather"] / R,
+                      collective_bytes_per_round=coll["bytes"] / R,
+                      all_reduce_share=2 * ar / ms[0],
+                      host_blocked_s=[o[1]["host_blocked_s"] for o in outs],
+                      peak_mem_gb_per_rank=[o[1]["peak_mem_gb"] for o in outs])
+    print(f"[sharded] cnn, {R} rounds on {K} ranks: {ms[0]:.1f} ms a round (ranks "
+          f"{[round(m, 1) for m in ms]}) against {refs['run']['ms']:.1f} unsharded; vecavg "
+          f"{launches} (2 a round a rank); {coll['all_reduce'] / R:.1f} all-reduces and "
+          f"{coll['all_gather'] / R:.1f} all-gathers a round, {coll['bytes'] / R / 1e6:.3f} MB "
+          f"a round a rank; one all-reduce of the CNN's {CNN_D} floats {ar:.3f} ms, the two a "
+          f"round {100 * 2 * ar / ms[0]:.1f}% of the round; tau traces "
+          f"{'equal' if parting is None else 'part at the A_min floor'}"
+          f"{'' if err is None else f', max|params| {err:.3e}'}; ranks up after {world_s:.1f} s "
+          f"in all")
+    return out
+
+
+def phase_sharded_lm(dev):
+    """17b: Qwen1.5-0.5B widths at phase 9's traffic, one teacher-forced
+    round (host batches from the seed's init) on 2 ranks of one client
+    against the unsharded C = 2 round."""
+    cfg = qwen05_config()
+    K = SHARD_LM_RANKS
+    clients, _ = lm_data(cfg.vocab_size, K)
+    one = FedSimConfig(mode=LM["mode"], eta=LM["eta"], tau_max=LM["tau_max"],
+                       batch_size=LM["batch"], rounds=1, seed=0, data_path="host")
+    model = build_model(cfg, device=dev)
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    va_ops.reset_launches()
+    rn_ops.reset_launches()
+    t0 = time.perf_counter()
+    log = FederatedSimulator(model, clients, one).run()
+    sync()
+    ms_ref = 1e3 * (time.perf_counter() - t0)
+    ref_launches = dict(vecavg=va_ops.launches["vecavg"], rmsnorm=rn_ops.launches["rmsnorm"])
+    ref_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    ref_params = {k: v.cpu() for k, v in log.params.items()}
+    ref_vals = {k: v.cpu().numpy() for k, v in log.controller_state.vals.items()}
+    ref_tau = log.rows[0]["tau"]
+    del model, log
+    torch.cuda.empty_cache()
+    outs = [o[0] for o in run_on_ranks(K, "gloo", cfg, clients, [one])]
+    want = LM["tau_max"] * grad_call_norms(cfg)
+    require(ref_launches == dict(vecavg=2, rmsnorm=want),
+            f"[sharded-lm] unsharded round launches {ref_launches}")
+    for r, o in enumerate(outs):
+        n = dict(vecavg=o["launches"]["vecavg"], rmsnorm=o["launches"]["rmsnorm"])
+        require(n == ref_launches, f"[sharded-lm] rank {r}: launches {n}, expected "
+                f"{ref_launches} (one rmsnorm launch a norm call covers a rank's clients)")
+    perr = max((v - ref_params[k]).abs().max().item() for k, v in outs[0]["params"].items())
+    require(perr <= ROUND_PARAMS_ATOL, f"[sharded-lm] params differ by {perr}")
+    stats = {}  # each statistic's largest error as a share of its bar
+    for k, tol in LM_STAT.items():
+        stats[k] = _close(outs[0]["vals"][k], ref_vals[k], **tol)
+        require(stats[k] <= 1, f"[sharded-lm] {k} at {stats[k]:.3f} of its bar ({tol})")
+    require(np.array_equal(outs[0]["rows"][0]["tau"], ref_tau), "[sharded-lm] tau_next differ")
+    peaks = [o["peak_mem_gb"] for o in outs]
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    require(sum(peaks) < total, f"[sharded-lm] ranks' peaks {peaks} GB exceed the card's {total}")
+    out = dict(model="qwen1.5-0.5b", ranks=K, clients_per_rank=1, max_abs_params=perr,
+               stats_share_of_bar=stats, launches_per_rank=[o["launches"] for o in outs],
+               launches_unsharded=ref_launches, peak_mem_gb_per_rank=peaks,
+               peak_mem_gb_unsharded=ref_peak, ms_round_per_rank=[o["ms_per_round"]
+                                                                  for o in outs],
+               ms_round_unsharded=ms_ref, all_reduce_ms_at_model_size=outs[0]["all_reduce_ms"],
+               collectives=outs[0]["collectives"])
+    print(f"[sharded-lm] qwen1.5-0.5b, one round on {K} ranks of 1 client: max|params| "
+          f"{perr:.3e} (tol {ROUND_PARAMS_ATOL}), statistics at "
+          f"{ {k: f'{v:.3f}' for k, v in stats.items()} } of their bar, rmsnorm "
+          f"{[o['launches']['rmsnorm'] for o in outs]} = unsharded {want}, vecavg "
+          f"{[o['launches']['vecavg'] for o in outs]}, peak GB {[round(p, 2) for p in peaks]} "
+          f"(unsharded {ref_peak:.2f}), ms {[round(o['ms_per_round'], 1) for o in outs]} "
+          f"(the ranks' first round, cold, beside 17c's launcher ranks) against "
+          f"{ms_ref:.1f} unsharded; one all-reduce of the model "
+          f"{outs[0]['all_reduce_ms']:.1f} ms")
+    return out
+
+
+def start_sharded_launchers():
+    """17c: ``python -m repro_torch.launch.train --mesh data=4`` as
+    subprocesses, sync and buffered under int8, both at once (their 8
+    ranks share the card with whatever runs meanwhile)."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    runs = {"sync": SHARD_LAUNCHER, "buffered int8": SHARD_LAUNCHER + ["--buffered",
+                                                                        "--wire", "int8"]}
+    return {n: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *a],
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True) for n, a in runs.items()}
+
+
+def finish_sharded_launchers(procs):
+    """17c's checks: each exits 0 with 3 rows and vecavg 6 on each rank."""
+    out = {}
+    try:
+        for name, proc in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            require(proc.returncode == 0,
+                    f"[sharded-launcher] {name}: exit {proc.returncode}\n{text[-4000:]}")
+            rows = re.findall(r"round (\d+): loss=([0-9.]+)", text)
+            done = sorted((int(r), int(n)) for r, n in
+                          re.findall(r"rank (\d+): done\..*?vecavg (\d+) launches", text))
+            require(len(rows) == 3, f"[sharded-launcher] {name}: {len(rows)} rows\n{text}")
+            require([r for r, _ in done] == [0, 1, 2, 3] and all(n == 6 for _, n in done),
+                    f"[sharded-launcher] {name}: ranks' vecavg {done}, expected 6 each")
+            out[name] = dict(rows=len(rows), losses=[float(v) for _, v in rows],
+                             vecavg_per_rank=[n for _, n in done])
+            print(f"[sharded-launcher] {name}: exit 0, {len(rows)} rows (loss "
+                  f"{[float(v) for _, v in rows]}), vecavg on the ranks "
+                  f"{[n for _, n in done]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_sharded(dev):
+    """17: the client-axis sharded round on gloo ranks sharing the card;
+    17c's launchers run beside 17b, whose times are then not its own."""
+    out = {"cnn": phase_sharded_cnn(dev)}
+    torch.cuda.empty_cache()
+    launchers = start_sharded_launchers()
+    try:
+        out["lm"] = phase_sharded_lm(dev)
+    finally:
+        out["launcher"] = finish_sharded_launchers(launchers)
+    torch.cuda.empty_cache()
+    print(f"[sharded] {json.dumps(out)}")
+    return out
+
+
 def granite_config():
     """granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base) at full
     width, 4 of 24 layers, float32: the FedVeca round's model."""
@@ -4100,6 +4384,8 @@ def main() -> int:
     remat = run("15 remat", phase_remat, dev)
     torch.cuda.empty_cache()
     wire_buf = run("16 wire and buffered", phase_wire_buffered, dev)
+    torch.cuda.empty_cache()
+    sharded = run("17 sharded", phase_sharded, dev)
     paged = {f"{arch} {name}": v["launches"]
              for arch, key in ((FAM_MOE, "moe"), (FAM_HYMBA, "hymba"), (FAM_PHI3, "phi-3"))
              for name, v in fam13[key].items() if isinstance(v, dict) and "launches" in v}
@@ -4132,7 +4418,9 @@ def main() -> int:
         f"qwen1.5-0.5b LM cohort, {LM_COHORT['rounds']} rounds":
             part["lm_cohort"]["launches"]["rmsnorm"],
         **{f"qwen1.5-0.5b one round, {k.replace('_', '=')}": v["rmsnorm"]
-           for k, v in remat["qwen1.5-0.5b"].items() if k.startswith("remat_")}}
+           for k, v in remat["qwen1.5-0.5b"].items() if k.startswith("remat_")},
+        f"qwen1.5-0.5b sharded, {SHARD_LM_RANKS} ranks, one round (each rank)":
+            [n["rmsnorm"] for n in sharded["lm"]["launches_per_rank"]]}
     proto = part["prototype"]
     tree_row["launches_by_path"] = {
         "cnn experiment": fed["launches"]["vecavg"],
@@ -4152,7 +4440,13 @@ def main() -> int:
         f"cnn buffered, {BUF16['commits']} commits": wire_buf["buffered"]["launches"],
         "remat rounds, xlstm-1.3b (16 of 48 layers), 5 rounds":
             remat["xlstm"]["vecavg"] + remat["xlstm_long"]["vecavg"],
-        "remat rounds, qwen1.5-0.5b, 4 rounds": remat["qwen1.5-0.5b"]["vecavg"]}
+        "remat rounds, qwen1.5-0.5b, 4 rounds": remat["qwen1.5-0.5b"]["vecavg"],
+        f"cnn sharded, {SHARD['ranks']} gloo ranks on the card, {SHARD['rounds']} rounds "
+        "(each rank)": sharded["cnn"]["run"]["launches_per_rank"],
+        f"qwen1.5-0.5b sharded, {SHARD_LM_RANKS} ranks, one round (each rank)":
+            [n["vecavg"] for n in sharded["lm"]["launches_per_rank"]],
+        **{f"launcher --mesh data=4 {n}, 3 rounds (each rank)": v["vecavg_per_rank"]
+           for n, v in sharded["launcher"].items()}}
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
@@ -4160,7 +4454,8 @@ def main() -> int:
     print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
                       "families": fam, "sched": sched, "families_serve": fam13,
                       "partial_participation": part, "remat": remat,
-                      "wire_buffered": wire_buf, "ptxas": ptxas, "seconds": clock,
+                      "wire_buffered": wire_buf, "sharded": sharded, "ptxas": ptxas,
+                      "seconds": clock,
                       "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(smi)

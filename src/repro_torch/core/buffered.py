@@ -1,5 +1,5 @@
 """BufferedRoundEngine: FedBuff-style asynchronous federated rounds (port
-of ``repro/core/buffered.py``, single device).
+of ``repro/core/buffered.py``).
 
 The synchronous round is a barrier: sample a cohort, wait for all m
 clients, step. Here client updates stream in instead, on the serving
@@ -29,6 +29,15 @@ the engine's reduce (the vecavg kernel on the card: two launches a
 commit), then the controller's step with the buffer's client ids as its
 members.
 
+**Sharded commits.** On a client-sharded engine (``RoundEngine(mesh=)``)
+slot j is owned by the rank that owns wave row j, so the buffer size m
+must divide over the K ranks (an indivisible buffer raises, as in the JAX
+package) and each rank holds m/K slots. A commit is a shard-local vecavg
+plus one all-reduce for each of the two reduces; the controller gathers
+the buffer's statistics and steps on every rank. The JAX package reduces
+sharded commits through its fallback tensordot under GSPMD: the same
+partial-sum-then-all-reduce structure (ROADMAP.md P11).
+
 **Parity.** With instant arrivals, ``waves=1`` and ``grad_decay=1.0`` the
 buffered engine IS the synchronous engine: wave k fills the whole buffer
 in cohort order, and the commit reproduces ``RoundEngine.run_fused``
@@ -54,14 +63,16 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import strict_fp32
-from repro_torch.core.engine import RoundEngine, not_ported
+from repro_torch import not_ported, strict_fp32
+from repro_torch.core.engine import RoundEngine
 from repro_torch.core.fedveca import RoundStats
 from repro_torch.core.scheduler import AdmissionScheduler
+from repro_torch.core.strategy import global_sum, psum_reduce
 from repro_torch.core.tree import tree_axpy, tree_sqnorm
 from repro_torch.data.device import round_key
 from repro_torch.metrics.logger import RunLogger
 from repro_torch.serve.sampling import _hash32
+from repro_torch.sharding.api import all_reduce
 
 LATENCY_KINDS = ("instant", "uniform", "exp", "hetero")
 
@@ -151,6 +162,7 @@ class BufferedRoundEngine(AdmissionScheduler):
         mode: Optional[str] = None,
         eval_fn: Optional[Callable] = None,
         eval_every: int = 1,
+        on_row: Optional[Callable[[Dict[str, Any]], None]] = None,
         sanitize=None,
     ):
         super().__init__()
@@ -175,10 +187,22 @@ class BufferedRoundEngine(AdmissionScheduler):
         m = engine.cfg.cohort_size
         self.m = C if (m is None or m >= C) else int(m)
         self.full = self.m >= C  # full participation: p already sums to 1
+        K = engine._n_shards
+        if engine.sharded and self.m % K:
+            raise ValueError(
+                f"buffered buffer size m={self.m} must divide the {K} client-axis "
+                "shards (slot j is owned by the shard that owns wave row j)")
+        self._group = engine._group
+        self._reduce = psum_reduce(engine._reduce, self._group) if engine.sharded \
+            else engine._reduce
+        self.m_local = self.m // K  # this rank's slots
+        self._slots = slice(engine._shard * self.m_local, (engine._shard + 1) * self.m_local)
         self.p = np.asarray(p, np.float32)
         self.mode = mode or engine.cfg.mode
         self.eval_fn = eval_fn
         self.eval_every = eval_every
+        self.on_row = on_row
+        self.lead = engine.mesh is None or engine.mesh.rank == 0  # logs the rows
         self.host_blocked_s = 0.0
         self.dispatch_s = 0.0
         self.tau_all = 0
@@ -186,14 +210,15 @@ class BufferedRoundEngine(AdmissionScheduler):
     # -- the two device steps ------------------------------------------------
     def _fold_wave(self, wave, mask, age: float) -> None:
         """Masked elementwise select of one wave's rows into the buffer:
-        slot j takes wave row j wherever ``mask`` [m] is set."""
-        buf, dev = self._buf, self._dev
-        mask = torch.from_numpy(mask).to(dev, non_blocking=True)
+        slot j takes wave row j wherever ``mask`` [m] is set (this rank's
+        slots of both, when sharded)."""
+        buf, dev, n = self._buf, self._dev, self.m_local
+        mask = torch.from_numpy(mask[self._slots]).to(dev, non_blocking=True)
 
         def sel(b, w):
-            return torch.where(mask.reshape((self.m,) + (1,) * (b.dim() - 1)), w.to(b.dtype), b)
+            return torch.where(mask.reshape((n,) + (1,) * (b.dim() - 1)), w.to(b.dtype), b)
 
-        ids = torch.from_numpy(wave["cohort"]).to(dev, non_blocking=True)
+        ids = torch.from_numpy(wave["cohort"][self._slots]).to(dev, non_blocking=True)
         outs = wave["outs"]
         self._buf = dict(
             cum_g={k: sel(v, outs["cum_g"][k]) for k, v in buf["cum_g"].items()},
@@ -203,13 +228,15 @@ class BufferedRoundEngine(AdmissionScheduler):
             delta=sel(buf["delta"], outs["delta"]),
             tau=sel(buf["tau"], outs["tau"]),
             ids=sel(buf["ids"], ids),
-            age=sel(buf["age"], torch.full((self.m,), age, dtype=torch.float32, device=dev)),
+            age=sel(buf["age"], torch.full((n,), age, dtype=torch.float32, device=dev)),
         )
 
     def _step(self, params, cstate, buf):
-        """One global model + controller step over the full buffer."""
+        """One global model + controller step over the full buffer (this
+        rank's slots, completed across the ranks, when sharded)."""
         eng = self.engine
         cfg = eng.cfg
+        group = self._group
         decay = float(self.bcfg.grad_decay)
         with strict_fp32():
             taus_used = torch.clamp(cstate.taus, 1, cfg.tau_max)
@@ -217,19 +244,19 @@ class BufferedRoundEngine(AdmissionScheduler):
             if decay != 1.0:
                 w = w * torch.pow(torch.tensor(decay, dtype=torch.float32, device=w.device),
                                   buf["age"])
-            pw = w / w.sum() if (decay != 1.0 or not self.full) else w
+            pw = w / global_sum(w, group) if (decay != 1.0 or not self.full) else w
             tau_f = buf["tau"].float()
             delta_w = eng._strategy.server_delta(
-                dict(cum_g=buf["cum_g"]), params, tau_f, pw, cfg.eta, eng._reduce)
+                dict(cum_g=buf["cum_g"]), params, tau_f, pw, cfg.eta, self._reduce, group)
             new_params = tree_axpy(1.0, delta_w, params)
-            global_grad, g0_sqn = eng._reduce(buf["g0"], pw, 1.0)
+            global_grad, g0_sqn = self._reduce(buf["g0"], pw, 1.0)
             stats = RoundStats(
                 loss0=buf["loss0"],
                 beta=buf["beta"],
                 delta=buf["delta"],
                 g0_sqnorm=g0_sqn,
                 tau=buf["tau"],
-                tau_k=(pw * tau_f).sum(),
+                tau_k=global_sum(pw * tau_f, group),
                 global_grad=global_grad,
                 update_sqnorm=tree_sqnorm(delta_w),
                 params_sqnorm=tree_sqnorm(params),
@@ -238,13 +265,17 @@ class BufferedRoundEngine(AdmissionScheduler):
             # Theorem-2 clamp and Eq. 15 on the buffered statistics, the
             # buffer's client ids as the members, as the sync step does
             new_cstate, diag = eng.controller.step(cstate, stats, buf["ids"], taus_used)
-            diag = dict(diag, train_loss=(pw * stats.loss0).sum(), tau_k=stats.tau_k,
-                        tau_round_sum=buf["tau"].sum(), update_sqnorm=stats.update_sqnorm,
-                        mean_age=buf["age"].mean(), max_age=buf["age"].max())
+            max_age = buf["age"].max()
+            diag = dict(diag, train_loss=global_sum(pw * stats.loss0, group),
+                        tau_k=stats.tau_k, tau_round_sum=global_sum(buf["tau"], group),
+                        update_sqnorm=stats.update_sqnorm,
+                        mean_age=global_sum(buf["age"], group) / self.m,
+                        max_age=max_age if group is None else all_reduce(
+                            [max_age], group, op="max")[0])
         return new_params, new_cstate, diag
 
     def _init_buffer(self, params):
-        m, dev = self.m, self._dev
+        m, dev = self.m_local, self._dev
 
         def rows(v):
             return torch.zeros((m,) + v.shape, dtype=torch.float32, device=dev)
@@ -352,8 +383,8 @@ class BufferedRoundEngine(AdmissionScheduler):
     def run(self, params, steps: int, taus: np.ndarray,
             logger: Optional[RunLogger] = None) -> RunLogger:
         """Run ``steps`` buffered commits from ``params``/``taus``; returns
-        the logger with ``.params`` and ``.tau_all`` (``TrainDriver``'s
-        contract: one row a commit)."""
+        the logger with ``.params``, ``.tau_all`` and ``.controller_state``
+        (``TrainDriver``'s contract: one row a commit)."""
         eng = self.engine
         log = logger or RunLogger(None, name=self.mode)
         eng.reset_wire()  # fresh error-feedback residuals a run
@@ -402,6 +433,7 @@ class BufferedRoundEngine(AdmissionScheduler):
         self.host_blocked_s += time.perf_counter() - t0
         log.params = self._params  # type: ignore[attr-defined]
         log.tau_all = self.tau_all  # type: ignore[attr-defined]
+        log.controller_state = self._cstate  # type: ignore[attr-defined]
         log.close()
         return log
 
@@ -442,4 +474,7 @@ class BufferedRoundEngine(AdmissionScheduler):
         )
         if ev_host:
             row.update(ev_host)
-        self._log.log(**row)
+        if self.lead:
+            self._log.log(**row)
+            if self.on_row:
+                self.on_row(row)

@@ -19,6 +19,13 @@ ago reads ``decay^age * last_seen + (1 - decay^age) * mean``. With every
 client observed every round the weighting is ``1 * v + 0 * mean``, which
 is ``v`` exactly for finite statistics.
 
+With a client-axis mesh (``ControllerCore(mesh=)``) every rank steps the
+whole controller: ``step`` takes the rank's rows of the round's members
+and statistics, all-gathers them (a few hundred bytes) and runs the
+unsharded step, so every rank holds the same full-C state and the tau
+traces equal the unsharded ones. The JAX package shards the ``[C]``
+arrays under GSPMD instead; the arithmetic is the same (ROADMAP.md P10).
+
 The scalar math is float32 in the JAX package's order of operations,
 including the float32 ``alpha_k`` (ROADMAP R3): every op involved
 (mul/div/sqrt/floor/min/max) is correctly rounded in IEEE float32, so on
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch.core.fedveca import RoundStats
 from repro_torch.core.tree import tree_norm, tree_sub
+from repro_torch.sharding.api import all_gather, client_group, validate_client_count
 
 _STAT_KEYS = ("loss0", "beta", "delta", "g0_sqnorm")
 
@@ -217,13 +225,21 @@ class ControllerCore:
     the full-C view, applies the staleness weighting, then runs the L
     estimate, the Theorem-2 alpha clamp and Eq. 15. ``adapt=False`` keeps
     taus fixed (FedAvg/FedNova baselines) while still tracking L for the
-    premise value eta * tau_k * L."""
+    premise value eta * tau_k * L.
 
-    def __init__(self, cfg: ControllerConfig, num_clients: int, *, adapt: bool = True):
+    With ``mesh`` (a federated mesh, ``launch/mesh.make_federated_mesh``)
+    C must divide over the client-axis shards, and ``step`` takes this
+    rank's rows (see the module docstring)."""
+
+    def __init__(self, cfg: ControllerConfig, num_clients: int, *, adapt: bool = True,
+                 mesh=None):
         _check_decay(cfg.decay)
         self.cfg = cfg
         self.C = num_clients
         self.adapt = adapt
+        self.mesh = mesh
+        validate_client_count(mesh, num_clients)
+        self._group = None if mesh is None else client_group(mesh)
 
     def init_state(self, params_like, taus) -> CoreState:
         """Fresh round-0 state; ``params_like`` fixes the gradient trees'
@@ -250,7 +266,11 @@ class ControllerCore:
     def step(self, state: CoreState, stats: RoundStats, members: torch.Tensor,
              taus_used: torch.Tensor):
         """(state, cohort stats, member ids [m], full-C taus used this round)
-        -> (new state, diag dict of small device tensors)."""
+        -> (new state, diag dict of small device tensors).
+
+        Sharded: ``members`` and the per-client fields of ``stats`` are this
+        rank's rows; a member id of C marks a pad row (an imbalanced
+        cohort's), which is dropped."""
         cfg = self.cfg
         # Python scalars enter each op as float32 kernel arguments (jnp's
         # float32 constants); a tensor made from one would cost a
@@ -259,11 +279,19 @@ class ControllerCore:
         k = state.round
 
         # ---- CohortStats scatter + staleness weighting --------------------
-        idx = members.long()
-        stale_w = (state.stale_w * cfg.decay).index_fill(0, idx, 1.0)
-        vals = {key: state.vals[key].index_copy(0, idx, getattr(stats, key).float())
-                for key in _STAT_KEYS}
-        ever = state.ever.index_fill(0, idx, True)
+        if self._group is None:
+            idx = members.long()
+            rows = {key: getattr(stats, key).float() for key in _STAT_KEYS}
+            stale_w = (state.stale_w * cfg.decay).index_fill(0, idx, 1.0)
+            vals = {key: state.vals[key].index_copy(0, idx, rows[key]) for key in _STAT_KEYS}
+            ever = state.ever.index_fill(0, idx, True)
+        else:
+            idx, rows = self._gather(members, stats)
+            # pad rows (id C) land in a scratch row C that is cut off
+            stale_w = _pad1(state.stale_w * cfg.decay).index_fill(0, idx, 1.0)[:-1]
+            vals = {key: _pad1(state.vals[key]).index_copy(0, idx, rows[key])[:-1]
+                    for key in _STAT_KEYS}
+            ever = _pad1(state.ever).index_fill(0, idx, True)[:-1]
         ever_f = ever.float()
         n_obs = torch.clamp_min(ever_f.sum(), 1.0)
         weighted = {}
@@ -325,3 +353,17 @@ class ControllerCore:
             grad_sqnorm=grad_sqnorm,
         )
         return new_state, diag
+
+    def _gather(self, members, stats):
+        """Every rank's member ids and per-client statistics, in rank order
+        (one all-gather: the ids ride as float32 bits beside the stats)."""
+        local = torch.stack([members.to(torch.int32).view(torch.float32)]
+                            + [getattr(stats, key).float() for key in _STAT_KEYS])
+        full = all_gather(local.t(), self._group).t()  # [1 + 4, K * n]
+        idx = full[0].contiguous().view(torch.int32).long()
+        return idx, {key: full[1 + i].contiguous() for i, key in enumerate(_STAT_KEYS)}
+
+
+def _pad1(v: torch.Tensor) -> torch.Tensor:
+    """``v`` [C] with one scratch row appended (the pad rows' target)."""
+    return torch.cat([v, v[:1]])

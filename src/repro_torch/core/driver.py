@@ -21,6 +21,11 @@ device's work does not depend on when results are read back.
 ``host_blocked_s`` accumulates the time the loop spends blocked on
 device-to-host reads; ``dispatch_s`` the time inside the round calls
 (on the CPU those run the round's compute).
+
+On a client-sharded engine every rank runs this loop and dispatches every
+round; the rows are built from the replicated scalars and the gathered
+``[C]`` arrays, so they are the same on every rank, and rank 0 alone logs
+them and calls ``on_row``. ``host_blocked_s`` is the rank's own.
 """
 from __future__ import annotations
 
@@ -31,15 +36,15 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import strict_fp32
-from repro_torch.core.engine import RoundEngine, not_ported
+from repro_torch import not_ported, strict_fp32
+from repro_torch.core.engine import RoundEngine
 from repro_torch.data.device import format_batch, round_key
 from repro_torch.data.synthetic import Dataset
 from repro_torch.metrics.logger import RunLogger
 
 
 def make_dataset_evaluator(loss_fn, data: Dataset, max_batch: int = 2048,
-                           device="cpu") -> Callable:
+                           device=None) -> Callable:
     """Whole-dataset eval that only queues device work: params -> dict of
     device scalars (``test_loss``, and ``test_acc`` where the loss reports
     an accuracy; an LM's does not).
@@ -99,7 +104,8 @@ class TrainDriver:
     ``engine.sample_cohort`` (all clients without ``cohort_size``) and is
     logged in its row; ``batches_fn(rng)`` (optional) supplies
     host-built batches per round; ``eval_fn(params)`` (optional, see
-    ``make_dataset_evaluator``) must not block.
+    ``make_dataset_evaluator``) must not block; ``on_row`` is called with
+    each finalized row (printing, early stop).
     """
 
     def __init__(
@@ -113,6 +119,7 @@ class TrainDriver:
         eval_fn: Optional[Callable] = None,
         eval_every: int = 1,
         batches_fn: Optional[Callable] = None,
+        on_row: Optional[Callable[[Dict[str, Any]], None]] = None,
         sanitize=None,
     ):
         if engine.controller is None:
@@ -130,6 +137,8 @@ class TrainDriver:
         self.eval_fn = eval_fn
         self.eval_every = eval_every
         self.batches_fn = batches_fn
+        self.on_row = on_row
+        self.lead = engine.mesh is None or engine.mesh.rank == 0  # logs the rows
         self.host_blocked_s = 0.0  # device-to-host readback waits
         self.dispatch_s = 0.0  # time inside the round calls themselves
         self.tau_all = 0
@@ -138,7 +147,8 @@ class TrainDriver:
     def run(self, params, rounds: int, taus: np.ndarray,
             logger: Optional[RunLogger] = None) -> RunLogger:
         """Run ``rounds`` fused rounds from ``params``/``taus``; returns the
-        logger with ``.params`` (final) and ``.tau_all``."""
+        logger with ``.params`` (final), ``.tau_all`` and
+        ``.controller_state`` (the final ``CoreState``)."""
         engine = self.engine
         log = logger or RunLogger(None, name=self.mode)
         engine.reset_wire()  # fresh error-feedback residuals a run
@@ -179,6 +189,7 @@ class TrainDriver:
         self.host_blocked_s += time.perf_counter() - t0
         log.params = params  # type: ignore[attr-defined]
         log.tau_all = self.tau_all  # type: ignore[attr-defined]
+        log.controller_state = cstate  # type: ignore[attr-defined]
         log.close()
         return log
 
@@ -211,4 +222,7 @@ class TrainDriver:
         )
         if ev_host:
             row.update(ev_host)
-        log.log(**row)
+        if self.lead:
+            log.log(**row)
+            if self.on_row:
+                self.on_row(row)

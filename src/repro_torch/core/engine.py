@@ -1,5 +1,5 @@
 """RoundEngine: the owner of the federated round (port of
-``repro/core/engine.py``, single device).
+``repro/core/engine.py``).
 
 The engine composes:
 
@@ -21,7 +21,18 @@ The engine composes:
     per-client residual rows (``[C, ...]``, built at the first round,
     dropped by ``reset_wire``) are engine state, gathered and scattered
     by client id under a cohort exactly like SCAFFOLD's ``c_i``; the
-    identity codec bypasses the stage, bit for bit.
+    identity codec bypasses the stage, bit for bit;
+  * client-axis sharding (``mesh=``, DESIGN.md §11): on each rank of a
+    federated mesh the round runs only the rank's C/K clients, against
+    only its data rows; the server reduce is the shard-local reduce (the
+    vecavg kernel) completed by one all-reduce over the client-axis group,
+    so ``new_params`` and the global gradient come back the same on every
+    rank, and the per-client stats, SCAFFOLD's ``c_i`` rows and the wire
+    residual rows stay with their rank. Cohorts carry GLOBAL ids and are
+    drawn stratified, about m/K a rank; an imbalanced draw pads short
+    ranks with the sentinel id C (weight 0, its data and state rows
+    clamped to the rank's last client, dropped on scatter), and the
+    cohort's weight normaliser is completed across the ranks.
 
 The message-passing prototype (``fed/prototype.py``) uses the engine's
 half-round entry points: ``client_update`` (one client, ``tau`` trips),
@@ -34,14 +45,12 @@ half of the fused round for one cohort against one params version.
 The JAX package donates the params (and scaffold) buffers to its jitted
 round; here the round is a plain functional update — a new params tree is
 returned and the caller's is never modified.
-
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
-client-axis mesh (A18).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+import warnings
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,12 +62,34 @@ from repro_torch.core.strategy import get_strategy, global_sum, make_reduce
 from repro_torch.core.tree import tree_axpy
 from repro_torch.core.wire import make_codec, wire_fold
 from repro_torch.data.device import DeviceShards
+from repro_torch.sharding.api import (
+    client_group,
+    client_rows,
+    client_shard_count,
+    shard_index,
+    validate_client_count,
+)
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item}); the port "
-        "runs the synchronous single-device round")
+class _Rows(NamedTuple):
+    """The rows one call of the round runs on this process.
+
+    ``ids`` (host int64 [n]) are the global client ids whose data the rows
+    use (None: every held client, in order); ``sel`` indexes full-C arrays
+    (taus, weights, host batches) and ``local`` this process's state rows
+    (SCAFFOLD's ``c_i``, the wire residual), each None for the identity;
+    ``keep`` (positions of the real rows) and ``mask`` (their 0/1 float
+    weights) are None without pads; ``members`` are the rows' ids with the
+    sentinel C on pads (the controller's view); ``cohort`` is the whole
+    cohort's ids (None for full participation)."""
+
+    ids: Optional[np.ndarray]
+    sel: Optional[torch.Tensor]
+    local: Optional[torch.Tensor]
+    keep: Optional[torch.Tensor]
+    mask: Optional[torch.Tensor]
+    members: torch.Tensor
+    cohort: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -84,6 +115,12 @@ class RoundEngine:
     engine's device shards, or ``batches=`` (leaves [C, tau_max, b, ...]) to
     use host-built data. Batches are moved to the params' device.
     ``cohort=`` (host int ids [m]) restricts the round to a cohort.
+
+    ``mesh=`` (a federated mesh, ``launch/mesh.make_federated_mesh``)
+    shards the client axis: C must divide evenly over the client-axis
+    shards, and every rank calls the engine with the same arguments (the
+    full-C taus, weights and cohort; host batches whole). The rank runs
+    its clients; the returned stats' per-client fields are its rows.
     """
 
     def __init__(
@@ -98,13 +135,32 @@ class RoundEngine:
     ):
         if cfg.cohort_size is not None and cfg.cohort_size < 1:
             raise ValueError(f"cohort_size must be >= 1, got {cfg.cohort_size}")
-        if mesh is not None:
-            raise not_ported("mesh (client-axis sharding)", "A18")
         self.cfg = cfg
         self.shards = shards
         self.controller = controller
         self.num_clients = num_clients if num_clients is not None else (
             shards.num_clients if shards is not None else None)
+
+        # -- client-axis sharding (DESIGN.md §11) ---------------------------
+        self.mesh = mesh
+        self._n_shards = 1 if mesh is None else client_shard_count(mesh)
+        self.sharded = self._n_shards > 1
+        self._group = None
+        self._shard = 0 if mesh is None else shard_index(mesh)
+        if self.sharded:
+            C = self.num_clients
+            if C is None:
+                raise ValueError("sharded engine needs num_clients or shards=")
+            validate_client_count(mesh, C)
+            self._local_C = C // self._n_shards
+            self._rows = client_rows(mesh, C)
+            self._group = client_group(mesh)
+            if shards is not None and shards.rows != self._rows:
+                raise ValueError(f"shards hold clients {shards.rows}, this rank's are "
+                                 f"{self._rows}: DeviceShards.from_datasets(..., mesh=mesh)")
+            if controller is not None and controller.mesh is None:
+                raise ValueError("a sharded engine's controller needs the same mesh "
+                                 "(ControllerCore(..., mesh=mesh))")
         self._strategy = get_strategy(cfg.mode, mu=cfg.mu)
         self._reduce = make_reduce(cfg.aggregator)
         self.wire_codec = make_codec(cfg.wire)
@@ -116,7 +172,7 @@ class RoundEngine:
         self._wire_res = None  # [C, ...] error-feedback rows, built lazily
         self._round = make_round_step(
             loss_fn, eta=cfg.eta, mode=cfg.mode, mu=cfg.mu, aggregator=self._reduce,
-            wire=self.wire_codec if self._wire_active else None)
+            wire=self.wire_codec if self._wire_active else None, axis_name=self._group)
         self._local = make_local_update(loss_fn, eta=cfg.eta, strategy=self._strategy)
 
     # -- full round ---------------------------------------------------------
@@ -126,13 +182,13 @@ class RoundEngine:
         dev = self._device(params)
         tau = torch.as_tensor(np.asarray(tau), dtype=torch.int32, device=dev)
         C = int(tau.shape[0])
-        ids, cohort = self._prep_cohort(cohort, C, dev)
+        rows = self._prep_cohort(cohort, C, dev)
         p = torch.as_tensor(p, dtype=torch.float32, device=dev)
         scaffold = self._materialize_scaffold(scaffold, params, C)
         residual = self._wire_state(params, C)
         with strict_fp32():
             new_params, stats, new_scaffold, _, self._wire_res = self._round_body(
-                params, key, batches, tau, p, gprev_sqnorm, scaffold, ids, cohort, residual)
+                params, key, batches, tau, p, gprev_sqnorm, scaffold, rows, residual)
         return new_params, stats, new_scaffold
 
     # -- fused round + controller (core/driver.TrainDriver) -----------------
@@ -154,47 +210,50 @@ class RoundEngine:
             raise ValueError("engine built without controller=ControllerCore")
         dev = self._device(params)
         C = self.controller.C
-        ids, cohort = self._prep_cohort(cohort, C, dev)
+        rows = self._prep_cohort(cohort, C, dev)
         p = torch.as_tensor(p, dtype=torch.float32, device=dev)
         scaffold = self._materialize_scaffold(scaffold, params, C)
         residual = self._wire_state(params, C)
         with strict_fp32():
             taus = torch.clamp(cstate.taus, 1, self.cfg.tau_max)
             new_params, stats, new_scaffold, pw, self._wire_res = self._round_body(
-                params, key, batches, taus, p, cstate.prev_grad_sqnorm, scaffold, ids, cohort,
-                residual)
-            if cohort is None:
-                members, tau_round_sum = torch.arange(C, dtype=torch.int32, device=dev), taus.sum()
-            else:
-                members, tau_round_sum = cohort, taus[cohort].sum()
-            new_cstate, diag = self.controller.step(cstate, stats, members, taus)
-            diag = dict(diag, train_loss=(pw * stats.loss0).sum(), tau_k=stats.tau_k,
-                        tau_round_sum=tau_round_sum, update_sqnorm=stats.update_sqnorm)
+                params, key, batches, taus, p, cstate.prev_grad_sqnorm, scaffold, rows, residual)
+            tau_round_sum = taus.sum() if rows.cohort is None else taus[rows.cohort].sum()
+            new_cstate, diag = self.controller.step(cstate, stats, rows.members, taus)
+            diag = dict(diag, train_loss=global_sum(pw * stats.loss0, self._group),
+                        tau_k=stats.tau_k, tau_round_sum=tau_round_sum,
+                        update_sqnorm=stats.update_sqnorm)
         return new_params, new_cstate, new_scaffold, diag
 
-    def _round_body(self, params, key, batches, tau, p, gprev_sqnorm, scaffold, ids, cohort,
+    def _round_body(self, params, key, batches, tau, p, gprev_sqnorm, scaffold, rows: _Rows,
                     residual):
-        """The cohort's gathers and scatters around the round: full-C taus,
-        weights, host batches, SCAFFOLD rows and wire residual rows in, the
-        cohort's rows through the round (weights renormalised), ``c_i`` and
+        """The rows' gathers and scatters around the round: full-C taus,
+        weights and host batches, this process's SCAFFOLD and wire residual
+        rows in; the rows through the round (a cohort's weights
+        renormalised over the whole cohort, pads weighing 0); ``c_i`` and
         residual rows back by client id. -> (new_params, stats,
         new_scaffold, the weights used, new_residual)."""
         dev = tau.device
         sub_scaffold, pw, res_rows = scaffold, p, residual
-        if cohort is not None:
-            tau = tau[cohort]
-            pw = p[cohort] / global_sum(p[cohort])
+        if rows.sel is not None:
+            tau = tau[rows.sel]
+            pw = p[rows.sel]
+            if rows.mask is not None:
+                pw = pw * rows.mask
+            if rows.cohort is not None:
+                pw = pw / global_sum(pw, self._group)
+        if rows.local is not None:
             if scaffold is not None:
                 sub_scaffold = ScaffoldState(
-                    c=scaffold.c, c_i={k: v[cohort] for k, v in scaffold.c_i.items()})
+                    c=scaffold.c, c_i={k: v[rows.local] for k, v in scaffold.c_i.items()})
             if residual is not None:
-                res_rows = {k: v[cohort] for k, v in residual.items()}
+                res_rows = {k: v[rows.local] for k, v in residual.items()}
         if batches is not None:
             batches = {k: v.to(dev) for k, v in batches.items()}
-            if cohort is not None:
-                batches = {k: v[cohort] for k, v in batches.items()}
+            if rows.sel is not None:
+                batches = {k: v[rows.sel] for k, v in batches.items()}
         else:
-            batches = self._sample(key, ids)
+            batches = self._sample(key, rows.ids)
         new_residual = residual
         if residual is None:
             new_params, stats, new_scaffold = self._round(
@@ -202,11 +261,11 @@ class RoundEngine:
         else:
             new_params, stats, new_scaffold, new_residual = self._round(
                 params, batches, tau, pw, gprev_sqnorm, sub_scaffold, res_rows)
-            if cohort is not None:
-                new_residual = _scatter_rows(residual, cohort, new_residual)
-        if cohort is not None and scaffold is not None and new_scaffold is not None:
+            if rows.local is not None:
+                new_residual = _scatter_kept(residual, rows, new_residual)
+        if rows.local is not None and scaffold is not None and new_scaffold is not None:
             new_scaffold = ScaffoldState(
-                c=new_scaffold.c, c_i=_scatter_rows(scaffold.c_i, cohort, new_scaffold.c_i))
+                c=new_scaffold.c, c_i=_scatter_kept(scaffold.c_i, rows, new_scaffold.c_i))
         return new_params, stats, new_scaffold, pw, new_residual
 
     # -- message-passing halves (fed/prototype.py) --------------------------
@@ -270,22 +329,24 @@ class RoundEngine:
         clients' residual rows advance here, keyed by client id, so an
         arrival folded rounds later still composes with the client's next
         wave. -> dict(cum_g, g0 [m, ...] trees; loss0, beta, delta [m];
-        tau [m] int), the raw accumulators (not divided by tau)."""
+        tau [m] int), the raw accumulators (not divided by tau). Sharded:
+        this rank's rows of the cohort (the cohort's ids of its clients, in
+        order; pads as in the round)."""
         dev = self._device(params)
         C = int(taus.shape[0])
-        ids, rows = self._prep_cohort(cohort, C, dev)
+        rows = self._prep_cohort(np.asarray(cohort), C, dev)
         residual = self._wire_state(params, C)
         with strict_fp32():
-            tau = torch.clamp(taus, 1, self.cfg.tau_max)[rows]
-            batches = self._sample(key, ids)
+            tau = torch.clamp(taus, 1, self.cfg.tau_max)[rows.sel]
+            batches = self._sample(key, rows.ids)
             gprev = torch.as_tensor(gprev_sqnorm, dtype=torch.float32, device=dev)
             outs = self._local(params, batches, tau, gprev,
-                               *self._zero_variates(params, len(ids)))
+                               *self._zero_variates(params, len(rows.ids)))
             cum_g = outs["cum_g"]
             if residual is not None:
                 cum_g, new_rows = wire_fold(
-                    self.wire_codec, cum_g, {k: v[rows] for k, v in residual.items()})
-                self._wire_res = _scatter_rows(residual, rows, new_rows)
+                    self.wire_codec, cum_g, {k: v[rows.local] for k, v in residual.items()})
+                self._wire_res = _scatter_kept(residual, rows, new_rows)
         return dict(cum_g=cum_g, g0=outs["g0"], loss0=outs["loss0"], beta=outs["beta"],
                     delta=outs["delta"], tau=tau)
 
@@ -300,13 +361,15 @@ class RoundEngine:
         self._wire_res = None
 
     def _wire_state(self, params, C: int):
-        """The full-C residual rows ([C, ...] float32 zeros at first use),
-        or None when the stage is off. Like SCAFFOLD's ``c_i`` they exist
-        for every client from round 0, so cohort rows stay keyed by id."""
+        """The residual rows of every client held here ([C, ...] float32
+        zeros at first use; a rank's [C/K, ...] when sharded), or None when
+        the stage is off. Like SCAFFOLD's ``c_i`` they exist for every
+        client from round 0, so cohort rows stay keyed by id."""
         if not self._wire_active:
             return None
         if self._wire_res is None:
-            self._wire_res = {k: torch.zeros((C,) + v.shape, dtype=torch.float32,
+            n = self._state_rows(C)
+            self._wire_res = {k: torch.zeros((n,) + v.shape, dtype=torch.float32,
                                              device=v.device) for k, v in params.items()}
         return self._wire_res
 
@@ -321,29 +384,79 @@ class RoundEngine:
     def sample_cohort(self, rng: np.random.Generator) -> Optional[np.ndarray]:
         """This round's participating clients (sorted int32 ids), or None
         for all of them; the JAX package's numpy calls, so one seed draws
-        the same ids in both packages."""
+        the same ids in both packages (and on every rank).
+
+        Sharded engines draw STRATIFIED cohorts: about m/K clients from
+        each shard's own id range, so a rank's rows are its own clients.
+        When K does not divide m (or m < K) the draw degrades to an
+        imbalanced split, ``m % K`` randomly chosen shards drawing one
+        more, with a warning; ``_prep_cohort`` pads the short ranks."""
         m, C = self.cfg.cohort_size, self.num_clients
         if m is None or C is None or m >= C:
             return None
-        return np.sort(rng.choice(C, size=m, replace=False)).astype(np.int32)
+        if not self.sharded:
+            return np.sort(rng.choice(C, size=m, replace=False)).astype(np.int32)
+        K, C_loc = self._n_shards, self._local_C
+        base, extra = divmod(m, K)
+        counts = np.full(K, base, np.int64)
+        if extra:
+            warnings.warn(
+                f"cohort_size={m} does not divide the {K} client-axis shards: degrading to "
+                f"an imbalanced per-shard split ({extra} shards draw {base + 1} clients, the "
+                f"rest {base}); pad rows are masked no-ops", RuntimeWarning, stacklevel=2)
+            counts[rng.choice(K, size=extra, replace=False)] += 1
+        rows = [s * C_loc + np.sort(rng.choice(C_loc, size=int(counts[s]), replace=False))
+                for s in range(K)]
+        return np.concatenate(rows).astype(np.int32)
 
     # -- helpers ------------------------------------------------------------
     @staticmethod
     def _device(params) -> torch.device:
         return next(iter(params.values())).device
 
-    @staticmethod
-    def _prep_cohort(cohort, C: int, dev):
-        """Host cohort ids -> (numpy int32 [m], int32 [m] tensor on ``dev``),
-        or (None, None) for full participation."""
+    def _state_rows(self, C: int) -> int:
+        """How many clients' state rows (``c_i``, wire residuals) live here."""
+        return self._local_C if self.sharded else C
+
+    def _prep_cohort(self, cohort, C: int, dev) -> _Rows:
+        """Host cohort ids (or None) -> the rows this process runs.
+
+        One device: the cohort's rows (or every client). Sharded: this
+        rank's clients of the cohort (grouped by owner, so a rank never
+        touches another's data), padded with the sentinel id C up to the
+        largest rank's count; a pad's data and state rows are the rank's
+        last client's, it weighs 0 and its scatter is dropped."""
+        if cohort is None and not self.sharded:
+            return _Rows(None, None, None, None, None,
+                         torch.arange(C, dtype=torch.int32, device=dev), None)
+        full = None
+        if cohort is not None:
+            ids = np.asarray(cohort.cpu() if torch.is_tensor(cohort) else cohort, np.int32)
+            ids = ids.reshape(-1)
+            if (ids.size == 0 or ids.min() < 0 or ids.max() >= C
+                    or np.unique(ids).size != ids.size):
+                raise ValueError(f"cohort must hold distinct client ids in [0, {C}); got {ids}")
+            # a pageable source is staged before the call returns
+            full = torch.from_numpy(ids).to(dev, non_blocking=True)
+            if not self.sharded:
+                return _Rows(ids, full, full, None, None, full, full)
+        K, C_loc, lo = self._n_shards, self._local_C, self._rows.start
         if cohort is None:
-            return None, None
-        ids = np.asarray(cohort.cpu() if torch.is_tensor(cohort) else cohort, np.int32)
-        ids = ids.reshape(-1)
-        if ids.size == 0 or ids.min() < 0 or ids.max() >= C or np.unique(ids).size != ids.size:
-            raise ValueError(f"cohort must hold distinct client ids in [0, {C}); got {ids}")
-        # a pageable source is staged before the call returns
-        return ids, torch.from_numpy(ids).to(dev, non_blocking=True)
+            mine = np.arange(lo, lo + C_loc, dtype=np.int32)
+            sel = torch.from_numpy(mine).to(dev, non_blocking=True)
+            return _Rows(mine, sel, None, None, None, sel, None)
+        per = int(np.bincount(ids // C_loc, minlength=K).max())
+        mine = np.sort(ids[ids // C_loc == lo // C_loc])
+        members = np.full(per, C, np.int32)  # C = masked-pad sentinel
+        members[: mine.size] = mine
+        gids = np.where(members < C, members, lo + C_loc - 1).astype(np.int32)
+        sel = torch.from_numpy(gids).to(dev, non_blocking=True)
+        keep = mask = None
+        if mine.size < per:
+            keep = torch.arange(mine.size, device=dev)
+            mask = torch.from_numpy((members < C).astype(np.float32)).to(dev, non_blocking=True)
+        return _Rows(gids, sel, sel - lo, keep, mask,
+                     torch.from_numpy(members).to(dev, non_blocking=True), full)
 
     def _sample(self, key, ids):
         """Device shards + round key -> the cohort's (or every client's)
@@ -368,12 +481,22 @@ class RoundEngine:
     def _materialize_scaffold(self, scaffold, params, C: int):
         if not self._strategy.uses_scaffold or scaffold is not None:
             return scaffold
+        C = self._state_rows(C)
         return ScaffoldState(
             c={k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
                for k, v in params.items()},
             c_i={k: torch.zeros((C,) + v.shape, dtype=torch.float32, device=v.device)
                  for k, v in params.items()},
         )
+
+
+def _scatter_kept(full, rows: _Rows, new):
+    """``full`` (a process's state rows) with the real rows of ``new``
+    (leaves [n, ...], one a row of ``rows``) written at their client's
+    row; pads are dropped."""
+    if rows.keep is None:
+        return _scatter_rows(full, rows.local, new)
+    return _scatter_rows(full, rows.local[rows.keep], {k: v[rows.keep] for k, v in new.items()})
 
 
 def _scatter_rows(full, rows, new):

@@ -1,5 +1,5 @@
 """FedVeca core: the vectorized federated round (port of
-``repro/core/fedveca.py``, single device).
+``repro/core/fedveca.py``).
 
 The paper's round (Alg. 1 lines 3-7 + Alg. 2) in one call:
 
@@ -26,7 +26,14 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.strategy import MODES, Strategy, get_strategy, global_sum, make_reduce
+from repro_torch.core.strategy import (
+    MODES,
+    Strategy,
+    get_strategy,
+    global_sum,
+    make_reduce,
+    psum_reduce,
+)
 from repro_torch.core.tree import (
     tree_axpy,
     tree_sqnorm,
@@ -148,6 +155,11 @@ def make_round_step(
     wire=None,  # a WireCodec (core/wire.py): the per-client cum_g rows pass
     #   through an error-feedback encode/decode before the reduce; None or
     #   identity is the round without the stage, bit for bit
+    axis_name=None,  # the client-axis process group when the round runs on
+    #   one rank of a client-sharded world: the client-axis arguments hold
+    #   only the rank's clients, the server reduce becomes the shard-local
+    #   reduce plus one all-reduce, and every cross-client scalar (tau_k,
+    #   the global gradient) is completed across the ranks (DESIGN.md §11)
 ) -> Callable:
     """Build the federated round.
 
@@ -171,6 +183,11 @@ def make_round_step(
 
     The server reduce runs twice a round (the global step and the Eq. 8
     global gradient), so the vecavg kernel launches twice a round.
+
+    With ``axis_name`` the same contract holds on each rank: C is the
+    rank's client count, the per-client stats come back rank-sized, and
+    the model-sized outputs (new_params, global_grad) are the same on
+    every rank.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; valid: {MODES}")
@@ -183,6 +200,8 @@ def make_round_step(
             "non-identity wire codec")
     strategy = get_strategy(mode, mu=mu)
     reduce = make_reduce(aggregator)
+    if axis_name is not None:
+        reduce = psum_reduce(reduce, axis_name)
     local_update = make_local_update(loss_fn, eta=eta, strategy=strategy)
 
     def round_step(params, batches, tau, p, gprev_sqnorm,
@@ -205,14 +224,14 @@ def make_round_step(
             decoded, new_residual = wire_fold(wire, outs["cum_g"], residual)
             outs = dict(outs, cum_g=decoded)
 
-        tau_k = global_sum(p * tau_f)
-        delta_w = strategy.server_delta(outs, params, tau_f, p, eta, reduce)
+        tau_k = global_sum(p * tau_f, axis_name)
+        delta_w = strategy.server_delta(outs, params, tau_f, p, eta, reduce, axis_name)
         new_params = tree_axpy(1.0, delta_w, params)
 
         new_scaffold = scaffold
         if strategy.uses_scaffold:
             new_scaffold = strategy.update_scaffold(
-                outs, params, ScaffoldState(c=c_server, c_i=c_client), tau_f, eta)
+                outs, params, ScaffoldState(c=c_server, c_i=c_client), tau_f, eta, axis_name)
 
         # Eq. (8): global gradient + per-client ||g0||^2 from the same reduce
         global_grad, g0_sqn = reduce(outs["g0"], p, 1.0)

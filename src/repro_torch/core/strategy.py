@@ -26,6 +26,14 @@ dispatches by device: a CPU tensor takes its plain version (which divides
 first, as the JAX package does), a CUDA tensor the kernel.
 ``fallback_reduce`` is the per-leaf tree path, and is taken only when asked
 for by name.
+
+**The client axis** (DESIGN.md §11). On one rank of a client-sharded round
+the stacked trees hold only the rank's clients, and ``axis_name`` is the
+client-axis process group (``sharding.api.client_group``; None on one
+device): ``psum_reduce`` completes the shard-local reduce with one
+all-reduce of its output, ``global_sum`` completes a sum over the clients,
+and SCAFFOLD's client count and mean control-variate delta are completed
+the same way. The per-client squared norms stay with their rank.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from repro_torch.core.tree import (
     tree_weighted_sum,
 )
 from repro_torch.kernels.vecavg.ops import vecavg_tree
+from repro_torch.sharding.api import all_reduce, all_reduce_tree
 
 MODES = ("fedveca", "fednova", "fedavg", "fedprox", "scaffold")
 
@@ -58,9 +67,24 @@ def fallback_reduce(stacked, w, scale, div=None):
     return out, tree_sqnorm_per_client(stacked)
 
 
-def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """sum(x) over the client axis."""
-    return x.sum()
+def psum_reduce(base: Reduce, axis_name) -> Reduce:
+    """Client-axis-sharded reduce: ``base`` (the kernel or the fallback)
+    computes this rank's partial weighted sum and one all-reduce over the
+    client-axis group completes it. The per-client squared norms stay
+    shard-local ([C_local])."""
+
+    def reduce(stacked, w, scale, div=None):
+        out, sqn = base(stacked, w, scale, div=div)
+        return all_reduce_tree(out, axis_name), sqn
+
+    return reduce
+
+
+def global_sum(x: torch.Tensor, axis_name=None) -> torch.Tensor:
+    """sum(x) over the (possibly sharded) client axis: the local sum, then
+    an all-reduce over the client-axis group when ``axis_name`` is one."""
+    s = x.sum()
+    return s if axis_name is None else all_reduce([s], axis_name)[0]
 
 
 def kernel_reduce(stacked, w, scale, div=None):
@@ -108,7 +132,10 @@ class Strategy:
         return g
 
     # -- server half (Alg. 1 line 7) ----------------------------------------
-    def delta_from_normalized(self, G, tau_f, p, eta, reduce: Reduce):
+    # ``axis_name`` is the client-axis group when the round runs on one
+    # rank of a client-sharded world (tau_f/p/outs then hold only the
+    # rank's clients and ``reduce`` is psum-wrapped); None on one device.
+    def delta_from_normalized(self, G, tau_f, p, eta, reduce: Reduce, axis_name=None):
         """Global step from *normalized* client vectors G_i = cum_g_i/tau_i.
 
         This is the message-passing server's entry point: the wire carries
@@ -117,11 +144,11 @@ class Strategy:
         raise NotImplementedError(
             f"mode {self.name!r} aggregates no normalized client vectors")
 
-    def server_delta(self, outs, params, tau_f, p, eta, reduce: Reduce):
+    def server_delta(self, outs, params, tau_f, p, eta, reduce: Reduce, axis_name=None):
         """Global step from the round's stacked outputs dict."""
         raise NotImplementedError
 
-    def update_scaffold(self, outs, params, scaffold, tau_f, eta):
+    def update_scaffold(self, outs, params, scaffold, tau_f, eta, axis_name=None):
         return scaffold
 
 
@@ -131,13 +158,13 @@ class FedVecaStrategy(Strategy):
 
     name = "fedveca"
 
-    def delta_from_normalized(self, G, tau_f, p, eta, reduce):
-        tau_k = global_sum(p * tau_f)
+    def delta_from_normalized(self, G, tau_f, p, eta, reduce, axis_name=None):
+        tau_k = global_sum(p * tau_f, axis_name)
         delta_w, _ = reduce(G, p, -eta * tau_k)
         return delta_w
 
-    def server_delta(self, outs, params, tau_f, p, eta, reduce):
-        tau_k = global_sum(p * tau_f)
+    def server_delta(self, outs, params, tau_f, p, eta, reduce, axis_name=None):
+        tau_k = global_sum(p * tau_f, axis_name)
         # G_i = cum_g_i / tau_i, divided inside the reduce
         delta_w, _ = reduce(outs["cum_g"], p, -eta * tau_k, div=tau_f)
         return delta_w
@@ -154,12 +181,12 @@ class FedAvgStrategy(Strategy):
 
     name = "fedavg"
 
-    def delta_from_normalized(self, G, tau_f, p, eta, reduce):
+    def delta_from_normalized(self, G, tau_f, p, eta, reduce, axis_name=None):
         cum_g = tree_map(lambda x: x * _per_client(tau_f, x), G)
         delta_w, _ = reduce(cum_g, p, -eta)
         return delta_w
 
-    def server_delta(self, outs, params, tau_f, p, eta, reduce):
+    def server_delta(self, outs, params, tau_f, p, eta, reduce, axis_name=None):
         delta_w, _ = reduce(outs["cum_g"], p, -eta)
         return delta_w
 
@@ -187,18 +214,18 @@ class ScaffoldStrategy(Strategy):
         return tree_map(lambda gg, cs, ci: gg.float() + cs.float() - ci.float(),
                         g, c_server, c_client)
 
-    def server_delta(self, outs, params, tau_f, p, eta, reduce):
+    def server_delta(self, outs, params, tau_f, p, eta, reduce, axis_name=None):
         local_delta = tree_map(lambda wc, w0: wc.float() - w0.float()[None],
                                outs["params"], params)
         delta_w, _ = reduce(local_delta, p, 1.0)
         return delta_w
 
-    def update_scaffold(self, outs, params, scaffold, tau_f, eta):
+    def update_scaffold(self, outs, params, scaffold, tau_f, eta, axis_name=None):
         # c_i' = c_i - c + (w_k - w_i^tau)/(tau_i * eta); c' = c + mean(dc)
         from repro_torch.core.fedveca import ScaffoldState
 
         C = tau_f.shape[0]
-        C_total = global_sum(torch.ones_like(tau_f))
+        C_total = global_sum(torch.ones_like(tau_f), axis_name)
         c_server, c_client = scaffold.c, scaffold.c_i
         inv = 1.0 / (tau_f * eta)
         c_i_new = tree_map(
@@ -210,6 +237,8 @@ class ScaffoldStrategy(Strategy):
         )
         dc = tree_map(torch.sub, c_i_new, c_client)
         mean_dc = tree_weighted_sum(dc, torch.full((C,), 1.0, device=tau_f.device) / C_total)
+        if axis_name is not None:
+            mean_dc = all_reduce_tree(mean_dc, axis_name)
         return ScaffoldState(c=tree_axpy(1.0, mean_dc, c_server), c_i=c_i_new)
 
 

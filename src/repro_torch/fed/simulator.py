@@ -1,6 +1,5 @@
-"""Federated simulator (port of ``repro/fed/simulator.py``, the
-synchronous fields): K rounds of the fused round+controller step via
-``core/driver.TrainDriver``.
+"""Federated simulator (port of ``repro/fed/simulator.py``): K rounds of
+the fused round+controller step via ``core/driver.TrainDriver``.
 
 Implements the paper's experimental protocol (§IV-A):
   * FedVeca: adaptive tau via the controller (Alg. 1);
@@ -37,12 +36,17 @@ instead of the synchronous barrier; ``buffer_waves=1``, ``instant``
 latency and ``grad_decay=1.0`` reproduce the synchronous driver bit for
 bit); it needs the device data path.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``mesh`` (A18).
+``mesh`` (a federated mesh, ``launch/mesh.make_federated_mesh``) shards
+the client axis, SPMD style: each rank builds the simulator with the same
+arguments and its mesh, holds only its clients' data, and runs the
+sharded round (``core/engine.RoundEngine(mesh=)``); evaluation runs on
+rank 0's params (the same on every rank), and rank 0 alone logs the rows.
+``run_on_ranks`` starts K ranks and runs one such simulation on each.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -86,8 +90,9 @@ class FedSimConfig:
     latency_kind: str = "instant"  # instant | uniform | exp | hetero
     latency_scale: float = 1.0
     latency_spread: float = 1.0  # hetero: per-client lognormal spread
-    # -- not ported yet (NotImplementedError naming the ROADMAP item) -------
-    mesh: Optional[object] = None  # A18
+    # -- client-axis sharding (DESIGN.md §11) ---------------------------------
+    mesh: Optional[object] = None  # federated mesh: shard the clients over
+    #   ('pod','data'); None = the single-device round
 
 
 class FederatedSimulator:
@@ -105,7 +110,10 @@ class FederatedSimulator:
         sizes = np.array([len(d) for d in client_data], np.float64)
         self.p = (sizes / sizes.sum()).astype(np.float32)
 
-        shards = (DeviceShards.from_datasets(client_data, device=self.device)
+        if cfg.mesh is not None and cfg.mesh.device != self.device:
+            raise ValueError(f"the mesh's rank runs on {cfg.mesh.device}, the model on "
+                             f"{self.device}")
+        shards = (DeviceShards.from_datasets(client_data, device=self.device, mesh=cfg.mesh)
                   if cfg.data_path == "device" else None)
         ctrl_cfg = ControllerConfig(eta=cfg.eta, alpha=cfg.alpha, tau_max=cfg.tau_max,
                                     tau_init=cfg.tau_init, decay=cfg.stats_decay)
@@ -116,13 +124,15 @@ class FederatedSimulator:
                          aggregator=cfg.aggregator, wire=cfg.wire),
             shards=shards,
             num_clients=self.C,
-            controller=ControllerCore(ctrl_cfg, self.C, adapt=(cfg.mode == "fedveca")),
+            controller=ControllerCore(ctrl_cfg, self.C, adapt=(cfg.mode == "fedveca"),
+                                      mesh=cfg.mesh),
             mesh=cfg.mesh,
         )
         # the numpy twin stays constructible, as in the JAX package
         self.controller = FedVecaController(ctrl_cfg, self.C)
+        lead = cfg.mesh is None or cfg.mesh.rank == 0  # evaluates and logs
         eval_fn = (make_dataset_evaluator(model.loss, test_data, device=self.device)
-                   if test_data is not None else None)
+                   if test_data is not None and lead else None)
         self.driver = TrainDriver(
             self.engine, self.p,
             overlap=cfg.overlap, seed=cfg.seed, mode=cfg.mode,
@@ -188,6 +198,64 @@ class FederatedSimulator:
         if self.buffered_engine is not None:
             return self.buffered_engine.run(params, rounds, self.init_taus(), logger=log)
         return self.driver.run(params, rounds, self.init_taus(), logger=log)
+
+
+def run_on_ranks(world: int, backend: str, arch, client_data: List[Dataset],
+                 cfgs: List[FedSimConfig], *, device=None,
+                 params=None) -> List[List[dict]]:
+    """Simulations sharded over ``world`` new ranks (``launch/mesh.spawn``):
+    rank r builds ``arch``'s model on its device (``device`` under gloo,
+    None meaning the card; ``cuda:r`` under nccl) and the mesh
+    ``make_federated_mesh()``, then runs a simulator for each
+    config of ``cfgs``, each from ``params`` (host tensors; None: the
+    model's init from the config's seed); the first run also warms the
+    ranks' processes. Returns, for each rank, a dict a config: ``rows``
+    (rank 0's, empty elsewhere), ``params`` (host tensors, the same on
+    every rank), the controller's per-client statistics ``vals``,
+    ``ms_per_round`` (host clock over ``run`` ending in a sync),
+    ``host_blocked_s``, the kernels' ``launches`` and the ``collectives``
+    of the run, ``peak_mem_gb`` (the card's, 0 on the CPU) and
+    ``all_reduce_ms`` (``sharding.api.time_all_reduce`` at the model's
+    size, after the runs)."""
+    from repro_torch.launch.mesh import spawn
+
+    return spawn(_simulate_rank, world, backend, arch, device, client_data, list(cfgs),
+                 params)
+
+
+def _simulate_rank(arch, device, client_data, cfgs, params):
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.vecavg import ops as va_ops
+    from repro_torch.launch.mesh import make_federated_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import api
+
+    mesh = make_federated_mesh(device=device)
+    model = build_model(arch, device=mesh.device)
+    cuda = mesh.device.type == "cuda"
+    outs = []
+    for cfg in cfgs:
+        sim = FederatedSimulator(model, client_data, dataclasses.replace(cfg, mesh=mesh))
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        va_ops.reset_launches()
+        rn_ops.reset_launches()
+        api.reset_collectives()
+        t0 = time.perf_counter()
+        log = sim.run(params=params)
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+        ms = 1e3 * (time.perf_counter() - t0) / cfg.rounds
+        outs.append(dict(
+            rows=log.rows, params={k: v.cpu() for k, v in log.params.items()},
+            vals={k: v.cpu().numpy() for k, v in log.controller_state.vals.items()},
+            ms_per_round=ms, host_blocked_s=(sim.buffered_engine or sim.driver).host_blocked_s,
+            launches=dict(va_ops.launches, **rn_ops.launches), collectives=dict(api.collectives),
+            peak_mem_gb=torch.cuda.max_memory_allocated(mesh.device) / 1e9 if cuda else 0.0))
+    numel = sum(v.numel() for v in outs[-1]["params"].values())
+    ar = api.time_all_reduce(numel, mesh.group, mesh.device) if mesh.size > 1 else 0.0
+    return [dict(o, all_reduce_ms=ar) for o in outs]
 
 
 def fair_fixed_tau(tau_all: int, rounds: int, batch: int, sizes: np.ndarray) -> np.ndarray:

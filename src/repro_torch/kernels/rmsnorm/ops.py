@@ -152,6 +152,8 @@ class RMSNorm(torch.autograd.Function):
             return RMSNorm.apply(x.movedim(0, 1), scale, groups, eps), 1
         scale = scale.movedim(sd, 0)
         if groups == 1:
+            if n == 1:  # a batch of one (one client a rank): its scale is every row's
+                return RMSNorm.apply(x, scale[0], 1, eps), 0
             return RMSNorm.apply(x, scale, n, eps), 0
         out = RMSNorm.apply(x.flatten(0, 1), scale.flatten(0, 1), n * groups, eps)
         return out.unflatten(0, (n, groups)), 0

@@ -160,7 +160,7 @@ def forward(cfg, p: Params, batch, impl: str = "auto", remat=True, **_):
     """batch {frames [B, T, frontend_dim], tokens [B, S]} -> (logits [B, S,
     V], aux 0). ``remat`` (True by default, as in the JAX package)
     rematerializes each decoder layer for the backward; ``"dots"`` raises
-    (ROADMAP.md A18). ``impl`` and any other keyword are accepted and
+    (ROADMAP.md A18b). ``impl`` and any other keyword are accepted and
     ignored, as the JAX ``forward``'s ``**_`` does: no kernel is on this
     path."""
     del impl

@@ -244,7 +244,7 @@ def _remat_wrap(body, remat):
         return body
     if remat == "dots":
         raise NotImplementedError(
-            'remat="dots" is not ported to repro_torch yet (ROADMAP.md A18, '
+            'remat="dots" is not ported to repro_torch yet (ROADMAP.md A18b, '
             "with the step bundles that pass it); use remat=True or False")
     if remat is not True:
         raise ValueError(f'remat must be True, False or "dots", got {remat!r}')
@@ -335,7 +335,7 @@ def forward(cfg, p: Params, batch, impl: str = "auto", window=None, remat=True, 
     inputs and runs every block's forward twice, so the rmsnorm kernel
     launches 4L + 1 times a gradient call against 2L + 1 with
     ``remat=False`` or under ``no_grad``; values and gradients are the
-    same bits either way. ``"dots"`` raises (ROADMAP.md A18). ``unroll``
+    same bits either way. ``"dots"`` raises (ROADMAP.md A18b). ``unroll``
     is the JAX package's scan-unrolling compile knob and is ignored: this
     runs eagerly, layer by layer."""
     del unroll

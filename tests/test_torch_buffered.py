@@ -68,7 +68,7 @@ def _engine(setup, cohort=None, mode="fedveca", wire="none", clients=None):
         setup["tm"].loss,
         EngineConfig(mode=mode, eta=0.05, tau_max=TAU_MAX, batch_size=16, cohort_size=cohort,
                      wire=wire),
-        shards=DeviceShards.from_datasets(clients or setup["clients"]), num_clients=C,
+        shards=DeviceShards.from_datasets(clients or setup["clients"], device="cpu"), num_clients=C,
         controller=ControllerCore(ControllerConfig(eta=0.05, tau_max=TAU_MAX, tau_init=2), C,
                                   adapt=(mode == "fedveca")))
 
@@ -288,7 +288,7 @@ def test_buffered_validation(setup):
         BufferedRoundEngine(eng, setup["p"], BufferedConfig(grad_decay=0.0))
     with pytest.raises(ValueError, match="controller"):
         BufferedRoundEngine(RoundEngine(setup["tm"].loss, EngineConfig(),
-                                        shards=DeviceShards.from_datasets(setup["clients"])),
+                                        shards=DeviceShards.from_datasets(setup["clients"], device="cpu")),
                             setup["p"])
     with pytest.raises(ValueError, match="device data"):
         BufferedRoundEngine(RoundEngine(setup["tm"].loss, EngineConfig(), num_clients=C,

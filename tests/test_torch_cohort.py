@@ -220,7 +220,7 @@ def test_numpy_controller_matches_jax_and_the_core(svm, svm_clients, cohort_size
     def engine(controller=None):
         return RoundEngine(svm[1].loss, EngineConfig(eta=0.05, tau_max=T, batch_size=16,
                                                      cohort_size=cohort_size),
-                           shards=DeviceShards.from_datasets(clients), num_clients=Cn,
+                           shards=DeviceShards.from_datasets(clients, device="cpu"), num_clients=Cn,
                            controller=controller)
 
     eng, ctl = engine(), FedVecaController(ControllerConfig(**cfg), Cn)
@@ -364,7 +364,7 @@ def test_device_sample_draws_each_client_alike_in_any_cohort():
     r = np.random.RandomState(0)
     ds = [tsyn.Dataset(r.randn(n, 3).astype(np.float32), np.arange(n, dtype=np.int32))
           for n in (5, 9, 7, 4)]
-    shards = DeviceShards.from_datasets(ds)
+    shards = DeviceShards.from_datasets(ds, device="cpu")
     full = shards.sample(11, 4, 6)
     for ids in ([1, 3], [3], [0, 2, 3]):
         sub = shards.sample(11, 4, 6, ids=np.array(ids, np.int32))

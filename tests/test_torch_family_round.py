@@ -69,7 +69,7 @@ def test_round_step_matches_jax(arch):
     jparams, jst, _ = jstep(jp, jax_format_batch(jnp.asarray(seqs)), jnp.asarray(tau),
                             jnp.asarray(p), jnp.float32(0.3), None)
     tparams, tst, _ = make_round_step(tm.loss, eta=0.05)(
-        tp, format_batch(seqs), torch.from_numpy(tau), torch.from_numpy(p),
+        tp, format_batch(seqs, device="cpu"), torch.from_numpy(tau), torch.from_numpy(p),
         torch.tensor(0.3), None)
     np.testing.assert_array_equal(_np(tst.tau), np.asarray(jst.tau))
     _close_tree(tparams, jparams, atol=1e-6, rtol=0)
@@ -101,7 +101,7 @@ def test_moe_round_launches_rmsnorm_once_a_norm_call(monkeypatch):
     for loss, per_call in ((tm.loss, 4 * L + 1),
                            (functools.partial(tm.loss, remat=False), 2 * L + 1)):
         calls.clear()
-        make_round_step(loss, eta=0.05)(tp, format_batch(seqs), torch.tensor([3, 1]),
+        make_round_step(loss, eta=0.05)(tp, format_batch(seqs, device="cpu"), torch.tensor([3, 1]),
                                         torch.tensor([0.5, 0.5]), torch.tensor(0.0))
         assert len(calls) == T * per_call
 

@@ -368,7 +368,7 @@ def test_engine_run_round_matches_jax_engine():
     train = tsyn.binarize_even_odd(orig)
     clients = [tsyn.Dataset(train.x[s], train.y[s])
                for s in tpart.partition_case3(orig.y, 3, seed=0)]
-    tb = host_stacked_batches(clients, np.random.default_rng(4), 4, 8)
+    tb = host_stacked_batches(clients, np.random.default_rng(4), 4, 8, device="cpu")
     jb = jax_host_batches(clients, np.random.default_rng(4), 4, 8)
     np.testing.assert_array_equal(_np(tb["x"]), np.asarray(jb["x"]))
     np.testing.assert_array_equal(_np(tb["y"]), np.asarray(jb["y"]))

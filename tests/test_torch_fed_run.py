@@ -134,7 +134,7 @@ def test_teacher_forced_fedveca_run_matches_jax(setup, jax_aggregator):
     excused = adapted = 0
     for k in range(ROUNDS):
         jb = jax_host_batches(jclients, jrng, TAU_MAX, BATCH)
-        tb = host_stacked_batches(tclients, trng, TAU_MAX, BATCH)
+        tb = host_stacked_batches(tclients, trng, TAU_MAX, BATCH, device="cpu")
         np.testing.assert_array_equal(_np(tb["x"]), np.asarray(jb["x"]))
         tp, tstate, _, tdiag = teng.run_fused(_t(jparams), _state_to_torch(jstate), p,
                                               batches=tb)
@@ -263,7 +263,7 @@ def test_dataset_evaluator_matches_jax(setup, max_batch):
     x, y = setup["ttest"].x[:7], setup["ttest"].y[:7]
     params = setup["jp"]
     want = jax_evaluator(setup["jm"].loss, jsyn.Dataset(x, y), max_batch)(params)
-    got = make_dataset_evaluator(setup["tm"].loss, tsyn.Dataset(x, y), max_batch)(_t(params))
+    got = make_dataset_evaluator(setup["tm"].loss, tsyn.Dataset(x, y), max_batch, device="cpu")(_t(params))
     assert sorted(got) == sorted(want) == ["test_acc", "test_loss"]
     for key in want:
         np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-6)
@@ -277,9 +277,9 @@ def test_device_data_path_draws_per_client():
     r = np.random.RandomState(0)
     ds = [tsyn.Dataset(r.randn(n, 3).astype(np.float32), np.arange(n, dtype=np.int32))
           for n in (5, 9, 7)]
-    a = DeviceShards.from_datasets(ds).sample(11, 4, 6)
-    b = DeviceShards.from_datasets(ds + ds[:1]).sample(11, 4, 6)
-    c = DeviceShards.from_datasets(ds).sample(12, 4, 6)
+    a = DeviceShards.from_datasets(ds, device="cpu").sample(11, 4, 6)
+    b = DeviceShards.from_datasets(ds + ds[:1], device="cpu").sample(11, 4, 6)
+    c = DeviceShards.from_datasets(ds, device="cpu").sample(12, 4, 6)
     assert a["x"].shape == (3, 4, 6, 3) and a["y"].dtype == torch.int32
     for i, n in enumerate((5, 9, 7)):
         assert torch.equal(a["y"][i], b["y"][i])
@@ -330,9 +330,19 @@ def test_fed_entry_points_default_to_cuda(monkeypatch):
         fed_main(["--rounds", "1"])
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A18")])
-def test_options_not_ported_raise(setup, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+def _two_shard_mesh():
+    """A client-axis mesh of 2 shards, made by hand (no process group)."""
+    from repro_torch.launch.mesh import CLIENT_AXES, FederatedMesh
+
+    return FederatedMesh(CLIENT_AXES, (1, 2), rank=0, device=torch.device("cpu"), group=None)
+
+
+@pytest.mark.parametrize("kw,exc,item", [(dict(mesh=_two_shard_mesh()), ValueError,
+                                          "divide evenly")])
+def test_options_not_ported_raise(setup, kw, exc, item):
+    """The mesh is ported (the sharded round): 5 clients over 2 shards
+    do not divide evenly and raise."""
+    with pytest.raises(exc, match=item):
         FederatedSimulator(setup["tm"], setup["tclients"], FedSimConfig(**kw))
 
 

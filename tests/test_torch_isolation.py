@@ -13,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,7 +56,8 @@ def test_port_modules_found():
                  "repro_torch.models.xlstm", "repro_torch.optim.optimizers",
                  "repro_torch.models.encdec", "repro_torch.configs.phi_3_vision_4_2b",
                  "repro_torch.configs.whisper_medium", "repro_torch.core.wire",
-                 "repro_torch.core.buffered"):
+                 "repro_torch.core.buffered", "repro_torch.launch.mesh",
+                 "repro_torch.launch.train", "repro_torch.sharding.api"):
         assert want in mods
 
 
@@ -110,11 +112,27 @@ def test_ast_check_catches_a_bad_import():
 def test_entry_points_default_to_cuda(monkeypatch):
     """Without ``device=`` the entry points ask for the card and raise when
     it is absent; they never drop to the CPU."""
+    from repro_torch.core.driver import make_dataset_evaluator
+    from repro_torch.data import synthetic
+    from repro_torch.data.device import DeviceShards, format_batch, host_stacked_batches
+    from repro_torch.launch.mesh import make_federated_mesh
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models.model import build_model, build_model_by_name
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import PagedServeLoop
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = [synthetic.make_classification(8, (3,), 2, seed=i) for i in range(2)]
+    for call in (lambda: DeviceShards.from_datasets(ds),
+                 lambda: host_stacked_batches(ds, np.random.default_rng(0), 2, 2),
+                 lambda: format_batch(ds[0].x, ds[0].y),
+                 lambda: make_dataset_evaluator(lambda p, b: (0.0, {}), ds[0]),
+                 lambda: make_federated_mesh(),
+                 lambda: train_main(["--arch", "starcoder2-3b", "--reduced", "--rounds", "1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert DeviceShards.from_datasets(ds, device="cpu").device.type == "cpu"
+    assert format_batch(ds[0].x, ds[0].y, device="cpu")["x"].device.type == "cpu"
     cfg = repro_torch.configs.get_arch("starcoder2-3b").reduced()
     with pytest.raises(RuntimeError, match="cuda"):
         build_model(cfg)

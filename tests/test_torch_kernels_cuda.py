@@ -18,7 +18,10 @@ flash bars), rows with no live key exactly 0, two launches bitwise equal; rmsnor
 differ in the last float32 bit: the sums of squares run in other orders),
 two launches on one input bitwise equal. The engine's cohort round and the
 prototype server's two reduces through vecavg against the plain tree
-reduce: 1e-6, with their launch counts.
+reduce: 1e-6, with their launch counts. The client-axis sharded round on
+2 gloo ranks sharing the card against the unsharded round: params 1e-6,
+the per-client statistics rtol 1e-5 / atol 1e-6 (tests/test_sharded_round.py's
+bars), vecavg twice on each rank.
 """
 import numpy as np
 import pytest
@@ -388,6 +391,29 @@ def test_cohort_round_launches_the_kernel_on_card(cuda):
     assert int(dk["tau_round_sum"]) == 3
     assert sk.ever.cpu().tolist() == [False, True, False, True]
     assert torch.equal(dk["tau_next"], df["tau_next"])
+
+
+def test_sharded_cnn_round_on_two_ranks_of_the_card(cuda):
+    """``fed.simulator.run_on_ranks``: 2 gloo ranks on cuda:0, 2 CNN clients
+    each, one round of host batches from the seed's init, against the
+    same round unsharded in this process."""
+    from repro_torch.data import synthetic
+    from repro_torch.fed.simulator import FederatedSimulator, FedSimConfig, run_on_ranks
+    from repro_torch.models.model import build_model_by_name
+
+    model = build_model_by_name("cnn-cifar10", device=cuda)
+    orig = synthetic.make_classification(64, (32, 32, 3), 10, seed=0)
+    ds = [synthetic.Dataset(orig.x[i::4], orig.y[i::4]) for i in range(4)]
+    cfg = FedSimConfig(rounds=1, tau_max=3, batch_size=4, eta=0.01, data_path="host")
+    (r0,), (r1,) = run_on_ranks(2, "gloo", model.config, ds, [cfg])
+    ref = FederatedSimulator(model, ds, cfg).run()
+    for o in (r0, r1):
+        assert o["launches"]["vecavg"] == 2
+        for k, v in ref.params.items():
+            torch.testing.assert_close(o["params"][k], v.cpu(), atol=1e-6, rtol=0)
+        for k, v in ref.controller_state.vals.items():
+            np.testing.assert_allclose(o["vals"][k], v.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(r0["rows"][0]["tau"], ref.rows[0]["tau"])
 
 
 @pytest.mark.parametrize("mode", ["fedveca", "fedavg"])

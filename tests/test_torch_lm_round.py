@@ -129,18 +129,18 @@ def test_format_batch_matches_jax_for_tokens_and_vision():
     toks = r.randint(0, 50, (3, 2, 9)).astype(np.int32)
     x, y = r.randn(3, 2, 5).astype(np.float32), r.randint(0, 4, (3, 2)).astype(np.int32)
     for args in ((toks,), (toks.astype(np.int64),), (x, y)):
-        got, want = format_batch(*args), jax_format_batch(*args)
+        got, want = format_batch(*args, device="cpu"), jax_format_batch(*args)
         assert sorted(got) == sorted(want)
         for k in want:
             assert got[k].dtype == (torch.int32 if want[k].dtype == jnp.int32 else torch.float32)
             np.testing.assert_array_equal(_np(got[k]), np.asarray(want[k]))
-    t = format_batch(torch.from_numpy(toks))
+    t = format_batch(torch.from_numpy(toks), device="cpu")
     np.testing.assert_array_equal(_np(t["targets"]), toks[..., 1:])
 
 
 def test_token_shards_and_host_batches_carry_lm_data():
     clients = [tsyn.make_lm_tokens(n, 10, 64, topic=i) for i, n in enumerate((7, 4))]
-    shards = DeviceShards.from_datasets(clients)
+    shards = DeviceShards.from_datasets(clients, device="cpu")
     assert shards.y is None and shards.sizes == [7, 4]
     b = shards.sample(key=5, tau_max=3, batch=6)
     assert sorted(b) == ["targets", "tokens"] and b["tokens"].shape == (2, 3, 6, 10)
@@ -151,7 +151,7 @@ def test_token_shards_and_host_batches_carry_lm_data():
                                    _np(b["targets"][c]).reshape(-1, 10)):
             assert tuple(np.concatenate([seq_in, seq_out[-1:]])) in rows
     jclients = [jsyn.Dataset(c.x, c.y) for c in clients]
-    th = host_stacked_batches(clients, np.random.default_rng(1), 3, 2)
+    th = host_stacked_batches(clients, np.random.default_rng(1), 3, 2, device="cpu")
     jh = jax_host_batches(jclients, np.random.default_rng(1), 3, 2)
     for k in ("tokens", "targets"):
         np.testing.assert_array_equal(_np(th[k]), np.asarray(jh[k]))
@@ -179,7 +179,7 @@ def test_lm_round_step_matches_jax(which):
     js = jstep(jp, jax_format_batch(jnp.asarray(seqs)), jnp.asarray(tau), jnp.asarray(p),
                jnp.float32(0.3), None)
     tstep = make_round_step(tm.loss, eta=0.05)
-    ts = tstep(tp, format_batch(seqs), torch.from_numpy(tau), torch.from_numpy(p),
+    ts = tstep(tp, format_batch(seqs, device="cpu"), torch.from_numpy(tau), torch.from_numpy(p),
                torch.tensor(0.3), None)
     (jparams, jst, _), (tparams, tst, _) = js, ts
     _close_tree(tparams, jparams, atol=1e-6, rtol=0)
@@ -214,12 +214,12 @@ def test_rmsnorm_forward_runs_once_a_norm_call_in_the_round(monkeypatch):
     for loss, per_call in ((tm.loss, 4 * L + 1),
                            (functools.partial(tm.loss, remat=False), 2 * L + 1)):
         calls.clear()
-        make_round_step(loss, eta=0.05)(tp, format_batch(seqs), torch.from_numpy(tau),
+        make_round_step(loss, eta=0.05)(tp, format_batch(seqs, device="cpu"), torch.from_numpy(tau),
                                         torch.from_numpy(p), torch.tensor(0.0))
         assert len(calls) == T * per_call
     calls.clear()
     test = tsyn.make_lm_tokens(5, S, tm.config.vocab_size)
-    make_dataset_evaluator(tm.loss, test, max_batch=2)(tp)  # chunks of 2, 2, then 1
+    make_dataset_evaluator(tm.loss, test, max_batch=2, device="cpu")(tp)  # chunks of 2, 2, then 1
     assert len(calls) == 3 * (2 * L + 1)
 
 
@@ -233,7 +233,7 @@ def test_lm_evaluators_match_jax():
     test = tsyn.make_lm_tokens(7, 12, jm.config.vocab_size, topic=None, seed=99)
     jtest = jsyn.Dataset(test.x, test.y)
     jv = float(jax_evaluator(jm.loss, jtest, max_batch=3)(jp)["test_loss"])
-    tv = make_dataset_evaluator(tm.loss, test, max_batch=3)(tp)
+    tv = make_dataset_evaluator(tm.loss, test, max_batch=3, device="cpu")(tp)
     assert sorted(tv) == ["test_loss"]
     np.testing.assert_allclose(float(tv["test_loss"]), jv, rtol=1e-5)
     sim = FederatedSimulator(tm, [test, test], FedSimConfig(tau_max=2, batch_size=2), test)

@@ -148,7 +148,7 @@ def test_remat_lowers_the_gradient_calls_peak_memory():
     tm = build_model(cfg, device="cpu")
     tp = tm.init(0)
     seqs = np.random.RandomState(37).randint(0, cfg.vocab_size, (2, 2, 129)).astype(np.int32)
-    batch = format_batch(seqs)
+    batch = format_batch(seqs, device="cpu")
     pc = {k: v.expand((2,) + v.shape) for k, v in tp.items()}
     peaks = {}
     for remat in (False, True):
@@ -188,7 +188,7 @@ def test_rmsnorm_forwards_under_remat(monkeypatch, arch, per_layer):
 def test_remat_dots_raises_naming_a18_and_bad_values_raise(arch):
     _, _, tm, tp = _pair(arch)
     batch = {k: torch.from_numpy(v) for k, v in _batch(tm.config, (B,), seed=34).items()}
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(NotImplementedError, match="A18b"):
         tm.loss(tp, batch, remat="dots")
     with pytest.raises(ValueError, match="remat"):
         tm.forward(tp, batch, remat="full")
@@ -213,8 +213,8 @@ def test_remat_round_bitwise_equal_to_none():
     r = np.random.RandomState(36)
     T = 3
     seqs = r.randint(0, tm.config.vocab_size, (C, T, B, S + 1)).astype(np.int32)
-    args = (format_batch(seqs), torch.tensor([3, 2, 1]), torch.tensor([0.5, 0.2, 0.3]),
-            torch.tensor(0.3))
+    args = (format_batch(seqs, device="cpu"), torch.tensor([3, 2, 1]),
+            torch.tensor([0.5, 0.2, 0.3]), torch.tensor(0.3))
     p1, s1, _ = make_round_step(tm.loss, eta=0.05)(tp, *args)
     p0, s0, _ = make_round_step(functools.partial(tm.loss, remat=False), eta=0.05)(tp, *args)
     for k in p0:

@@ -136,6 +136,20 @@ def test_vmap_grad_with_per_client_scale_matches_a_client_loop():
         torch.testing.assert_close(v[c], vc, atol=1e-6, rtol=1e-6)
 
 
+def test_vmap_grad_over_one_client_matches_the_plain_call():
+    """A batch of one client (one client a rank of a sharded round): the
+    rule hands the op the client's scale as every row's, one call."""
+    r = np.random.RandomState(8)
+    x = torch.from_numpy(r.randn(1, 2, 16, 64).astype(np.float32))
+    s = torch.from_numpy((r.randn(1, 64) * 0.1).astype(np.float32))
+    w = torch.from_numpy(r.randn(1, 2, 16, 64).astype(np.float32))
+    (gs, gx), v = torch.func.vmap(torch.func.grad_and_value(_loss, argnums=(0, 1)))(s, x, w)
+    (gs0, gx0), v0 = torch.func.grad_and_value(_loss, argnums=(0, 1))(s[0], x[0], w[0])
+    torch.testing.assert_close(gs[0], gs0, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(gx[0], gx0, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(v[0], v0, atol=1e-5, rtol=1e-6)
+
+
 @pytest.mark.parametrize("in_dims", [(0, None, 0), (None, 0, 0), (1, 2, 2)])
 def test_vmap_rule_takes_every_mix_of_batched_inputs(in_dims):
     """scale unbatched (x's batch dim becomes more rows), x unbatched (it is
