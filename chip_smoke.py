@@ -135,7 +135,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and peak GB, bf16 against float32 (cross entropy 1e-3, logits 5e-2
      relative). The flash timing rows add phi-3's shape in bf16 and
      float32.
- 12. sched   — the serving scheduler on Qwen1.5-32B at full width, 8 of 64
+ 12. sched   — the serving scheduler on Qwen1.5-32B at full width, 2 of 64
      layers, bf16 (random weights from seed 0): one Poisson trace with
      shared 512-token prefixes and bursts (24 requests, no EOS) through
      ``PagedServeLoop(cache_update="kernel")`` as base, prefix cache,
@@ -160,7 +160,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      every tick and every restore checked bitwise: greedy streams identical
      across the variants, integer stats equal to bf16's.
  13. families serving — the rest of serving at full width and depth in
-     bf16 (random weights from seed 0; the MoE cut to 12 of its 24 layers),
+     bf16 (random weights from seed 0; the MoE cut to 4 of its 24 layers,
+     Hymba to 4 of its 32),
      ``cache_update="kernel"``, traces from ``poisson_trace``:
      Qwen1.5-MoE-A2.7B through ``PagedServeLoop``
      (8 slots, capacity 1024) as base and with prefix caching and 128-token
@@ -239,7 +240,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      on each rank equal to the unsharded round's, each rank's peak GB;
      beside it, ``python -m repro_torch.launch.train --mesh data=4`` as two
      subprocesses (sync, and buffered under int8), each exiting 0 with 3
-     rows and vecavg 6 on each of its ranks.
+     rows and vecavg 6 on each of its ranks;
+ 18. model axis — parameters partitioned over a model axis (ROADMAP.md
+     A18b) on 4 gloo ranks that share the card, mesh (data 2, model 2),
+     through the step bundles (``train/steps.py``): (a) granite-moe-1b-a400m
+     at full width, 4 of 24 layers, float32, and (b) Qwen1.5-0.5B's widths
+     (tied embedding: the logits take an all-reduce), each one
+     teacher-forced ``fedveca_round`` of phase 9's traffic over 2 clients
+     against the unsharded C = 2 round (atol 5e-5 / rtol 5e-4), vecavg
+     exactly 4 and rmsnorm exactly 4 (4L + 1) on every rank, collectives,
+     ms and peak GB a rank; (c) on the model group of data 0 (2 ranks), in
+     bf16: StarCoder2-3B's ``forward(impl="pallas")`` at S 2048 (flash
+     exactly 30 a rank on [1, 2048, 12/1, 128]) against the one-rank
+     forward (5e-2 relative) and at 2 layers in float32 (2e-4),
+     Qwen1.5-32B at full width, 4 of 64 layers (flash 4 and rmsnorm 9 a
+     rank, the vocab-parallel head's gathered logits), and StarCoder2-3B's
+     ``decode_step[paged]`` with ``cache_update="kernel"`` from a prefilled
+     8-slot state (paged decode exactly 30 a rank, greedy tokens equal to
+     the one-rank step's); (d) ``python -m repro_torch.launch.train ...
+     --data-axis 2 --model-axis 2`` as a subprocess, exiting 0 with 3 rows
+     and vecavg 12 on each of its 4 ranks.
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
 last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -275,9 +295,11 @@ from repro_torch.data.partition import partition_case3  # noqa: E402
 from repro_torch.data.synthetic import Dataset, make_classification, make_lm_tokens  # noqa: E402
 from repro_torch.fed import FederatedSimulator, FedSimConfig, fair_fixed_tau  # noqa: E402
 from repro_torch.fed.simulator import run_on_ranks  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, spawn  # noqa: E402
 from repro_torch.fed.prototype import FedVecaClient, FedVecaServer  # noqa: E402
 from repro_torch.fed.train_lm import lm_config  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
@@ -290,12 +312,17 @@ from repro_torch.kernels.vecavg import ref as va_ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import cross_entropy  # noqa: E402
+from repro_torch.models.attention import PagedKVPool  # noqa: E402
 from repro_torch.models.model import build_model, build_model_by_name  # noqa: E402
+from repro_torch.models.transformer import PagedDecodeCache  # noqa: E402
 from repro_torch.metrics.logger import latency_summary  # noqa: E402
 from repro_torch.serve import (PagedServeLoop, Request, SamplerConfig, SerialLoop,  # noqa: E402
                                ServeLoop, poisson_trace)
 from repro_torch.serve.sampling import stream_uniforms  # noqa: E402
 from repro_torch.serve.slots import RequestQueue  # noqa: E402
+from repro_torch.sharding import api as sh_api  # noqa: E402
+from repro_torch.sharding import partition  # noqa: E402
+from repro_torch.train.steps import build_bundle  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, same source
@@ -558,15 +585,16 @@ WHISPER_ARCH, WHISPER_S = "whisper-medium", 448
 WHISPER_BF16_LOSS_ATOL, WHISPER_BF16_LOGITS_REL = 1e-3, 5e-2
 # The serving scheduler of phase 12: qwen1.5-32b (hf:Qwen/Qwen1.5-32B widths:
 # d_model 5120, 40/40 heads of 128, d_ff 27392, vocab 152064) at full width,
-# cut to 8 of 64 layers in bf16 (the full depth's ~70 GB of weights leave
-# the pool no room; 16 layers until phase 17 needed the script's time); its
+# cut to 2 of 64 layers in bf16 (the full depth's ~70 GB of weights leave
+# the pool no room; 16 layers until phase 17 and 8 until phase 18 needed
+# the script's time); its
 # float32 run cut to 2 layers. benchmarks/serve_slo.py's
 # trace shape at real lengths: two shared 512-token prefixes, suffixes of
 # 64-256, 16-64 new tokens, bursts of 3x every 4 ticks, no EOS (so the
 # scheduler's integer stats cannot depend on the tokens). 160 pages of 16
 # rows: a request needs up to 52 and 8 slots would take up to 416, so the
 # whole-prompt loop backpressures and the full scheduler preempts.
-SCHED_ARCH, SCHED_LAYERS, SCHED_F32_LAYERS = "qwen1.5-32b", 8, 2
+SCHED_ARCH, SCHED_LAYERS, SCHED_F32_LAYERS = "qwen1.5-32b", 2, 2
 SCHED_TRACE = dict(n_requests=24, rate=2.0, plen_choices=(64, 128, 256),
                    max_new_choices=(16, 32, 64), prefix_families=2, prefix_len=512,
                    burst_mult=3.0, burst_period=4, seed=0)
@@ -587,11 +615,13 @@ SCHED_ONE_SLOT = 8
 # The families of phase 13 (configs of src/repro_torch/configs), served at
 # full width and depth in bf16 from random weights (seed 0), traces made by
 # the port's poisson_trace (no EOS, so the integer stats cannot depend on
-# the tokens): Qwen1.5-MoE-A2.7B, cut to 12 of 24 layers (full depth until
-# phase 17 needed the script's time), through PagedServeLoop (8 slots,
+# the tokens): Qwen1.5-MoE-A2.7B, cut to 4 of 24 layers (full depth until
+# phase 17 and 12 layers until phase 18 needed the script's time), through
+# PagedServeLoop (8 slots,
 # pages of 16, capacity 1024), base and then prefix caching with
 # 128-token chunks on the same trace shape with two shared 256-token
-# prefixes; Hymba-1.5B (window 2048, parallel SSM) through PagedServeLoop,
+# prefixes; Hymba-1.5B (window 2048, parallel SSM), cut to 4 of 32 layers
+# (full depth until phase 18 needed the script's time), through PagedServeLoop,
 # base on the default pool (128 pages a slot) and with preemption after one
 # blocked tick on 300 pages (the port's loop on a 1-layer, d_model-40 copy at
 # the full vocabulary preempts twice on this trace; its largest request
@@ -607,7 +637,8 @@ SCHED_ONE_SLOT = 8
 FAM_MOE, FAM_HYMBA, FAM_XLSTM, FAM_PHI3 = ("qwen2-moe-a2.7b", "hymba-1.5b", "xlstm-1.3b",
                                            "phi-3-vision-4.2b")
 FAM_SLOTS, FAM_PS, FAM_CAPACITY = 8, 16, 1024
-FAM_MOE_LAYERS = 12
+FAM_MOE_LAYERS = 4
+FAM_HYMBA_LAYERS = 4
 FAM_MOE_TRACE = dict(n_requests=16, rate=2.0, plen_choices=(128, 256, 512),
                      max_new_choices=(32, 64), seed=0)
 FAM_MOE_PREFIX = dict(prefix_families=2, prefix_len=256)
@@ -3383,7 +3414,7 @@ def phase_fam_hymba(dev):
     with preemption on FAM_HYMBA_PREEMPT_PAGES pages (restores audited
     bitwise: pages and SSM rows); the step check; float32 at 2 layers."""
     tag, t0 = "fam-hymba", time.perf_counter()
-    model, params = fam_model(dev, FAM_HYMBA)
+    model, params = fam_model(dev, FAM_HYMBA, num_layers=FAM_HYMBA_LAYERS)
     fam_header(tag, model, params, t0)
     trace = hymba_trace(model.config)
     loop_kw = dict(n_slots=FAM_SLOTS, page_size=FAM_PS)
@@ -4282,6 +4313,469 @@ def granite_config():
     return _f32(get_arch("granite-moe-1b-a400m"), num_layers=GRANITE_LAYERS)
 
 
+# ---------------------------------------------------------------------------
+# 18. the model axis (ROADMAP.md A18b): gloo ranks that share the card
+# ---------------------------------------------------------------------------
+
+MA = dict(data=2, model=2)  # (a), (b): 4 ranks; (c): the model group of data 0
+MA_BAR = dict(atol=5e-5, rtol=5e-4)  # tests/test_sharding.py's sharded-round bar
+MA_FWD_S = 2048
+MA_QWEN32_LAYERS = 4
+MA_DECODE = dict(slots=8, prompt=256, page=16)
+MA_LAUNCHER = ["--arch", "granite-moe-1b-a400m", "--reduced", "--data-axis", "2",
+               "--model-axis", "2", "--rounds", "3", "--seq", "64", "--batch-per-client", "2"]
+
+
+def model_axis_plan(device="cuda"):
+    """What phase 18's ranks run (handed to them whole, so that a rehearsal
+    can hand them smaller configs): the rounds' and the forwards' configs,
+    the decode's, the sizes, the device."""
+    sc = get_arch("starcoder2-3b")
+    return dict(device=device, fwd_s=MA_FWD_S, decode=dict(MA_DECODE, cfg=sc),
+                rounds={"granite": granite_config(), "qwen0.5b": qwen05_config()},
+                forwards={"starcoder2-3b": sc,
+                          "starcoder2-3b f32 2 layers": _f32(sc, num_layers=2),
+                          "qwen1.5-32b": dataclasses.replace(get_arch("qwen1.5-32b"),
+                                                             num_layers=MA_QWEN32_LAYERS)})
+
+
+def _ma_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ma_peak_gb(dev):
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def _ma_free(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _ma_counts():
+    return dict(vecavg=va_ops.launches["vecavg"], rmsnorm=rn_ops.launches["rmsnorm"],
+                flash=fa_ops.launches["flash_attention"],
+                paged_decode=pa_ops.launches["paged_decode"])
+
+
+def _ma_reset(dev):
+    """Every counter and the peak to 0, every rank's device idle."""
+    _ma_sync(dev)
+    for ops in (va_ops, rn_ops, fa_ops, pa_ops):
+        ops.reset_launches()
+    sh_api.reset_collectives()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _ma_barrier(dev, group=None):
+    _ma_sync(dev)
+    torch.distributed.barrier(group=group)
+
+
+def _ma_round_inputs(cfg, C):
+    """Phase 9's LM traffic for C clients: host batches [C, tau_max, b, S]
+    of the JAX example's clients, one teacher-forced round's."""
+    clients, _ = lm_data(cfg.vocab_size, C)
+    batches = host_stacked_batches(clients, np.random.default_rng(7), LM["tau_max"],
+                                   LM["batch"], device="cpu")
+    tau = torch.tensor([LM["tau_max"], LM["tau_max"] - 1][:C], dtype=torch.int32)
+    return batches, tau, torch.full((C,), 1.0 / C), torch.tensor(0.0)
+
+
+def _ma_round(mesh, cfg):
+    """One teacher-forced ``fedveca_round`` bundle on (data 2, model 2) from
+    the seed's params; rank 0 first runs the unsharded C = 2 round of the
+    same inputs (the others wait)."""
+    dev, C = mesh.device, MA["data"]
+    full = build_model(cfg, device=dev).init(0)
+    batches, tau, p, g = _ma_round_inputs(cfg, C)
+    ref = None
+    if mesh.rank == 0:
+        step = make_round_step(build_model(cfg, device=dev).loss, eta=LM["eta"])
+        args = ({k: v.to(dev) for k, v in batches.items()}, tau.to(dev), p.to(dev), g.to(dev))
+        _ma_reset(dev)
+        t0 = time.perf_counter()
+        with strict_fp32():
+            rp, rst, _ = step(full, *args)
+        _ma_sync(dev)
+        ref = dict(ms=1e3 * (time.perf_counter() - t0), launches=_ma_counts(),
+                   peak_gb=_ma_peak_gb(dev),
+                   params={k: v.cpu() for k, v in rp.items()},
+                   stats={k: getattr(rst, k).cpu().numpy() for k in
+                          ("loss0", "beta", "delta", "g0_sqnorm")},
+                   tau_k=float(rst.tau_k))
+        del rp, rst, args
+    model = build_model(cfg, device=dev, mesh=mesh)
+    shape = ShapeConfig("lm", LM["seq"], C * LM["batch"], "train")
+    bundle = build_bundle(model, mesh, shape, tau_max=LM["tau_max"], eta=LM["eta"])
+    ins = bundle.shard_inputs(full, batches, tau, p, g)
+    del full
+    _ma_free(dev)
+    _ma_barrier(dev)
+    _ma_reset(dev)
+    t0 = time.perf_counter()
+    newp, st = bundle.fn(*ins)
+    _ma_sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts, coll = _ma_counts(), dict(sh_api.collectives)
+    peak = _ma_peak_gb(dev)
+    gathered = partition.gather_params(newp, mesh, cfg)
+    lay = partition.layout(cfg, mesh.model_size)
+    out = dict(ms=ms, launches=counts, collectives=coll, peak_gb=peak,
+               experts_per_rank=lay.experts_local if cfg.is_moe else 0,
+               sharded_leaves=len(model.model_axis.sharded), leaves=len(newp),
+               stats={k: getattr(st, k).cpu().numpy() for k in
+                      ("loss0", "beta", "delta", "g0_sqnorm")},
+               tau_k=float(st.tau_k),
+               digest=float(sum(v.double().sum() for v in gathered.values())))
+    if ref is not None:
+        out["ref"] = {k: v for k, v in ref.items() if k != "params"}
+        out["max_abs_params"] = max((gathered[k].cpu() - v).abs().max().item()
+                                    for k, v in ref["params"].items())
+        out["share_of_bar"] = max(_close(gathered[k].cpu(), v, **MA_BAR)
+                                  for k, v in ref["params"].items())
+    del newp, gathered, ins
+    _ma_free(dev)
+    _ma_barrier(dev)
+    return out
+
+
+def _ma_logits_check(got, ref, bar):
+    """bf16: |got - ref| / |ref| (Frobenius) within STEP_BF16_REL; float32:
+    max|got - ref| within STEP_F32_ATOL. -> (the number, its bar)."""
+    d = got.float() - ref.float()
+    if got.dtype == torch.float32:
+        return d.abs().max().item(), STEP_F32_ATOL
+    return (d.norm() / ref.float().norm()).item(), bar
+
+
+def _ma_forward(mesh, cfg, S):
+    """``forward(impl="pallas")`` on the model group (2 ranks): rank 0 first
+    runs it on the whole params (the one-rank forward), then both run it on
+    their pieces under ``logical_axis_rules``."""
+    dev = mesh.device
+    full = build_model(cfg, device=dev).init(0)
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                                     dtype=torch.int32).to(dev)}
+    ref = None
+    if mesh.coords["model"] == 0:
+        _ma_reset(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref = build_model(cfg, device=dev).forward(full, batch, impl="pallas")[0]
+        _ma_sync(dev)
+        ref_ms, ref_counts = 1e3 * (time.perf_counter() - t0), _ma_counts()
+    model = build_model(cfg, device=dev, mesh=mesh)
+    local = partition.shard_params(full, mesh, cfg)
+    del full
+    _ma_free(dev)
+    _ma_barrier(dev, mesh.model_group)
+    _ma_reset(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad(), sh_api.logical_axis_rules(mesh):
+        logits = model.forward(local, batch, impl="pallas")[0]
+    _ma_sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    lay = partition.layout(cfg, mesh.model_size)
+    out = dict(ms=ms, launches=_ma_counts(), collectives=dict(sh_api.collectives),
+               peak_gb=_ma_peak_gb(dev),
+               flash_shape=[1, S, lay.heads, lay.kv_heads, cfg.head_dim],
+               finite=bool(torch.isfinite(logits).all()),
+               digest=float(logits.double().sum()))
+    if ref is not None:
+        err, bar = _ma_logits_check(logits, ref, STEP_BF16_REL)
+        out.update(ref_ms=ref_ms, ref_launches=ref_counts, err=err, bar=bar,
+                   argmax_agree=(logits.argmax(-1) == ref.argmax(-1)).float().mean().item())
+    del local, logits, ref
+    _ma_free(dev)
+    _ma_barrier(dev, mesh.model_group)
+    return out
+
+
+def _ma_decode_state(mesh, cfg, full, sizes):
+    """StarCoder2-3B's prefilled 8-slot state: rank 0 of the model group
+    prefills 8 prompts of MA_DECODE["prompt"] tokens (``impl="pallas"``) and
+    lays each slot's rows into pages of 16 (its own pages, one more for the
+    next token); the pool is broadcast to the model group."""
+    dev, L = mesh.device, cfg.num_layers
+    B, S, ps = sizes["slots"], sizes["prompt"], sizes["page"]
+    per = S // ps + 1
+    shape = (L, B * per, ps, cfg.num_kv_heads, cfg.head_dim)
+    k = torch.zeros(shape, dtype=getattr(torch, cfg.param_dtype), device=dev)
+    v = torch.zeros_like(k)
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32)
+    if mesh.coords["model"] == 0:
+        with torch.no_grad():
+            logits, cache = build_model(cfg, device=dev).prefill(
+                full, {"tokens": toks.to(dev)}, impl="pallas")
+        for b in range(B):
+            pages = slice(b * per, b * per + S // ps)
+            k[:, pages] = cache.kv.k[:, b, :S].reshape(L, S // ps, ps, *shape[3:])
+            v[:, pages] = cache.kv.v[:, b, :S].reshape(L, S // ps, ps, *shape[3:])
+        nxt = logits.argmax(-1).to(torch.int32)
+        del cache, logits
+    else:
+        nxt = torch.zeros(B, dtype=torch.int32, device=dev)
+    src = mesh.rank - mesh.coords["model"]
+    for t in (k, v, nxt):
+        torch.distributed.broadcast(t, src=src, group=mesh.model_group)
+    P = -(-cfg.sliding_window // ps) if cfg.sliding_window else per
+    table = torch.full((B, P), -1, dtype=torch.int32)
+    table[:, :per] = torch.arange(B * per, dtype=torch.int32).reshape(B, per)
+    pos = torch.full((B,), S, dtype=torch.int32)
+    return k, v, table, nxt, pos
+
+
+def _ma_decode(mesh, sizes):
+    """StarCoder2-3B's ``decode_step[paged]`` (``cache_update="kernel"``)
+    from a prefilled 8-slot state on the model group: rank 0 first takes the
+    step on the whole params and pool, then both take it on their pieces."""
+    dev = mesh.device
+    cfg = sizes["cfg"]
+    full = build_model(cfg, device=dev).init(0)
+    k, v, table, nxt, pos = _ma_decode_state(mesh, cfg, full, sizes)
+    B = sizes["slots"]
+    active = torch.ones(B, dtype=torch.bool)
+    ref = None
+    if mesh.coords["model"] == 0:
+        pool = PagedDecodeCache(kv=PagedKVPool(k.clone(), v.clone()))
+        _ma_reset(dev)
+        with torch.no_grad():
+            ref, _ = build_model(cfg, device=dev).paged_decode_step(
+                full, pool, table.to(dev), nxt, pos.to(dev), cache_update="kernel",
+                active=active.to(dev))
+        _ma_sync(dev)
+        ref_counts = _ma_counts()
+        del pool
+    shape = ShapeConfig("decode", cfg.sliding_window or sizes["prompt"], B, "decode")
+    bundle = build_bundle(build_model(cfg, device=dev), mesh, shape, paged=True,
+                          cache_update="kernel", page_size=sizes["page"],
+                          n_pages=k.shape[1])
+    ins = bundle.shard_inputs(full, PagedDecodeCache(kv=PagedKVPool(k, v)), table, nxt, pos,
+                              active)
+    del full, k, v
+    _ma_free(dev)
+    _ma_barrier(dev, mesh.model_group)
+    _ma_reset(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = bundle.fn(*ins)
+    _ma_sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    out = dict(ms=ms, launches=_ma_counts(), collectives=dict(sh_api.collectives),
+               pool_per_rank=list(ins[1].kv.k.shape), finite=bool(torch.isfinite(logits).all()),
+               tokens=logits.argmax(-1).cpu().tolist(), digest=float(logits.double().sum()))
+    if ref is not None:
+        err, bar = _ma_logits_check(logits, ref, STEP_BF16_REL)
+        out.update(ref_launches=ref_counts, err=err, bar=bar,
+                   ref_tokens=ref.argmax(-1).cpu().tolist())
+    del ins, logits, ref
+    _ma_free(dev)
+    _ma_barrier(dev, mesh.model_group)
+    return out
+
+
+def _model_axis_rank(plan):
+    """One rank of phase 18's world: (a) and (b) on (data 2, model 2); (c)
+    on the model group of data 0 (the other group's ranks are done)."""
+    mesh = make_host_mesh(MA["data"], MA["model"], device=plan["device"])
+    out = dict(rank=mesh.rank, coords=mesh.coords, ms={})
+
+    def part(tag, fn, *args):
+        t0 = time.perf_counter()
+        out[tag] = fn(mesh, *args)
+        out["ms"][tag] = 1e3 * (time.perf_counter() - t0)
+
+    for tag, cfg in plan["rounds"].items():
+        part(tag, _ma_round, cfg)
+    if mesh.coords["data"] == 0:
+        for tag, cfg in plan["forwards"].items():
+            part(tag, _ma_forward, cfg, plan["fwd_s"])
+        part("decode", _ma_decode, plan["decode"])
+    return out
+
+
+def _ma_require_equal(outs, key, field):
+    vals = [o[key][field] for o in outs if key in o]
+    require(all(v == vals[0] for v in vals), f"[model-axis] {key}: {field} differs across "
+            f"ranks: {vals}")
+    return vals[0]
+
+
+def phase_model_axis_rounds(outs, plan):
+    """(a), (b): each rank's exact launches and the bars."""
+    res = {}
+    for tag, cfg in plan["rounds"].items():
+        r0 = outs[0][tag]
+        ref = r0["ref"]
+        want = dict(vecavg=2, rmsnorm=LM["tau_max"] * grad_call_norms(cfg), flash=0,
+                    paged_decode=0)
+        require(ref["launches"] == want, f"[model-axis] {tag}: the unsharded round's launches "
+                f"{ref['launches']}, expected {want}")
+        # every rank: the model-axis reduce launches vecavg once over the
+        # sharded leaves and once over the replicated ones, twice a round
+        want_r = dict(want, vecavg=4)
+        for o in outs:
+            require(o[tag]["launches"] == want_r, f"[model-axis] {tag}: rank {o['rank']} "
+                    f"launches {o[tag]['launches']}, expected {want_r}")
+        _ma_require_equal(outs, tag, "collectives")
+        _ma_require_equal(outs, tag, "digest")  # gathered params, the same bits on each rank
+        require(r0["share_of_bar"] <= 1, f"[model-axis] {tag}: params at "
+                f"{r0['share_of_bar']:.3f} of the bar (atol 5e-5, rtol 5e-4), max|diff| "
+                f"{r0['max_abs_params']:.3e}")
+        stats = {}
+        for k, v in ref["stats"].items():
+            got = np.concatenate([o[tag]["stats"][k] for o in outs if o["coords"]["model"] == 0])
+            stats[k] = _close(got, v, **MA_BAR)
+            require(stats[k] <= 1, f"[model-axis] {tag}: {k} at {stats[k]:.3f} of the bar")
+            for o in outs:  # the model ranks of a client shard agree bit for bit
+                mate = outs[o["rank"] - o["coords"]["model"]]
+                require(np.array_equal(o[tag]["stats"][k], mate[tag]["stats"][k]),
+                        f"[model-axis] {tag}: {k} differs within a model group")
+        require(abs(r0["tau_k"] - ref["tau_k"]) <= 1e-6 * abs(ref["tau_k"]),
+                f"[model-axis] {tag}: tau_k {r0['tau_k']} vs {ref['tau_k']}")
+        coll = r0["collectives"]
+        res[tag] = dict(max_abs_params=r0["max_abs_params"], share_of_bar=r0["share_of_bar"],
+                        stats_share_of_bar=stats, experts_per_rank=r0["experts_per_rank"],
+                        sharded_leaves=f"{r0['sharded_leaves']} of {r0['leaves']}",
+                        launches_per_rank=[o[tag]["launches"] for o in outs],
+                        launches_unsharded=ref["launches"], collectives_per_rank=coll,
+                        ms_round_per_rank=[o[tag]["ms"] for o in outs],
+                        ms_round_unsharded=ref["ms"],
+                        peak_gb_per_rank=[o[tag]["peak_gb"] for o in outs],
+                        peak_gb_unsharded=ref["peak_gb"])
+        print(f"[model-axis] {tag} ({cfg.num_layers} layers, d {cfg.d_model}, "
+              f"{'experts a rank ' + str(r0['experts_per_rank']) + ', ' if cfg.is_moe else ''}"
+              f"{r0['sharded_leaves']} of {r0['leaves']} leaves sharded), one teacher-forced "
+              f"round on (data 2, model 2): max|params - unsharded| {r0['max_abs_params']:.3e} "
+              f"({r0['share_of_bar']:.3f} of atol 5e-5 / rtol 5e-4), statistics at "
+              f"{ {k: f'{v:.3f}' for k, v in stats.items()} } of the bar; launches on each rank "
+              f"vecavg {[o[tag]['launches']['vecavg'] for o in outs]} (unsharded "
+              f"{ref['launches']['vecavg']}), rmsnorm "
+              f"{[o[tag]['launches']['rmsnorm'] for o in outs]} (unsharded "
+              f"{ref['launches']['rmsnorm']}); {coll['all_reduce']} all-reduces and "
+              f"{coll['all_gather']} all-gathers a round, {coll['bytes'] / 1e6:.1f} MB a rank; "
+              f"ms a round {[round(o[tag]['ms'], 1) for o in outs]} against "
+              f"{ref['ms']:.1f} unsharded; peak GB a rank "
+              f"{[round(o[tag]['peak_gb'], 2) for o in outs]} (unsharded {ref['peak_gb']:.2f})")
+    return res
+
+
+def phase_model_axis_serving(outs, plan):
+    """(c): flash, rmsnorm and paged decode launches on each rank of the
+    model group, the logits against the one-rank forward and step."""
+    group = [o for o in outs if o["coords"]["data"] == 0]
+    res = {}
+    for tag, cfg in plan["forwards"].items():
+        L = cfg.num_layers
+        want = dict(vecavg=0, rmsnorm=2 * L + 1 if cfg.norm == "rmsnorm" else 0, flash=L,
+                    paged_decode=0)
+        r0 = group[0][tag]
+        require(r0["ref_launches"] == want, f"[model-axis] {tag}: one-rank forward launches "
+                f"{r0['ref_launches']}, expected {want}")
+        for o in group:
+            require(o[tag]["launches"] == want, f"[model-axis] {tag}: rank {o['rank']} "
+                    f"launches {o[tag]['launches']}, expected {want}")
+            require(o[tag]["finite"], f"[model-axis] {tag}: non-finite logits")
+        _ma_require_equal(group, tag, "digest")
+        _ma_require_equal(group, tag, "collectives")
+        require(r0["err"] <= r0["bar"], f"[model-axis] {tag}: logits {r0['err']:.3e} from the "
+                f"one-rank forward (bar {r0['bar']})")
+        res[tag] = dict(err=r0["err"], bar=r0["bar"], argmax_agree=r0["argmax_agree"],
+                        flash_shape=r0["flash_shape"], launches_per_rank=[
+                            o[tag]["launches"] for o in group],
+                        ms_per_rank=[o[tag]["ms"] for o in group], ms_one_rank=r0["ref_ms"],
+                        collectives_per_rank=r0["collectives"],
+                        peak_gb_per_rank=[o[tag]["peak_gb"] for o in group])
+        print(f"[model-axis] {tag} forward(impl=\"pallas\") S {plan['fwd_s']} on (model 2): flash "
+              f"{[o[tag]['launches']['flash'] for o in group]} a rank on {r0['flash_shape']} "
+              f"([B, S, Hq, Hkv, hd] a rank), rmsnorm "
+              f"{[o[tag]['launches']['rmsnorm'] for o in group]}; logits against the one-rank "
+              f"forward {r0['err']:.3e} (bar {r0['bar']}), argmax agreement "
+              f"{r0['argmax_agree']:.4f}; ms {[round(o[tag]['ms'], 1) for o in group]} against "
+              f"{r0['ref_ms']:.1f} on one rank; {r0['collectives']['all_reduce']} all-reduces, "
+              f"{r0['collectives']['all_gather']} all-gathers, "
+              f"{r0['collectives']['bytes'] / 1e6:.1f} MB a rank")
+    L = plan["decode"]["cfg"].num_layers
+    d0 = group[0]["decode"]
+    want = dict(vecavg=0, rmsnorm=0, flash=0, paged_decode=L)
+    require(d0["ref_launches"] == want, f"[model-axis] decode: one-rank step {d0['ref_launches']}")
+    for o in group:
+        require(o["decode"]["launches"] == want, f"[model-axis] decode: rank {o['rank']} "
+                f"launches {o['decode']['launches']}, expected {want}")
+        require(o["decode"]["finite"], "[model-axis] decode: non-finite logits")
+    _ma_require_equal(group, "decode", "digest")
+    require(d0["tokens"] == d0["ref_tokens"], f"[model-axis] decode: greedy tokens "
+            f"{d0['tokens']} against the one-rank step's {d0['ref_tokens']}")
+    require(d0["err"] <= d0["bar"], f"[model-axis] decode: logits {d0['err']:.3e} (bar "
+            f"{d0['bar']})")
+    res["decode"] = dict(err=d0["err"], bar=d0["bar"], tokens_equal=True,
+                         pool_per_rank=d0["pool_per_rank"],
+                         launches_per_rank=[o["decode"]["launches"] for o in group],
+                         ms_per_rank=[o["decode"]["ms"] for o in group],
+                         collectives_per_rank=d0["collectives"])
+    print(f"[model-axis] starcoder2-3b decode_step[paged] (kernel) from a prefilled "
+          f"{plan['decode']['slots']}-slot state on (model 2): paged decode "
+          f"{[o['decode']['launches']['paged_decode'] for o in group]} a rank on a pool "
+          f"{d0['pool_per_rank']} a rank; greedy tokens equal the one-rank step's; logits "
+          f"{d0['err']:.3e} (bar {d0['bar']}); ms {[round(o['decode']['ms'], 1) for o in group]}")
+    return res
+
+
+def start_model_axis_launcher(extra=()):
+    """18d: ``python -m repro_torch.launch.train ... --data-axis 2
+    --model-axis 2`` as a subprocess (4 gloo ranks on the card)."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *MA_LAUNCHER,
+                             *extra],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def finish_model_axis_launcher(proc):
+    try:
+        text, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0, f"[model-axis launcher] exit {proc.returncode}\n"
+            f"{text[-4000:]}")
+    rows = re.findall(r"round (\d+): loss=([0-9.]+)", text)
+    done = sorted((int(r), int(n)) for r, n in
+                  re.findall(r"rank (\d+): done\..*?vecavg (\d+) launches", text))
+    require(len(rows) == 3, f"[model-axis launcher] {len(rows)} rows\n{text}")
+    require([r for r, _ in done] == [0, 1, 2, 3] and all(n == 12 for _, n in done),
+            f"[model-axis launcher] ranks' vecavg {done}, expected 12 each (4 a round)")
+    print(f"[model-axis launcher] {' '.join(MA_LAUNCHER)}: exit 0, {len(rows)} rows (loss "
+          f"{[float(v) for _, v in rows]}), vecavg on the ranks {[n for _, n in done]}")
+    return dict(rows=len(rows), losses=[float(v) for _, v in rows],
+                vecavg_per_rank=[n for _, n in done])
+
+
+def phase_model_axis(dev, plan=None):
+    """18: the model axis on 4 gloo ranks sharing the card, then the
+    launcher's model axis as a subprocess."""
+    plan = plan or model_axis_plan()
+    _ma_free(dev)
+    t0 = time.perf_counter()
+    outs = spawn(_model_axis_rank, MA["data"] * MA["model"], "gloo", plan, timeout_s=900)
+    world_s = time.perf_counter() - t0
+    out = {"rounds": phase_model_axis_rounds(outs, plan),
+           "serving": phase_model_axis_serving(outs, plan),
+           "world_s": world_s, "rank_ms": [o["ms"] for o in outs]}
+    print(f"[model-axis] the 4 ranks' world took {world_s:.1f} s; each part's ms on rank 0: "
+          f"{ {k: round(v) for k, v in outs[0]['ms'].items()} }")
+    out["launcher"] = finish_model_axis_launcher(start_model_axis_launcher(
+        () if plan["device"] == "cuda" else ("--device", plan["device"])))
+    print(f"[model-axis] {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -4386,11 +4880,16 @@ def main() -> int:
     wire_buf = run("16 wire and buffered", phase_wire_buffered, dev)
     torch.cuda.empty_cache()
     sharded = run("17 sharded", phase_sharded, dev)
+    torch.cuda.empty_cache()
+    model_axis = run("18 model axis", phase_model_axis, dev)
+    ma_r, ma_s = model_axis["rounds"], model_axis["serving"]
     paged = {f"{arch} {name}": v["launches"]
              for arch, key in ((FAM_MOE, "moe"), (FAM_HYMBA, "hymba"), (FAM_PHI3, "phi-3"))
              for name, v in fam13[key].items() if isinstance(v, dict) and "launches" in v}
     rows[0]["launches_by_path"] = {  # paged decode: L a tick on every paged loop
         "starcoder2-3b serve": serve["launches"]["paged_decode"],
+        "starcoder2-3b decode_step[paged] on (model 2), one step (each rank)":
+            [n["paged_decode"] for n in ma_s["decode"]["launches_per_rank"]],
         **{f"qwen1.5-32b sched {n}": v["launches"]["paged_decode"]
            for n, v in sched["variants"].items()},
         **{k: v["paged_decode"] for k, v in paged.items()}}
@@ -4406,7 +4905,9 @@ def main() -> int:
         "qwen1.5-moe-a2.7b forward (24 layers)": fam["moe"]["flash_launches"],
         "hymba-1.5b forward (4 of 32 layers)": fam["hymba"]["bf16"]["flash_launches"],
         "phi-3-vision-4.2b forward (32 layers, hd 96)": fam["phi-3"]["flash_launches"],
-        "whisper-medium forward": fam["whisper"]["kernel_launches"]}
+        "whisper-medium forward": fam["whisper"]["kernel_launches"],
+        **{f"{k} forward on (model 2) (each rank)": [n["flash"] for n in ma_s[k]["launches_per_rank"]]
+           for k in ("starcoder2-3b", "starcoder2-3b f32 2 layers", "qwen1.5-32b")}}
     rms_row["launches_by_path"] = {
         "qwen1.5-0.5b LM, 5 rounds": lm["qwen1.5-0.5b"]["launches"]["rmsnorm"],
         "qwen1.5-moe-a2.7b forward": fam["moe"]["rmsnorm_launches"],
@@ -4420,7 +4921,11 @@ def main() -> int:
         **{f"qwen1.5-0.5b one round, {k.replace('_', '=')}": v["rmsnorm"]
            for k, v in remat["qwen1.5-0.5b"].items() if k.startswith("remat_")},
         f"qwen1.5-0.5b sharded, {SHARD_LM_RANKS} ranks, one round (each rank)":
-            [n["rmsnorm"] for n in sharded["lm"]["launches_per_rank"]]}
+            [n["rmsnorm"] for n in sharded["lm"]["launches_per_rank"]],
+        **{f"{k} on (data 2, model 2), one round (each rank)":
+           [n["rmsnorm"] for n in v["launches_per_rank"]] for k, v in ma_r.items()},
+        f"qwen1.5-32b ({MA_QWEN32_LAYERS} layers) forward on (model 2) (each rank)":
+            [n["rmsnorm"] for n in ma_s["qwen1.5-32b"]["launches_per_rank"]]}
     proto = part["prototype"]
     tree_row["launches_by_path"] = {
         "cnn experiment": fed["launches"]["vecavg"],
@@ -4446,7 +4951,11 @@ def main() -> int:
         f"qwen1.5-0.5b sharded, {SHARD_LM_RANKS} ranks, one round (each rank)":
             [n["vecavg"] for n in sharded["lm"]["launches_per_rank"]],
         **{f"launcher --mesh data=4 {n}, 3 rounds (each rank)": v["vecavg_per_rank"]
-           for n, v in sharded["launcher"].items()}}
+           for n, v in sharded["launcher"].items()},
+        **{f"{k} on (data 2, model 2), one round (each rank)":
+           [n["vecavg"] for n in v["launches_per_rank"]] for k, v in ma_r.items()},
+        "launcher --data-axis 2 --model-axis 2, 3 rounds (each rank)":
+            model_axis["launcher"]["vecavg_per_rank"]}
     for r in rows:
         print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']})")
@@ -4454,7 +4963,8 @@ def main() -> int:
     print(json.dumps({"serve": serve, "profile": prof, "fed": fed, "forward": fwd, "lm": lm,
                       "families": fam, "sched": sched, "families_serve": fam13,
                       "partial_participation": part, "remat": remat,
-                      "wire_buffered": wire_buf, "sharded": sharded, "ptxas": ptxas,
+                      "wire_buffered": wire_buf, "sharded": sharded,
+                      "model_axis": model_axis, "ptxas": ptxas,
                       "seconds": clock,
                       "card": smi}))
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 """Architecture configs and the registry (a copy of the JAX package's
-``configs/base.py``: ``ArchConfig``, ``param_count()``, ``reduced()`` and
-``get_arch``).
+``configs/base.py``: ``ArchConfig``, ``param_count()``, ``reduced()``,
+``ShapeConfig`` and ``get_arch``).
 
 Only the architectures the port runs are registered (the decoder-only,
 VLM and audio families and the paper's three toy models); each resolves to a module of
@@ -190,6 +190,14 @@ class ArchConfig:
         if self.sliding_window:
             kw.update(sliding_window=min(self.sliding_window, 64))
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
 
 
 # ---------------------------------------------------------------------------

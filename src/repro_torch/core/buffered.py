@@ -177,6 +177,8 @@ class BufferedRoundEngine(AdmissionScheduler):
                              "server state; buffered rounds don't support it")
         if sanitize:
             raise not_ported("sanitize= (the analysis lane)", "A19")
+        if engine.model_axis is not None:
+            raise not_ported("the buffered engine under a model axis", "A18c")
         self.engine = engine
         self.bcfg = bcfg or BufferedConfig()
         if self.bcfg.waves < 1:

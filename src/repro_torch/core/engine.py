@@ -32,7 +32,16 @@ The engine composes:
     drawn stratified, about m/K a rank; an imbalanced draw pads short
     ranks with the sentinel id C (weight 0, its data and state rows
     clamped to the rank's last client, dropped on scatter), and the
-    cohort's weight normaliser is completed across the ranks.
+    cohort's weight normaliser is completed across the ranks;
+  * the model axis (a mesh whose ``model`` extent exceeds 1, with
+    ``model_axis=`` from the model built for it, ROADMAP.md A18b): the
+    params are the rank's pieces, the round runs under
+    ``sharding.api.logical_axis_rules(mesh)`` with its norms completed
+    over the model group, and the client axis' collectives run over the
+    ranks that share this rank's model coordinate. Client rows come from
+    the client coordinates alone, so every model rank of a client slot
+    holds the same clients and minibatches. A wire codec or the buffered
+    engine under a model axis raises (A18c).
 
 The message-passing prototype (``fed/prototype.py``) uses the engine's
 half-round entry points: ``client_update`` (one client, ``tau`` trips),
@@ -48,6 +57,7 @@ returned and the caller's is never modified.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Any, Callable, NamedTuple, Optional
@@ -55,7 +65,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import strict_fp32
+from repro_torch import not_ported, strict_fp32
 from repro_torch.core.controller import ControllerCore
 from repro_torch.core.fedveca import ScaffoldState, make_local_update, make_round_step
 from repro_torch.core.strategy import get_strategy, global_sum, make_reduce
@@ -66,6 +76,7 @@ from repro_torch.sharding.api import (
     client_group,
     client_rows,
     client_shard_count,
+    logical_axis_rules,
     shard_index,
     validate_client_count,
 )
@@ -132,6 +143,7 @@ class RoundEngine:
         num_clients: Optional[int] = None,
         controller: Optional[ControllerCore] = None,
         mesh=None,
+        model_axis=None,
     ):
         if cfg.cohort_size is not None and cfg.cohort_size < 1:
             raise ValueError(f"cohort_size must be >= 1, got {cfg.cohort_size}")
@@ -161,10 +173,17 @@ class RoundEngine:
             if controller is not None and controller.mesh is None:
                 raise ValueError("a sharded engine's controller needs the same mesh "
                                  "(ControllerCore(..., mesh=mesh))")
+        self.model_axis = model_axis
+        if mesh is not None and mesh.model_size > 1 and model_axis is None:
+            raise ValueError("a mesh with a model axis needs the model built for it: "
+                             "RoundEngine(model.loss, ..., model_axis=model.model_axis) with "
+                             "model = build_model(cfg, mesh=mesh)")
         self._strategy = get_strategy(cfg.mode, mu=cfg.mu)
         self._reduce = make_reduce(cfg.aggregator)
         self.wire_codec = make_codec(cfg.wire)
         self._wire_active = not self.wire_codec.is_identity
+        if self._wire_active and model_axis is not None:
+            raise not_ported(f"wire={cfg.wire!r} under a model axis", "A18c")
         if self._wire_active and self._strategy.uses_scaffold:
             raise ValueError(
                 f"mode {cfg.mode!r} aggregates parameter deltas, not cum_g; "
@@ -172,8 +191,10 @@ class RoundEngine:
         self._wire_res = None  # [C, ...] error-feedback rows, built lazily
         self._round = make_round_step(
             loss_fn, eta=cfg.eta, mode=cfg.mode, mu=cfg.mu, aggregator=self._reduce,
-            wire=self.wire_codec if self._wire_active else None, axis_name=self._group)
-        self._local = make_local_update(loss_fn, eta=cfg.eta, strategy=self._strategy)
+            wire=self.wire_codec if self._wire_active else None, axis_name=self._group,
+            model_axis=model_axis)
+        self._local = make_local_update(loss_fn, eta=cfg.eta, strategy=self._strategy,
+                                        model_axis=model_axis)
 
     # -- full round ---------------------------------------------------------
     def run_round(self, params, tau, p, gprev_sqnorm, *, key=None, batches=None,
@@ -256,8 +277,9 @@ class RoundEngine:
             batches = self._sample(key, rows.ids)
         new_residual = residual
         if residual is None:
-            new_params, stats, new_scaffold = self._round(
-                params, batches, tau, pw, gprev_sqnorm, sub_scaffold)
+            with self._context():
+                new_params, stats, new_scaffold = self._round(
+                    params, batches, tau, pw, gprev_sqnorm, sub_scaffold)
         else:
             new_params, stats, new_scaffold, new_residual = self._round(
                 params, batches, tau, pw, gprev_sqnorm, sub_scaffold, res_rows)
@@ -410,6 +432,12 @@ class RoundEngine:
         return np.concatenate(rows).astype(np.int32)
 
     # -- helpers ------------------------------------------------------------
+    def _context(self):
+        """The model axis' logical-axis context (nothing without one)."""
+        if self.model_axis is None:
+            return contextlib.nullcontext()
+        return logical_axis_rules(self.mesh)
+
     @staticmethod
     def _device(params) -> torch.device:
         return next(iter(params.values())).device

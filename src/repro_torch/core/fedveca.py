@@ -18,6 +18,12 @@ The paper's round (Alg. 1 lines 3-7 + Alg. 2) in one call:
 
 Mode specialization lives in ``core/strategy.py``; the server reduce is
 the vecavg kernel unless ``aggregator="fallback"`` is named.
+
+Under a model axis (``model_axis``, ROADMAP.md A18b) the params are this
+rank's pieces: every norm the statistics and the controller read is
+completed over the model group (``core/tree.model_complete``; the local
+loop's three per-client sums a step in ONE all-reduce), so every model
+rank takes the same decisions; the reduce is ``strategy.model_reduce``.
 """
 from __future__ import annotations
 
@@ -26,22 +32,19 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch import not_ported
 from repro_torch.core.strategy import (
     MODES,
     Strategy,
     get_strategy,
     global_sum,
     make_reduce,
+    model_reduce,
     psum_reduce,
 )
-from repro_torch.core.tree import (
-    tree_axpy,
-    tree_sqnorm,
-    tree_sqnorm_per_client,
-    tree_sub,
-    tree_zeros_like,
-)
+from repro_torch.core.tree import tree_axpy, tree_sqnorm, tree_sub, tree_zeros_like
 from repro_torch.core.wire import wire_fold
+from repro_torch.sharding.api import all_reduce
 
 __all__ = ["MODES", "RoundStats", "ScaffoldState", "make_local_update", "make_round_step"]
 
@@ -82,14 +85,35 @@ def _remap(tree, f: Callable, *others):
     return out
 
 
-def _sqdist_per_client(a, b) -> torch.Tensor:
-    """``tree_sqnorm_per_client(tree_sub(a, b))`` a leaf at a time, in the
-    same order of operations, without the difference tree."""
-    return sum((a[k] - b[k]).float().square().reshape(a[k].shape[0], -1).sum(1)
-               for k in sorted(a))
+def _sqdist_per_client(a, b, keys) -> torch.Tensor:
+    """``tree_sqnorm_per_client(tree_sub(a, b))`` over ``keys`` (sorted) a
+    leaf at a time, in the same order of operations, without the
+    difference tree; ``b`` None: ``a``'s own norms."""
+    return sum(((a[k] - b[k]) if b is not None else a[k]).float().square()
+               .reshape(a[k].shape[0], -1).sum(1) for k in keys)
 
 
-def make_local_update(loss_fn: Callable, *, eta: float, strategy: Strategy) -> Callable:
+def _step_sums(pairs, keys, model_axis):
+    """The local step's per-client squared distances ``pairs`` ((a, b) of
+    stacked trees) over every leaf: the plain sums without a model axis;
+    under one, the sharded leaves' partial sums of all of them completed
+    in ONE all-reduce of [len(pairs), C], plus the replicated leaves'."""
+    if model_axis is None:
+        return [_sqdist_per_client(a, b, keys) for a, b in pairs]
+    sh = [k for k in keys if k in model_axis.sharded]
+    rep = [k for k in keys if k not in model_axis.sharded]
+    out = [None] * len(pairs)
+    if sh:
+        part = torch.stack([_sqdist_per_client(a, b, sh) for a, b in pairs])
+        out = list(all_reduce([part], model_axis.group)[0])
+    if rep:
+        out = [r if o is None else o + r
+               for o, r in zip(out, (_sqdist_per_client(a, b, rep) for a, b in pairs))]
+    return out
+
+
+def make_local_update(loss_fn: Callable, *, eta: float, strategy: Strategy,
+                      model_axis=None, stat_dtype=torch.float32) -> Callable:
     """Build the clients' local loops (Alg. 2 lines 3-19), batched over C.
 
     local_update(params0, batches, tau, gprev_sqnorm, c_server, c_client)
@@ -100,6 +124,8 @@ def make_local_update(loss_fn: Callable, *, eta: float, strategy: Strategy) -> C
     The JAX package builds this un-vmapped per client and vmaps the whole
     loop; here only the gradient is vmapped and the loop's statistics are
     written over the stacked client axis, with the same operations.
+    ``stat_dtype`` is the g0 / cum_g accumulators' type (the JAX
+    package's); ``model_axis`` completes the statistics' norms.
     """
     vg = vmap(grad_and_value(loss_fn, has_aux=True))
 
@@ -108,7 +134,8 @@ def make_local_update(loss_fn: Callable, *, eta: float, strategy: Strategy) -> C
         dev = tau.device
         T = next(iter(batches.values())).shape[1]
         start = {k: v.expand((C,) + v.shape) for k, v in params0.items()}
-        zeros = {k: torch.zeros((C,) + v.shape, dtype=torch.float32, device=dev)
+        keys = sorted(params0)
+        zeros = {k: torch.zeros((C,) + v.shape, dtype=stat_dtype, device=dev)
                  for k, v in params0.items()}
         params, g0, cum_g = dict(start), zeros, dict(zeros)
         beta = torch.zeros(C, dtype=torch.float32, device=dev)
@@ -121,15 +148,14 @@ def make_local_update(loss_fn: Callable, *, eta: float, strategy: Strategy) -> C
             loss0 = loss0 + is0 * loss.float()
 
             # --- Assumption-3/4 statistics (masked, lam >= 1 only) --------
-            dist_sq = _sqdist_per_client(params, start)  # ||w^l - w_k||^2
-            gdiff_sq = _sqdist_per_client(g, g0)
             lam_ge1 = float(lam >= 1) * active
-            beta_l = torch.sqrt(gdiff_sq / torch.clamp_min(dist_sq, 1e-20))
-            beta = torch.maximum(beta, lam_ge1 * beta_l)
-
             cum_g = _remap(
                 cum_g, lambda a, b: (a.float() + _col(active, b) * b.float()).to(a.dtype), g)
-            cumsum_sq = tree_sqnorm_per_client(cum_g)
+            # ||w^l - w_k||^2, ||g^l - g^0||^2, ||sum_s g^s||^2
+            dist_sq, gdiff_sq, cumsum_sq = _step_sums(
+                [(params, start), (g, g0), (cum_g, None)], keys, model_axis)
+            beta_l = torch.sqrt(gdiff_sq / torch.clamp_min(dist_sq, 1e-20))
+            beta = torch.maximum(beta, lam_ge1 * beta_l)
             denom = (float(lam) + 1.0) * torch.clamp_min(gprev_sqnorm, 1e-20)
             delta = torch.maximum(delta, lam_ge1 * (cumsum_sq / denom))
 
@@ -160,6 +186,10 @@ def make_round_step(
     #   only the rank's clients, the server reduce becomes the shard-local
     #   reduce plus one all-reduce, and every cross-client scalar (tau_k,
     #   the global gradient) is completed across the ranks (DESIGN.md §11)
+    model_axis=None,  # a sharding.partition.ModelAxis when the params are
+    #   this rank's pieces of a model-axis layout: the statistics' norms
+    #   complete over its group and the reduce is strategy.model_reduce
+    stat_dtype=torch.float32,  # the g0 / cum_g accumulators' type
 ) -> Callable:
     """Build the federated round.
 
@@ -182,7 +212,9 @@ def make_round_step(
     dense rows and stay as they are.
 
     The server reduce runs twice a round (the global step and the Eq. 8
-    global gradient), so the vecavg kernel launches twice a round.
+    global gradient), so the vecavg kernel launches twice a round (four
+    under a model axis that shards some leaves and replicates others:
+    ``strategy.model_reduce`` launches once over each kind).
 
     With ``axis_name`` the same contract holds on each rank: C is the
     rank's client count, the per-client stats come back rank-sized, and
@@ -193,6 +225,9 @@ def make_round_step(
         raise ValueError(f"unknown mode {mode!r}; valid: {MODES}")
     if wire is not None and wire.is_identity:
         wire = None  # identity short-circuits: the round without the stage
+    if wire is not None and model_axis is not None:
+        raise not_ported("a wire codec under a model axis (top-k and int8 scales are "
+                         "whole-leaf decisions)", "A18c")
     if wire is not None and mode == "scaffold":
         raise ValueError(
             "wire compression applies to the cum_g update; scaffold "
@@ -200,9 +235,12 @@ def make_round_step(
             "non-identity wire codec")
     strategy = get_strategy(mode, mu=mu)
     reduce = make_reduce(aggregator)
+    if model_axis is not None:
+        reduce = model_reduce(reduce, model_axis)
     if axis_name is not None:
         reduce = psum_reduce(reduce, axis_name)
-    local_update = make_local_update(loss_fn, eta=eta, strategy=strategy)
+    local_update = make_local_update(loss_fn, eta=eta, strategy=strategy,
+                                     model_axis=model_axis, stat_dtype=stat_dtype)
 
     def round_step(params, batches, tau, p, gprev_sqnorm,
                    scaffold: Optional[ScaffoldState] = None, residual=None):
@@ -243,9 +281,9 @@ def make_round_step(
             tau=tau,
             tau_k=tau_k,
             global_grad=global_grad,
-            update_sqnorm=tree_sqnorm(delta_w),
-            params_sqnorm=tree_sqnorm(params),
-            global_grad_sqnorm=tree_sqnorm(global_grad),
+            update_sqnorm=tree_sqnorm(delta_w, model_axis),
+            params_sqnorm=tree_sqnorm(params, model_axis),
+            global_grad_sqnorm=tree_sqnorm(global_grad, model_axis),
         )
         if wire is not None:
             return new_params, stats, new_scaffold, new_residual

@@ -34,6 +34,14 @@ device): ``psum_reduce`` completes the shard-local reduce with one
 all-reduce of its output, ``global_sum`` completes a sum over the clients,
 and SCAFFOLD's client count and mean control-variate delta are completed
 the same way. The per-client squared norms stay with their rank.
+
+**The model axis** (``model_reduce``): on a rank that holds pieces of the
+sharded leaves the reduce launches once over those leaves (their
+per-client squared norms all-reduced over the model group) and once over
+the replicated ones, whose norms count once; the delta is elementwise and
+needs no model collective. The client axis' all-reduce then runs over the
+ranks that share this rank's model coordinate (they hold the same
+pieces).
 """
 from __future__ import annotations
 
@@ -76,6 +84,28 @@ def psum_reduce(base: Reduce, axis_name) -> Reduce:
     def reduce(stacked, w, scale, div=None):
         out, sqn = base(stacked, w, scale, div=div)
         return all_reduce_tree(out, axis_name), sqn
+
+    return reduce
+
+
+def model_reduce(base: Reduce, model_axis) -> Reduce:
+    """A reduce over a tree partitioned on ``model_axis``: ``base`` once
+    over the sharded leaves, whose per-client squared norms complete with
+    one all-reduce over the model group, and once over the replicated
+    ones (two vecavg launches where there is one)."""
+
+    def reduce(stacked, w, scale, div=None):
+        sh, rep = model_axis.split(stacked)
+        out, sqn = {}, None
+        if sh:
+            o, s = base(sh, w, scale, div=div)
+            out.update(o)
+            sqn = all_reduce([s], model_axis.group)[0]
+        if rep:
+            o, s = base(rep, w, scale, div=div)
+            out.update(o)
+            sqn = s if sqn is None else sqn + s
+        return {k: out[k] for k in stacked}, sqn
 
     return reduce
 

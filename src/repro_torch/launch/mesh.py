@@ -14,12 +14,15 @@ names: ``cuda:0`` when K ranks share one card, ``cpu`` in the tests.
 Nothing picks a backend or a device on its own.
 
 The mesh is the port's own small class, ``FederatedMesh``: axis names,
-shape, this rank's coordinates, its device and the process group that the
-client axes span. ``torch.distributed.device_mesh.DeviceMesh`` accepts
-gloo ranks that share one card too, but the client axis is two mesh
-dimensions ('pod', 'data') whose joined group DeviceMesh exposes only
-through API that differs between torch releases; DTensor placements come
-with the model axis (ROADMAP.md A18b), which raises here.
+shape, this rank's coordinates, its device and two process groups: the
+client axes' (the ranks that share this rank's model coordinate) and the
+model axis' (the ranks that share its client coordinates). Ranks lie
+row-major over the axes, so the model axis is the innermost: ranks
+``s*M .. s*M + M - 1`` hold the M pieces of client shard s's parameters.
+``torch.distributed.device_mesh.DeviceMesh`` accepts gloo ranks that share
+one card too, but the client axis is two mesh dimensions ('pod', 'data')
+whose joined group DeviceMesh exposes only through API that differs
+between torch releases.
 """
 from __future__ import annotations
 
@@ -35,10 +38,11 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 
 # The mesh axes the federated CLIENT dimension shards over (DESIGN.md §6).
 CLIENT_AXES: Tuple[str, ...] = ("pod", "data")
+MODEL_AXIS = "model"  # the axis the parameters partition over (sharding/partition.py)
 
 RANK_TIMEOUT_S = 300.0  # a collective that waits longer raises in its rank
 FAILURE_GRACE_S = 10.0  # after a rank fails, how long the others may take to exit
@@ -49,16 +53,20 @@ class FederatedMesh:
 
     ``shape`` maps axis name to extent (as ``jax.sharding.Mesh.shape``);
     ``coords`` gives this rank's index on each axis (row-major over the
-    ranks); ``group`` is the process group the client axes span (None in a
-    world of one rank, where nothing is exchanged)."""
+    ranks); ``group`` is the process group of the client axes through this
+    rank (the ranks that share its model coordinate; None in a world of one
+    rank, where nothing is exchanged), ``model_group`` that of the model
+    axis (the ranks that share its client coordinates; None without a
+    model axis)."""
 
     def __init__(self, axes: Sequence[str], shape: Sequence[int], *, rank: int,
-                 device: torch.device, group):
+                 device: torch.device, group, model_group=None):
         self.axes = tuple(axes)
         self.extents = tuple(int(s) for s in shape)
         self.rank = rank
         self.device = device
         self.group = group
+        self.model_group = model_group
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -75,9 +83,14 @@ class FederatedMesh:
             out[a], r = r % s, r // s
         return {a: out[a] for a in self.axes}
 
+    @property
+    def model_size(self) -> int:
+        """The model axis' extent (1 without one)."""
+        return self.shape.get(MODEL_AXIS, 1)
+
     def __repr__(self) -> str:
-        return (f"FederatedMesh({self.shape}, rank={self.rank}, device={self.device}, "
-                f"backend={dist.get_backend() if self.group is not None else None})")
+        backend = dist.get_backend() if dist.is_initialized() and self.size > 1 else None
+        return f"FederatedMesh({self.shape}, rank={self.rank}, device={self.device}, backend={backend})"
 
 
 def world_size() -> int:
@@ -91,7 +104,8 @@ def _rank() -> int:
 
 def _start_hint(n: int) -> str:
     return (f"start {n} ranks with `python -m repro_torch.launch.train --mesh data={n}` "
-            f"or `python -m torch.distributed.run --nproc-per-node {n} ...`, or pass "
+            f"(a model axis: `--data-axis D --model-axis M`, D*M = {n}) or "
+            f"`python -m torch.distributed.run --nproc-per-node {n} ...`, or pass "
             "shrink=True for a smoke run")
 
 
@@ -118,7 +132,13 @@ def build_mesh(axes: Sequence[str], shape: Sequence[int], *, shrink: bool = Fals
     axis, left to right, to the largest divisor of the remaining world
     that does not exceed the requested extent (a world of one rank yields
     an all-ones mesh with the same axis names). A mesh covers the whole
-    world, and only the client axes may exceed 1 (a model axis is A18b).
+    world; its axes are the client axes ('pod', 'data') and the model axis
+    ('model'), and any other axis must have extent 1.
+
+    Every rank builds every process group of the mesh, in one order (a
+    rank that skipped one would leave the others waiting in it): the
+    client groups, one a model coordinate, then the model groups, one a
+    client shard.
     """
     axes = tuple(axes)
     shape = tuple(int(s) for s in shape)
@@ -136,9 +156,11 @@ def build_mesh(axes: Sequence[str], shape: Sequence[int], *, shrink: bool = Fals
             fitted.append(s)
             left //= s
         shape = tuple(fitted)
-    model = {a: s for a, s in zip(axes, shape) if a not in CLIENT_AXES and s > 1}
-    if model:
-        raise not_ported(f"a model axis {model} (parameter partitioning)", "A18b")
+    other = {a: s for a, s in zip(axes, shape)
+             if a not in CLIENT_AXES and a != MODEL_AXIS and s > 1}
+    if other:
+        raise ValueError(f"mesh axes {other}: only the client axes {CLIENT_AXES} and "
+                         f"{MODEL_AXIS!r} may exceed 1")
     n = math.prod(shape)
     if W < n:
         raise RuntimeError(f"need {n} ranks for mesh {dict(zip(axes, shape))}; have {W} "
@@ -146,13 +168,36 @@ def build_mesh(axes: Sequence[str], shape: Sequence[int], *, shrink: bool = Fals
     if W > n:
         raise RuntimeError(f"mesh {dict(zip(axes, shape))} covers {n} of the {W} ranks; "
                            "a mesh spans the whole world")
-    group = dist.group.WORLD if W > 1 else None
-    return FederatedMesh(axes, shape, rank=_rank(), device=rank_device(device), group=group)
+    rank = _rank()
+    mesh = FederatedMesh(axes, shape, rank=rank, device=rank_device(device), group=None)
+    if W > 1 and mesh.model_size == 1:
+        mesh.group = dist.group.WORLD
+    elif W > 1:
+        by_model, by_shard = {}, {}  # model coordinate / client coordinates -> ranks
+        for r in range(W):
+            c = FederatedMesh(axes, shape, rank=r, device=mesh.device, group=None).coords
+            by_model.setdefault(c[MODEL_AXIS], []).append(r)
+            by_shard.setdefault(tuple(v for a, v in c.items() if a != MODEL_AXIS), []).append(r)
+        if len(by_shard) == 1:
+            mesh.model_group = dist.group.WORLD
+        else:
+            for groups, attr in ((by_model, "group"), (by_shard, "model_group")):
+                for key in sorted(groups):
+                    g = dist.new_group(groups[key])
+                    if rank in groups[key]:
+                        setattr(mesh, attr, g)
+    return mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, smoke: bool = False):
-    """The v5e pod mesh (data=16, model=16): its model axis is A18b."""
-    raise not_ported("make_production_mesh (the (data, model) pod mesh)", "A18b")
+def make_production_mesh(*, multi_pod: bool = False, smoke: bool = False,
+                         device=None) -> FederatedMesh:
+    """The pod mesh (data=16, model=16) = 256 ranks; ``multi_pod`` prepends
+    pod=2 for 512. Strict: a smaller world raises with the hint naming how
+    to start the ranks. ``smoke=True`` shrinks the same axes onto the
+    world, as ``build_mesh`` does."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", MODEL_AXIS) if multi_pod else ("data", MODEL_AXIS)
+    return build_mesh(axes, shape, shrink=smoke, device=device)
 
 
 def make_federated_mesh(n: Optional[int] = None, *, pod: int = 1,
@@ -167,11 +212,9 @@ def make_federated_mesh(n: Optional[int] = None, *, pod: int = 1,
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> FederatedMesh:
-    """Small mesh over however many ranks exist (tests, smoke runs); a
-    model axis is A18b whatever the world."""
-    if model > 1:
-        raise not_ported(f"a model axis of {model} (parameter partitioning)", "A18b")
-    return build_mesh(("data", "model"), (data, model), shrink=True, device=device)
+    """Small (data, model) mesh shrunk onto however many ranks exist (tests,
+    smoke runs)."""
+    return build_mesh(("data", MODEL_AXIS), (data, model), shrink=True, device=device)
 
 
 def num_clients(mesh: FederatedMesh) -> int:

@@ -21,12 +21,18 @@ ranks that started it. ``--backend gloo`` (the default) puts every rank on
 ``--device`` (K ranks may share one card); ``--backend nccl`` needs a card
 a rank. The run is on the card unless ``--device cpu`` is given.
 
-``--production-mesh`` and ``--model-axis > 1`` (parameter partitioning)
-raise naming ROADMAP.md A18b; ``--sanitize`` raises naming A19.
+``--data-axis D --model-axis M`` (M > 1) runs on D*M ranks, spawned or
+joined as under ``--mesh``: C = D clients (one a client shard, as the JAX
+launcher takes C = the data extent), each rank holding its model-axis
+pieces of the parameters (``sharding/partition.py``; the dense and MoE
+families). ``--production-mesh`` builds the (data 16, model 16) mesh,
+which needs 256 ranks (started by ``torch.distributed.run``): a smaller
+world raises with the start hint. ``--sanitize`` raises naming A19.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -56,13 +62,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--overlap", type=int, default=1,
                     help="rounds in flight before host sync (0 = sync mode)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 pod mesh (ROADMAP.md A18b: raises)")
+                    help="the (data 16, model 16) pod mesh: 256 ranks")
     ap.add_argument("--mesh", default=None, metavar="data=K[,pod=J]",
                     help="client-axis sharding over K*J ranks (DESIGN.md §11)")
     ap.add_argument("--clients-per-shard", type=int, default=2,
                     help="clients per client-axis shard under --mesh")
-    ap.add_argument("--data-axis", type=int, default=2)
-    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--data-axis", type=int, default=2,
+                    help="clients (one a client shard); with --model-axis M > 1, D*M ranks")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks that partition each client's parameters")
     ap.add_argument("--buffered", action="store_true",
                     help="buffered asynchronous rounds (core/buffered.py)")
     ap.add_argument("--buffer-waves", type=int, default=2)
@@ -81,10 +89,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.sanitize:
         raise not_ported("--sanitize (the analysis lane)", "A19")
-    if args.production_mesh:
-        raise not_ported("--production-mesh (the (data, model) pod mesh)", "A18b")
-    if args.model_axis > 1:
-        raise not_ported(f"--model-axis {args.model_axis} (parameter partitioning)", "A18b")
+    if args.mesh and args.model_axis > 1:
+        ap.error("--mesh shards the client axis alone; a model axis is "
+                 "--data-axis D --model-axis M")
     if args.buffered and args.host_data:
         ap.error("--buffered needs the device data path (drop --host-data)")
     args.pod, args.data = 1, None
@@ -108,7 +115,8 @@ def run(args: argparse.Namespace) -> list:
     from repro_torch.data.synthetic import make_lm_tokens
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.vecavg import ops as va_ops
-    from repro_torch.launch.mesh import make_federated_mesh, make_host_mesh, num_clients
+    from repro_torch.launch.mesh import (make_federated_mesh, make_host_mesh,
+                                         make_production_mesh, num_clients)
     from repro_torch.metrics.logger import format_bytes
     from repro_torch.models.model import build_model
 
@@ -120,11 +128,15 @@ def run(args: argparse.Namespace) -> list:
         mesh = fed_mesh = make_federated_mesh(args.pod * args.data, pod=args.pod,
                                               device=args.device)
         C = num_clients(mesh) * args.clients_per_shard
+    elif args.production_mesh:
+        mesh = fed_mesh = make_production_mesh(device=args.device)
+        C = num_clients(mesh)
     else:
         mesh = make_host_mesh(args.data_axis, args.model_axis, device=args.device)
+        fed_mesh = mesh if mesh.model_size > 1 else None
         C = num_clients(mesh)
     lead = mesh.rank == 0
-    model = build_model(cfg, device=mesh.device)
+    model = build_model(cfg, device=mesh.device, mesh=fed_mesh)
     if lead:
         print(f"arch={cfg.name} mesh={mesh.shape} clients={C} "
               f"global_batch={C * args.batch_per_client} seq={args.seq} "
@@ -146,6 +158,7 @@ def run(args: argparse.Namespace) -> list:
             ControllerConfig(eta=args.eta, alpha=args.alpha, tau_max=args.tau_max), C,
             adapt=(args.mode == "fedveca"), mesh=fed_mesh),
         mesh=fed_mesh,
+        model_axis=model.model_axis,
     )
     params = model.init(args.seed)
     taus = np.full(C, 2, np.int32)
@@ -201,7 +214,14 @@ def main(argv=None) -> list:
     from repro_torch.launch.mesh import launch
 
     args = parse_args(argv)
-    world = args.pod * args.data if args.mesh else 1
+    if args.production_mesh:
+        # 256 ranks are started by torch.distributed.run, never spawned here:
+        # in a smaller world the mesh raises with the start hint
+        world = int(os.environ.get("WORLD_SIZE", 1))
+    elif args.mesh:
+        world = args.pod * args.data
+    else:
+        world = args.data_axis * args.model_axis if args.model_axis > 1 else 1
     return launch(run, world, args.backend, args)
 
 

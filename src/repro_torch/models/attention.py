@@ -18,6 +18,13 @@ decode against the contiguous cache (``decode_attention_block``: rows of
 ``"mask"`` writes through the one-hot selector and every other value,
 ``"kernel"`` included, through an indexed write, as in the JAX package
 (ROADMAP.md P8).
+
+Under a model axis that splits attention (Hq and Hkv both divide its
+extent m; ``sharding/partition.py``) every path runs on the rank's
+Hq/m query heads and Hkv/m kv heads, so G is unchanged: q/k/v (and their
+biases) are column-parallel behind ``copy_in``, ``w_o`` row-parallel
+followed by ``reduce_out``, and caches and pools hold the local kv heads.
+Otherwise every rank computes every head.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
-from repro_torch.models.layers import Params, apply_rope, dense_init
+from repro_torch.models.layers import Params, apply_rope, dense_init, tp, wmatmul
+from repro_torch.sharding import api
 
 NEG_INF = -1e30
 
@@ -51,20 +59,31 @@ def attn_init(gen, cfg, d: int, dtype, device, lead=()) -> Params:
 
 def _project_qkv(cfg, p: Params, x, positions, rope: bool):
     """``p`` holds one layer's ``attn/*`` leaves. x [B,S,d] -> q [B,S,Hq,hd],
-    k/v [B,S,Hkv,hd]."""
+    k/v [B,S,Hkv,hd] (the rank's heads under a model axis that splits
+    attention)."""
     B, S, _ = x.shape
-    q = x @ p["attn/w_q"]
-    k = x @ p["attn/w_k"]
-    v = x @ p["attn/w_v"]
+    lay = tp(cfg)
+    if lay.attn:
+        x = api.copy_in(x)
+    q = wmatmul(x, p["attn/w_q"])
+    k = wmatmul(x, p["attn/w_k"])
+    v = wmatmul(x, p["attn/w_v"])
     if "attn/b_q" in p:
         q, k, v = q + p["attn/b_q"], k + p["attn/b_k"], v + p["attn/b_v"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(B, S, lay.heads, cfg.head_dim)
+    k = k.reshape(B, S, lay.kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, lay.kv_heads, cfg.head_dim)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _out_proj(cfg, p: Params, o):
+    """o [..., heads, hd] -> [..., d]: the rows of ``w_o`` the rank holds,
+    the partial sums reduced over the model axis when attention is split."""
+    y = wmatmul(o.flatten(-2), p["attn/w_o"])
+    return api.reduce_out(y) if tp(cfg).attn else y
 
 
 def _mask(q_pos, k_pos, causal: bool, window: int):
@@ -154,7 +173,7 @@ def attention_block(cfg, p: Params, x, positions, *, window: Optional[int] = Non
         o = _direct_attention(q, k, v, positions, positions, causal, win)
     else:
         o = _chunked_attention(q, k, v, positions, positions, causal, win)
-    return o.reshape(B, S, cfg.q_dim) @ p["attn/w_o"]
+    return _out_proj(cfg, p, o)
 
 
 # ---------------------------------------------------------------------------
@@ -189,15 +208,16 @@ def prefill_kv_cache(cfg, p: Params, x, positions, *, window: int = 0,
 
 
 def init_kv_cache(cfg, batch: int, seq_len: int, window: int = 0, device=None,
-                  n_layers: Optional[int] = None) -> KVCache:
+                  n_layers: Optional[int] = None, kv_heads: Optional[int] = None) -> KVCache:
     """An empty cache of ``seq_len`` slots a row, or a ring of ``window``
     slots (pos -1 = empty), on ``device`` (default ``cuda``); ``n_layers``
-    stacks every leaf ``[L, ...]``."""
+    stacks every leaf ``[L, ...]``; ``kv_heads`` (default the config's)
+    is a rank's share under a model axis."""
     W = window if window else seq_len
     lead = () if n_layers is None else (n_layers,)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.param_dtype)
-    shape = lead + (batch, W, cfg.num_kv_heads, cfg.head_dim)
+    shape = lead + (batch, W, kv_heads or cfg.num_kv_heads, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
                    v=torch.zeros(shape, dtype=dt, device=dev),
                    pos=torch.full(lead + (batch, W), -1, dtype=torch.int32, device=dev))
@@ -241,7 +261,7 @@ def decode_attention_block(cfg, p: Params, x, cache: KVCache, pos, *, window: in
         cache.pos[bidx, slot] = p_w
 
     G = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(B, cfg.num_kv_heads, G, cfg.head_dim)
+    qg = q.reshape(B, k_new.shape[2], G, cfg.head_dim)
     logits = torch.einsum("bhgd,bkhd->bhgk", qg, cache.k).float()
     logits = logits * (1.0 / math.sqrt(cfg.head_dim))
     kpos, posb = cache.pos, pos32[:, None]
@@ -251,7 +271,7 @@ def decode_attention_block(cfg, p: Params, x, cache: KVCache, pos, *, window: in
     logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", w.to(cache.v.dtype), cache.v)
-    return o.reshape(B, 1, cfg.q_dim) @ p["attn/w_o"]
+    return _out_proj(cfg, p, o.reshape(B, 1, -1, cfg.head_dim))
 
 
 def insert_kv_slot(cache: KVCache, one: KVCache, slot: int) -> None:
@@ -280,9 +300,10 @@ class PagedKVPool(NamedTuple):
 
 
 def init_paged_kv_pool(cfg, n_pages: int, page_size: int, device,
-                       n_layers: Optional[int] = None) -> PagedKVPool:
+                       n_layers: Optional[int] = None,
+                       kv_heads: Optional[int] = None) -> PagedKVPool:
     lead = () if n_layers is None else (n_layers,)
-    shape = lead + (n_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    shape = lead + (n_pages, page_size, kv_heads or cfg.num_kv_heads, cfg.head_dim)
     dt = getattr(torch, cfg.param_dtype)
     return PagedKVPool(k=torch.zeros(shape, dtype=dt, device=device),
                        v=torch.zeros(shape, dtype=dt, device=device))
@@ -352,7 +373,7 @@ def paged_decode_attention_block(cfg, p: Params, x, pool: PagedKVPool,
     else:
         raise ValueError(f"cache_update={cache_update!r}; expected 'kernel', "
                          "'scatter' or 'mask'")
-    return o.reshape(B, 1, cfg.q_dim) @ p["attn/w_o"]
+    return _out_proj(cfg, p, o.reshape(B, 1, -1, cfg.head_dim))
 
 
 def paged_prefill_attention_block(cfg, p: Params, x, pool: PagedKVPool, page_row,
@@ -412,7 +433,7 @@ def paged_prefill_attention_block(cfg, p: Params, x, pool: PagedKVPool, page_row
     logits = torch.where(valid[None, None, None], logits, torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
-    return o.reshape(1, C, cfg.q_dim) @ p["attn/w_o"]
+    return _out_proj(cfg, p, o.reshape(1, C, -1, hd))
 
 
 def insert_kv_pages(pool: PagedKVPool, one: KVCache, page_ids,

@@ -33,7 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (Params, apply_norm, cross_entropy,
                                        dense_init, embed_init, mlp_apply,
-                                       mlp_init, norm_init, promoted_matmul)
+                                       mlp_init, norm_init, wmatmul)
 from repro_torch.models.transformer import _prefixed, _remat_wrap, _sub, layer_params
 
 
@@ -44,7 +44,7 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
     with ``seed``) on ``device`` (default ``cuda``): weights N(0, 1/in_dim),
     embeddings and positions N(0, 0.02^2), norms and biases zero."""
     dev = resolve_device(device)
-    if gen is None:
+    if gen is None and dev.type != "meta":  # meta: the shapes alone, nothing drawn
         gen = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, cfg.param_dtype)
     d = cfg.d_model
@@ -75,7 +75,7 @@ def encode(cfg, p: Params, frames):
     rematerialized for the backward whatever ``remat`` says, as the JAX
     package's ``encode`` always wraps its layers in ``jax.checkpoint``."""
     dt = getattr(torch, cfg.compute_dtype)
-    h = promoted_matmul(frames, p["frame_proj"]).to(dt)
+    h = wmatmul(frames, p["frame_proj"]).to(dt)
     h = h + p["enc_pos"][:h.shape[1]][None].to(dt)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
@@ -98,7 +98,7 @@ def _cross_kv(cfg, lp: Params, enc_out):
     output, no RoPE. ``lp`` holds one layer's ``cross_attn/*`` leaves
     without the prefix."""
     B, T, _ = enc_out.shape
-    k, v = enc_out @ lp["w_k"], enc_out @ lp["w_v"]
+    k, v = wmatmul(enc_out, lp["w_k"]), wmatmul(enc_out, lp["w_v"])
     if "b_q" in lp:
         k, v = k + lp["b_k"], v + lp["b_v"]
     return (k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
@@ -110,13 +110,13 @@ def _cross_attention(cfg, lp: Params, h, k, v):
     no RoPE, no mask. ``lp`` holds one layer's ``cross_attn/*`` leaves
     without the prefix."""
     B, S, _ = h.shape
-    q = h @ lp["w_q"]
+    q = wmatmul(h, lp["w_q"])
     if "b_q" in lp:
         q = q + lp["b_q"]
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     o = attn._direct_attention(q, k, v, torch.arange(S, device=h.device),
                                torch.arange(k.shape[1], device=h.device), causal=False, window=0)
-    return o.reshape(B, S, cfg.q_dim) @ lp["w_o"]
+    return wmatmul(o.reshape(B, S, cfg.q_dim), lp["w_o"])
 
 
 def _decoder(cfg, p: Params, batch, enc_out, kv_out=None, remat=False):
@@ -153,14 +153,14 @@ def _decoder(cfg, p: Params, batch, enc_out, kv_out=None, remat=False):
 
 
 def _unembed(cfg, p: Params, h):
-    return apply_norm(cfg, p, "final_norm", h) @ p["embed"].T
+    return wmatmul(apply_norm(cfg, p, "final_norm", h), p["embed"].T)
 
 
 def forward(cfg, p: Params, batch, impl: str = "auto", remat=True, **_):
     """batch {frames [B, T, frontend_dim], tokens [B, S]} -> (logits [B, S,
     V], aux 0). ``remat`` (True by default, as in the JAX package)
-    rematerializes each decoder layer for the backward; ``"dots"`` raises
-    (ROADMAP.md A18b). ``impl`` and any other keyword are accepted and
+    rematerializes each decoder layer for the backward; ``"dots"`` keeps
+    the layer's weight products (``transformer._remat_wrap``). ``impl`` and any other keyword are accepted and
     ignored, as the JAX ``forward``'s ``**_`` does: no kernel is on this
     path."""
     del impl

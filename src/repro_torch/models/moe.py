@@ -20,6 +20,13 @@ give the same bits (the JAX package's ``y.at[t_s].add`` would be
 ``index_add_`` with atomics there). The expert products are batched
 matmuls, as the JAX package's einsums are; it has no Pallas kernel for
 them.
+
+Under a model axis (``sharding/partition.py``) the router stays
+replicated, so ``dispatch`` runs identically on every rank and capacity
+and ``keep`` agree; the rank runs only its experts (E split) or its slice
+of every expert's hidden dim (``moe_d_ff`` split); the experts' input and
+their gates enter through ``copy_in`` and the combine sums the rank's
+part, then ``reduce_out``. The shared experts go through ``mlp_apply``.
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dense_init, gelu, mlp_apply, mlp_init
+from repro_torch.models.layers import (Params, dense_init, gelu, mlp_apply, mlp_init, tp,
+                                       wmatmul)
+from repro_torch.sharding import api
 
 
 def moe_init(gen, cfg, d: int, dtype, device, lead=()) -> Params:
@@ -55,10 +64,10 @@ def _router_logits(xf, router):
     precision."""
     prec = torch.get_float32_matmul_precision()
     if prec == "highest":
-        return xf.float() @ router
+        return wmatmul(xf.float(), router)
     torch.set_float32_matmul_precision("highest")
     try:
-        return xf.float() @ router
+        return wmatmul(xf.float(), router)
     finally:
         torch.set_float32_matmul_precision(prec)
 
@@ -141,14 +150,28 @@ def moe_apply(cfg, p: Params, x, token_mask=None):
     ce = r.counts.float() / (T * k)
     aux = E * torch.sum(me * ce) * cfg.router_aux_loss
 
+    lay = tp(cfg)
+    xe, w_s = xf, r.w_s
+    if lay.experts is not None:  # partial expert outputs: the inputs' grads sum
+        xe, w_s = api.copy_in(xf), api.copy_in(w_s)
     rows = r.e_s * r.cap + r.pos_c
-    vals = torch.where(r.keep_s[:, None], xf[r.t_s], torch.zeros((), dtype=x.dtype,
+    vals = torch.where(r.keep_s[:, None], xe[r.t_s], torch.zeros((), dtype=x.dtype,
                                                                  device=x.device))
-    buckets = xf.new_zeros((E * r.cap, d)).index_add(0, rows, vals)
-    out_b = _expert_ffn(cfg, p, buckets.reshape(E, r.cap, d)).reshape(E * r.cap, d)
+    buckets = xe.new_zeros((E * r.cap, d)).index_add(0, rows, vals).reshape(E, r.cap, d)
+    if lay.experts == "experts":  # this rank's experts; the others' rows give 0
+        n = lay.experts_local
+        lo = api.model_rank() * n
+        out_l = _expert_ffn(cfg, p, buckets[lo:lo + n])
+        out_b = torch.cat([out_l.new_zeros((lo, r.cap, d)), out_l,
+                           out_l.new_zeros((E - lo - n, r.cap, d))])
+    else:
+        out_b = _expert_ffn(cfg, p, buckets)
+    out_b = out_b.reshape(E * r.cap, d)
 
-    contrib = out_b[rows] * r.w_s[:, None].to(x.dtype)
+    contrib = out_b[rows] * w_s[:, None].to(x.dtype)
     y = contrib[r.inv].reshape(T, k, d).sum(1)
+    if lay.experts is not None:
+        y = api.reduce_out(y)
     if "shared/w_down" in p:
         y = y + mlp_apply(cfg, p, xf, prefix="shared")
     return y.reshape(B, S, d), aux

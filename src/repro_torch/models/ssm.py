@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.layers import Params, dense_init, wmatmul
 
 
 class SSMState(NamedTuple):
@@ -67,9 +67,9 @@ def _ssm_scan(p: Params, u, h0):
     """Selective scan. u [B, S, d_in] (after conv and activation) -> (y
     float32, final state [B, d_in, N])."""
     A = -torch.exp(p["A_log"].float())  # [d_in, N]
-    bm, cm = (u @ p["w_bc"]).float().chunk(2, dim=-1)  # [B, S, N] each
+    bm, cm = wmatmul(u, p["w_bc"]).float().chunk(2, dim=-1)  # [B, S, N] each
     # per-channel step: a scalar projection plus a per-channel bias
-    dt = softplus((u @ p["w_dt"]).float() + p["dt_bias"])  # [B, S, d_in]
+    dt = softplus(wmatmul(u, p["w_dt"]).float() + p["dt_bias"])  # [B, S, d_in]
     uf = u.float()
     decay = torch.exp(dt[..., None] * A)  # [B, S, d_in, N]
     inp = (dt * uf)[..., None] * bm[:, :, None, :]
@@ -85,13 +85,13 @@ def ssm_apply(cfg, p: Params, x, state: SSMState | None = None):
     ``ssm/*`` leaves without the prefix."""
     B = x.shape[0]
     d_in = cfg.ssm_expand * x.shape[-1]
-    u, z = (x @ p["w_in"]).chunk(2, dim=-1)  # [B, S, d_in] each
+    u, z = wmatmul(x, p["w_in"]).chunk(2, dim=-1)  # [B, S, d_in] each
     u, conv = _causal_conv(u, p["conv_w"], None if state is None else state.conv)
     u = F.silu(u)
     h0 = (state.h if state is not None else
           torch.zeros((B, d_in, cfg.ssm_state), dtype=torch.float32, device=x.device))
     y, h = _ssm_scan(p, u, h0)
-    y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    y = wmatmul(y.to(x.dtype) * F.silu(z), p["w_out"])
     return y, SSMState(h=h, conv=conv)
 
 

@@ -15,6 +15,15 @@ states, row by row, where it selects with ``where``: a decode step leaves
 the rows of inactive slots bit for bit as they were.
 
 The audio family is the encoder-decoder of ``models/encdec.py``.
+
+Under a model axis (``sharding.api.logical_axis_rules``, ROADMAP.md A18b)
+the dense and MoE families run on the rank's pieces of the parameters
+(``sharding/partition.py``): a d-sharded embedding gathers its rows'
+pieces; a tied unembedding is row-parallel (``embed.T`` on the rank's
+slice of d) and takes ``reduce_out``, an untied ``lm_head`` is
+vocab-parallel and gathers its logits; cross entropy and greedy argmax
+then see the full logits on every rank. Caches and pools hold the local
+kv heads (``init_cache``/``init_paged_cache(kv_heads=)``).
 """
 from __future__ import annotations
 
@@ -28,9 +37,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (Params, apply_norm, cross_entropy,
-                                       dense_init, embed_init, mlp_apply,
-                                       mlp_init, norm_init, promoted_matmul, rmsnorm)
+from repro_torch.models.layers import (Params, ProductTape, apply_norm, cross_entropy,
+                                       dense_init, embed_init, mlp_apply, mlp_init,
+                                       norm_init, rmsnorm, run_with_tape, tp, wmatmul)
+from repro_torch.sharding import api
 
 FULL_SEQUENCE_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
 
@@ -69,7 +79,7 @@ def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
     (max(encoder_seq, 32768) rows), the VLM family ``vision_proj``."""
     check_full_sequence(cfg)
     dev = resolve_device(device)
-    if gen is None:
+    if gen is None and dev.type != "meta":  # meta: the shapes alone, nothing drawn
         gen = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, cfg.param_dtype)
     L, d = cfg.num_layers, cfg.d_model
@@ -116,6 +126,13 @@ def layer_params(p: Params, num_layers: int, stack: str = "layers") -> List[Para
     return out
 
 
+def _rows(cfg, table, idx):
+    """Rows ``idx`` of an embedding table; a d-sharded table's pieces are
+    gathered (``api.gather_last``)."""
+    h = table[idx]
+    return api.gather_last(h) if tp(cfg).embed else h
+
+
 def embed_tokens(cfg, p: Params, batch):
     """``batch["tokens"]`` [B, S] -> [B, S, d] in the compute type. The VLM
     family's ``batch["patches"]`` [B, P, vision_dim] through
@@ -123,20 +140,33 @@ def embed_tokens(cfg, p: Params, batch):
     are ignored, as in the JAX package. ``learned_pos`` adds
     ``pos_embed[:S]``."""
     dt = getattr(torch, cfg.compute_dtype)
-    h = p["embed"][batch["tokens"].long()].to(dt)
+    h = _rows(cfg, p["embed"], batch["tokens"].long()).to(dt)
     if cfg.vision_dim and "patches" in batch:
-        pe = promoted_matmul(batch["patches"], p["vision_proj"]).to(dt)
+        pe = wmatmul(batch["patches"], p["vision_proj"]).to(dt)
         if pe.shape[1] <= h.shape[1]:
             h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
     if cfg.learned_pos:
-        h = h + p["pos_embed"][:h.shape[1]][None].to(dt)
+        h = h + _rows(cfg, p["pos_embed"], slice(0, h.shape[1]))[None].to(dt)
     return h
 
 
 def unembed(cfg, p: Params, h):
+    """Final norm, then the logits [..., V], full on every rank: a tied
+    unembedding under a d-sharded embedding is row-parallel (the rank's
+    slice of d against its rows of ``embed.T``, then ``reduce_out``); a
+    vocab-parallel ``lm_head`` is column-parallel and gathers its
+    logits."""
     h = apply_norm(cfg, p, "final_norm", h)
-    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return h @ w
+    lay = tp(cfg)
+    if cfg.tie_embeddings:
+        if not lay.embed:
+            return wmatmul(h, p["embed"].T)
+        n = p["embed"].shape[-1]
+        r = api.model_rank()
+        return api.reduce_out(wmatmul(api.copy_in(h)[..., r * n:(r + 1) * n], p["embed"].T))
+    if lay.vocab:
+        return api.gather_last(wmatmul(api.copy_in(h), p["lm_head"]))
+    return wmatmul(h, p["lm_head"])
 
 
 def _ffn(cfg, lp: Params, h, token_mask=None):
@@ -174,14 +204,36 @@ def _mixer(cfg, lp: Params, hn, attn_out, state=None):
 # ---------------------------------------------------------------------------
 
 
+class _Block:
+    """The block a :class:`_Remat` runs: ``fn`` (tensors in, a tuple of
+    tensors out, closing over no tensor) and whether it keeps its weight
+    products (``dots``); ``n_out`` is set by each forward."""
+
+    def __init__(self, fn, dots: bool):
+        self.fn, self.dots, self.n_out = fn, dots, 0
+
+
 class _Remat(torch.autograd.Function):
-    """Rematerialization of one block: ``apply(fn, *tensors)`` runs
-    ``fn(*tensors)`` (a tuple of tensors) without keeping its activations
-    and saves only its inputs; the backward runs ``fn`` again through
-    ``torch.func.vjp`` on them, differentiating the floating-point ones
-    (integer inputs such as positions ride along). ``fn`` must close over
-    no tensor: a tensor made inside a ``torch.func`` transform and read
-    from a closure is not visible at the level where the block runs.
+    """Rematerialization of one block: ``apply(block, *tensors)`` runs
+    ``block.fn(*tensors)`` (a tuple of tensors) without keeping its
+    activations and saves only its inputs; the backward runs ``fn`` again
+    through ``torch.func.vjp`` on them, differentiating the floating-point
+    ones (integer inputs such as positions ride along). ``fn`` must close
+    over no tensor: a tensor made inside a ``torch.func`` transform and
+    read from a closure is not visible at the level where the block runs.
+
+    ``block.dots`` (``remat="dots"``, the JAX package's
+    ``dots_with_no_batch_dims_saveable``): the forward also returns the
+    outputs of the block's weight products (``layers.wmatmul``, recorded
+    on a ``ProductTape``) and they are saved with the inputs; the
+    recompute hands them back in order instead of computing them
+    (``layers._SavedProduct``, whose backward is the product's own), and
+    recomputes the rest. Gradients keep the bits of ``remat=True``.
+
+    The logical-axis context (``sharding.api``) active at the forward is
+    re-entered for the recompute, so a block under a model axis issues
+    the same collectives in the backward, in the same order, wherever the
+    backward runs.
 
     Written for ``torch.func`` (``forward`` without ctx,
     ``setup_context``, a generated ``vmap`` rule), so it composes with the
@@ -196,13 +248,23 @@ class _Remat(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(fn, *args):
-        return fn(*args)
+    def forward(block, *args):
+        if not block.dots:
+            out = block.fn(*args)
+            block.n_out = len(out)
+            return out
+        tape = ProductTape()
+        out = run_with_tape(tape, block.fn, *args)
+        block.n_out = len(out)
+        return (*out, *tape.saved)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.fn = inputs[0]
-        ctx.save_for_backward(*inputs[1:])
+        block = inputs[0]
+        ctx.block, ctx.n_in = block, len(inputs) - 1
+        ctx.rules = api.current_context()
+        kept = output[block.n_out:] if block.dots else ()
+        ctx.save_for_backward(*inputs[1:], *kept)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -213,19 +275,23 @@ class _Remat(torch.autograd.Function):
         # backward. Detached, nothing is recorded at this level. Grad mode
         # itself stays as the caller set it: some backward formulas depend
         # on it (SiLU's), and turning it off would change the bits.
-        args = [a.detach() for a in ctx.saved_tensors]
-        grads = tuple(g.detach() for g in grads)
+        saved = [t.detach() for t in ctx.saved_tensors]
+        args, kept = saved[:ctx.n_in], saved[ctx.n_in:]
+        block = ctx.block
+        grads = tuple(g.detach() for g in grads[:block.n_out])
         diff = [i for i, a in enumerate(args) if a.is_floating_point()]
 
         def fn(*xs):
             full = list(args)
             for i, x in zip(diff, xs):
                 full[i] = x
-            return ctx.fn(*full)
+            return run_with_tape(ProductTape(kept) if block.dots else None, block.fn, *full)
 
-        _, pull = torch.func.vjp(fn, *(args[i] for i in diff))
+        with api.restored_context(ctx.rules):
+            _, pull = torch.func.vjp(fn, *(args[i] for i in diff))
+            pulled = pull(grads)
         out = [None] * len(args)
-        for i, g in zip(diff, pull(grads)):
+        for i, g in zip(diff, pulled):
             out[i] = g
         return (None, *out)
 
@@ -233,21 +299,16 @@ class _Remat(torch.autograd.Function):
 def _remat_wrap(body, remat):
     """``body(h, lp, *extra) -> tuple of tensors`` -> the same function,
     rematerialized when ``remat`` is True (the JAX package's
-    ``jax.checkpoint`` around a block): the block's tensors (``h``, the
-    extra tensors and the leaves of the params dict ``lp``) go to
+    ``jax.checkpoint`` around a block) or ``"dots"`` (the same, keeping the
+    block's weight products): the block's tensors (``h``, the extra
+    tensors and the leaves of the params dict ``lp``) go to
     :class:`_Remat` flat; ``body`` closes over everything else, which
-    must hold no tensor. ``remat=False`` returns ``body`` itself.
-    ``"dots"`` (keep the matmul outputs) would need selective
-    checkpointing, which rests on the same saved-tensor hooks, and
-    raises."""
+    must hold no tensor. ``remat=False`` returns ``body`` itself."""
     if remat is False:
         return body
-    if remat == "dots":
-        raise NotImplementedError(
-            'remat="dots" is not ported to repro_torch yet (ROADMAP.md A18b, '
-            "with the step bundles that pass it); use remat=True or False")
-    if remat is not True:
+    if not (remat is True or (isinstance(remat, str) and remat == "dots")):
         raise ValueError(f'remat must be True, False or "dots", got {remat!r}')
+    dots = remat == "dots"
 
     def run(h, lp: Params, *extra):
         keys, n = list(lp), len(extra)
@@ -255,7 +316,9 @@ def _remat_wrap(body, remat):
         def flat(h, *xs):
             return body(h, dict(zip(keys, xs[n:])), *xs[:n])
 
-        return _Remat.apply(flat, h, *extra, *lp.values())
+        block = _Block(flat, dots)
+        out = _Remat.apply(block, h, *extra, *lp.values())
+        return tuple(out[:block.n_out]) if dots else out
 
     return run
 
@@ -335,7 +398,8 @@ def forward(cfg, p: Params, batch, impl: str = "auto", window=None, remat=True, 
     inputs and runs every block's forward twice, so the rmsnorm kernel
     launches 4L + 1 times a gradient call against 2L + 1 with
     ``remat=False`` or under ``no_grad``; values and gradients are the
-    same bits either way. ``"dots"`` raises (ROADMAP.md A18b). ``unroll``
+    same bits either way. ``"dots"`` keeps each block's weight products
+    and recomputes the rest (the same launches and bits as True). ``unroll``
     is the JAX package's scan-unrolling compile knob and is ignored: this
     runs eagerly, layer by layer."""
     del unroll
@@ -391,11 +455,13 @@ def _stacked(state, lead):
         memory_format=torch.contiguous_format) for x in state))
 
 
-def init_cache(cfg, batch: int, seq_len: int, window: int = 0, device=None) -> DecodeCache:
+def init_cache(cfg, batch: int, seq_len: int, window: int = 0, device=None,
+               kv_heads: Optional[int] = None) -> DecodeCache:
     """An empty ``DecodeCache`` of ``batch`` slots on ``device`` (default
     ``cuda``): KV rows of ``seq_len`` slots, or a ring of ``window or
-    cfg.sliding_window``; zero SSM states for the hybrid family; the
-    xLSTM family's initial states."""
+    cfg.sliding_window``, of ``kv_heads`` heads (default the config's; a
+    rank's share under a model axis); zero SSM states for the hybrid
+    family; the xLSTM family's initial states."""
     check_full_sequence(cfg)
     dev = resolve_device(device)
     if cfg.family == "ssm":
@@ -406,7 +472,7 @@ def init_cache(cfg, batch: int, seq_len: int, window: int = 0, device=None) -> D
             xlstm_m=_stacked(xlstm_mod.init_mlstm_state(cfg, batch, d, device=dev), (n_super, n_m)),
             xlstm_s=_stacked(xlstm_mod.init_slstm_state(cfg, batch, d, device=dev), (n_super, n_s)))
     kv = attn.init_kv_cache(cfg, batch, seq_len, window=window or cfg.sliding_window,
-                            device=dev, n_layers=cfg.num_layers)
+                            device=dev, n_layers=cfg.num_layers, kv_heads=kv_heads)
     return DecodeCache(kv=kv, ssm=_ssm_rows(cfg, batch, dev))
 
 
@@ -441,9 +507,9 @@ def _decode_layer(cfg, lp: Params, h, attend, ssm_l, active):
 def _embed_step(cfg, p: Params, token, pos):
     """token [B] -> [B, 1, d] in the compute type, plus ``pos_embed[pos]``
     where the config has learned positions."""
-    h = p["embed"][token.long()][:, None].to(getattr(torch, cfg.compute_dtype))
+    h = _rows(cfg, p["embed"], token.long())[:, None].to(getattr(torch, cfg.compute_dtype))
     if cfg.learned_pos:
-        h = h + p["pos_embed"][pos.long()][:, None].to(h.dtype)
+        h = h + _rows(cfg, p["pos_embed"], pos.long())[:, None].to(h.dtype)
     return h
 
 
@@ -581,10 +647,11 @@ class PagedDecodeCache(NamedTuple):
 
 
 def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
-                     device=None) -> PagedDecodeCache:
-    """A pool of ``n_pages * page_size`` KV rows for ``n_slots`` slots on
-    ``device`` (default ``cuda``). The xLSTM family has no KV to page and
-    raises, as in the JAX package."""
+                     device=None, kv_heads: Optional[int] = None) -> PagedDecodeCache:
+    """A pool of ``n_pages * page_size`` KV rows of ``kv_heads`` heads
+    (default the config's) for ``n_slots`` slots on ``device`` (default
+    ``cuda``). The xLSTM family has no KV to page and raises, as in the
+    JAX package."""
     check_full_sequence(cfg)
     if cfg.family == "ssm":
         raise ValueError(
@@ -592,7 +659,8 @@ def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
             "— there is no KV cache to page; use init_cache/decode_step")
     dev = resolve_device(device)
     return PagedDecodeCache(
-        kv=attn.init_paged_kv_pool(cfg, n_pages, page_size, dev, n_layers=cfg.num_layers),
+        kv=attn.init_paged_kv_pool(cfg, n_pages, page_size, dev, n_layers=cfg.num_layers,
+                                   kv_heads=kv_heads),
         ssm=_ssm_rows(cfg, n_slots, dev))
 
 
@@ -691,10 +759,10 @@ def paged_prefill_chunk(cfg, p: Params, cache: PagedDecodeCache, page_row, token
         warn_kernel_extend_fallback("models.transformer.paged_prefill_chunk")
     cu = extend_write(cache_update)
     C = tokens.shape[1]
-    h = p["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))  # [1, C, d]
+    h = _rows(cfg, p["embed"], tokens.long()).to(getattr(torch, cfg.compute_dtype))  # [1, C, d]
     positions = start + torch.arange(C, device=h.device)
     if cfg.learned_pos:
-        h = h + p["pos_embed"][positions][None].to(h.dtype)
+        h = h + _rows(cfg, p["pos_embed"], positions)[None].to(h.dtype)
     # pad rows must not compete for MoE expert capacity
     live = (torch.arange(C, device=h.device) < length)[None, :]
     for l, lp in enumerate(layer_params(p, cfg.num_layers)):

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.layers import Params, dense_init, wmatmul
 
 
 class MLSTMState(NamedTuple):
@@ -64,12 +64,12 @@ def mlstm_apply(cfg, p: Params, x, state: MLSTMState | None = None):
     H = cfg.num_heads
     d_in = int(cfg.xlstm_proj_factor * d)
     hd = d_in // H
-    xi, og = (x @ p["w_up"]).chunk(2, dim=-1)
+    xi, og = wmatmul(x, p["w_up"]).chunk(2, dim=-1)
     og = torch.sigmoid(og)
-    q = (xi @ p["w_q"]).reshape(B, S, H, hd).float()
-    k = ((xi @ p["w_k"]).reshape(B, S, H, hd) / (hd ** 0.5)).float()
-    v = (xi @ p["w_v"]).reshape(B, S, H, hd)
-    ig, fg = (xi.float() @ p["w_if"] + p["b_if"]).chunk(2, dim=-1)  # [B, S, H] log-space
+    q = wmatmul(xi, p["w_q"]).reshape(B, S, H, hd).float()
+    k = (wmatmul(xi, p["w_k"]).reshape(B, S, H, hd) / (hd ** 0.5)).float()
+    v = wmatmul(xi, p["w_v"]).reshape(B, S, H, hd)
+    ig, fg = (wmatmul(xi.float(), p["w_if"]) + p["b_if"]).chunk(2, dim=-1)  # [B, S, H] log-space
     if state is None:
         state = init_mlstm_state(cfg, B, d, device=x.device)
     C, n, m = state
@@ -87,7 +87,7 @@ def mlstm_apply(cfg, p: Params, x, state: MLSTMState | None = None):
         hs.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
         m = m_new
     h = torch.stack(hs, dim=1).reshape(B, S, d_in).to(x.dtype)
-    return (h * og) @ p["w_down"], MLSTMState(C, n, m)
+    return wmatmul(h * og, p["w_down"]), MLSTMState(C, n, m)
 
 
 def slstm_init(gen, cfg, d: int, dtype, device, lead=()) -> Params:
@@ -121,7 +121,7 @@ def slstm_apply(cfg, p: Params, x, state: SLSTMState | None = None):
     hd = d // H
     if state is None:
         state = init_slstm_state(cfg, B, d, device=x.device)
-    xg = ((x @ p["w_x"]).float() + p["b"]).reshape(B, S, H, 4 * hd)
+    xg = (wmatmul(x, p["w_x"]).float() + p["b"]).reshape(B, S, H, 4 * hd)
     w_r = p["w_r"]
     c, n, h, m = state
     hs = []
@@ -139,5 +139,5 @@ def slstm_apply(cfg, p: Params, x, state: SLSTMState | None = None):
         h = torch.sigmoid(ot) * (c / torch.clamp_min(n, 1e-6))
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype) @ p["w_down"]
+    y = wmatmul(torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype), p["w_down"])
     return y, SLSTMState(c, n, h, m)

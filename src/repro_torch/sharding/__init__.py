@@ -1,2 +1,3 @@
-"""Sharding of the port (``repro/sharding``): the client axis
-(``sharding.api``); the model axis is ROADMAP.md A18b."""
+"""Sharding of the port (``repro/sharding``): the client axis and the
+logical axes (``sharding.api``, with the model axis' collectives) and the
+parameter partitioning of the model axis (``sharding.partition``)."""

@@ -1,5 +1,5 @@
-"""The client axis of a federated mesh (port of ``repro/sharding/api.py``,
-the client half).
+"""The client axis of a federated mesh and the logical axes of the model
+axis (port of ``repro/sharding/api.py``).
 
 The JAX package places ``[C, ...]`` client arrays with a ``NamedSharding``
 over the client axes ('pod', 'data') and lets ``psum`` complete the
@@ -9,18 +9,35 @@ with one collective over the client-axis process group
 (``client_group``): ``all_reduce`` and ``all_gather``, which take the
 tensors where they lie (CUDA tensors on the card; gloo accepts them).
 
-The logical half (``logical_axis_rules``, ``spec_for``, ``constrain``,
-``DEFAULT_RULES``) is the model axis, ROADMAP.md A18b.
+**The logical half** (``DEFAULT_RULES``, ``logical_axis_rules``,
+``current_mesh``, ``spec_for``, ``constrain``) keeps the JAX package's
+interface: a thread-local context maps logical axis names to mesh axes.
+There GSPMD lays activations out from those constraints and inserts the
+collectives; here the layout is made by construction (the rank holds its
+pieces of the parameters, ``sharding/partition.py``) and ``constrain``
+returns ``x`` untouched. The model axis' collectives are explicit, three
+``torch.autograd.Function``s in ``torch.func``'s form (a ``vmap`` rule
+that issues ONE collective for the whole batched tensor, as c10d calls
+are no functorch ops): ``copy_in`` (forward identity, backward all-reduce)
+before every column-parallel product, ``reduce_out`` (forward all-reduce,
+backward identity) after every row-parallel one, and ``gather_last``
+(forward all-gather on the last dim, backward the rank's slice). Outside
+a context, or at model extent 1, all three are the identity, so a
+single-rank run keeps its bits.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import CLIENT_AXES, FederatedMesh
+from repro_torch.launch.mesh import CLIENT_AXES, MODEL_AXIS, FederatedMesh
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
 
 
 def client_axes(mesh: FederatedMesh) -> Tuple[str, ...]:
@@ -81,6 +98,11 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 collectives: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
 
 
+def _count(kind: str, t: torch.Tensor) -> None:
+    collectives[kind] += 1
+    collectives["bytes"] += t.numel() * t.element_size()
+
+
 def reset_collectives() -> None:
     for k in collectives:
         collectives[k] = 0
@@ -97,8 +119,7 @@ def all_reduce(tensors: List[torch.Tensor], group, op: str = "sum") -> List[torc
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         dist.all_reduce(flat, op=_OPS[op], group=group)
-        collectives["all_reduce"] += 1
-        collectives["bytes"] += flat.numel() * flat.element_size()
+        _count("all_reduce", flat)
         for i, piece in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             out[i] = piece.view(tensors[i].shape)
     return out
@@ -145,6 +166,210 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    collectives["all_gather"] += 1
-    collectives["bytes"] += x.numel() * x.element_size()
+    _count("all_gather", x)
     return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# the logical half: axis rules and the model axis' collectives
+# ---------------------------------------------------------------------------
+
+_state = threading.local()
+
+DEFAULT_RULES: Dict[str, MeshAxes] = {
+    "batch": ("pod", "data"),
+    "client": ("pod", "data"),
+    "ff": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "vocab": "model",
+    "experts": "model",
+    "embed": None,
+    "seq": None,
+    "kv_seq": None,
+}
+
+
+@contextlib.contextmanager
+def logical_axis_rules(mesh: FederatedMesh, rules: Optional[Dict[str, MeshAxes]] = None):
+    """Within the block, logical axis names resolve against ``mesh`` (the
+    JAX package's context) and the model layers run on this rank's pieces
+    of the parameters, completing their products over ``mesh``'s model
+    group."""
+    prev = getattr(_state, "ctx", None)
+    _state.ctx = (mesh, dict(DEFAULT_RULES, **(rules or {})))
+    try:
+        yield
+    finally:
+        _state.ctx = prev
+
+
+def current_context():
+    """The active ``(mesh, rules)``, or None: what a recomputation taken
+    later (``models.transformer._Remat``'s backward) re-enters."""
+    return getattr(_state, "ctx", None)
+
+
+@contextlib.contextmanager
+def restored_context(ctx):
+    """Re-enter a context captured by ``current_context`` (None: none)."""
+    prev = getattr(_state, "ctx", None)
+    _state.ctx = ctx
+    try:
+        yield
+    finally:
+        _state.ctx = prev
+
+
+def current_mesh() -> Optional[FederatedMesh]:
+    ctx = getattr(_state, "ctx", None)
+    return ctx[0] if ctx else None
+
+
+def _mesh_axes_for(name, rules, mesh) -> Tuple[str, ...]:
+    ax = rules.get(name) if name else None
+    if ax is None:
+        return ()
+    if isinstance(ax, str):
+        ax = (ax,)
+    return tuple(a for a in ax if a in mesh.shape)
+
+
+def spec_for(shape: Sequence[int], logical: Sequence[Optional[str]]):
+    """Logical axes -> a spec (a tuple of None / axis name / tuple of
+    names) for a concrete shape, or None outside a context; a mapping whose
+    mesh axes do not divide the dimension evenly drops to None, as in the
+    JAX package."""
+    ctx = getattr(_state, "ctx", None)
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    out, used = [], set()
+    for dim, name in zip(shape, logical):
+        axes = tuple(a for a in _mesh_axes_for(name, rules, mesh) if a not in used)
+        total = 1
+        for a in axes:
+            total *= mesh.shape[a]
+        if axes and total > 1 and dim % total == 0:
+            out.append(axes if len(axes) > 1 else axes[0])
+            used.update(axes)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """The JAX package's sharding constraint by logical names. The port
+    lays its tensors out by construction, so this returns ``x``."""
+    return x
+
+
+def model_size() -> int:
+    """The model axis' extent in the active context (1 outside one)."""
+    mesh = current_mesh()
+    return 1 if mesh is None else mesh.model_size
+
+
+def model_rank() -> int:
+    """This rank's model coordinate in the active context (0 outside one)."""
+    mesh = current_mesh()
+    return 0 if mesh is None or mesh.model_size == 1 else mesh.coords[MODEL_AXIS]
+
+
+def _model_group():
+    mesh = current_mesh()
+    return None if mesh is None or mesh.model_size == 1 else mesh.model_group
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Forward: sum over the model group; backward: identity."""
+
+    @staticmethod
+    def forward(x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        _count("all_reduce", y)
+        return y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _CopyIn.apply(g, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        xd = in_dims[0]
+        return _ReduceOut.apply(x if xd is None else x.movedim(xd, 0), group), \
+            (None if xd is None else 0)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Forward: identity; backward: sum over the model group (the input's
+    gradient is the sum of the ranks' partial ones)."""
+
+    @staticmethod
+    def forward(x, group):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceOut.apply(g, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _CopyIn.apply(x, group), in_dims[0]
+
+
+class _GatherLast(torch.autograd.Function):
+    """Forward: the ranks' pieces [..., n] concatenated on the last dim in
+    model order, [..., M * n]; backward: this rank's slice."""
+
+    @staticmethod
+    def forward(x, group, rank):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        _count("all_gather", x)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n, ctx.rank = inputs[0].shape[-1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n], None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, rank):
+        xd = in_dims[0]
+        return _GatherLast.apply(x if xd is None else x.movedim(xd, 0), group, rank), \
+            (None if xd is None else 0)
+
+
+def copy_in(x: torch.Tensor) -> torch.Tensor:
+    """Before a column-parallel product: identity forward, all-reduce of
+    the gradient over the model group (identity without a model axis)."""
+    g = _model_group()
+    return x if g is None else _CopyIn.apply(x, g)
+
+
+def reduce_out(x: torch.Tensor) -> torch.Tensor:
+    """After a row-parallel product: the ranks' partial sums all-reduced
+    over the model group (identity without a model axis)."""
+    g = _model_group()
+    return x if g is None else _ReduceOut.apply(x, g)
+
+
+def gather_last(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' pieces on the last dim, gathered in model order
+    (identity without a model axis)."""
+    g = _model_group()
+    return x if g is None else _GatherLast.apply(x, g, model_rank())

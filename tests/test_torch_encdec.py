@@ -27,7 +27,7 @@ from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.models import encdec as tencdec
-from repro_torch.models.layers import promoted_matmul
+from repro_torch.models.layers import wmatmul
 from repro_torch.models.model import build_model_by_name as torch_build
 
 torch.set_num_threads(2)
@@ -190,7 +190,7 @@ def test_float32_frames_into_bf16_weights_promote_as_in_jax():
     assert tp["frame_proj"].dtype == torch.bfloat16
     jb, tb = _batch(jcfg, 1, 8, seed=55)
     jh = np.asarray((jb["frames"] @ jp["frame_proj"]).astype(jnp.bfloat16), np.float32)
-    th = promoted_matmul(tb["frames"], tp["frame_proj"]).to(torch.bfloat16)
+    th = wmatmul(tb["frames"], tp["frame_proj"]).to(torch.bfloat16)
     ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(jh), 1e-30))) - 7)
     assert (np.abs(_np(th) - jh) <= ulp).all()
     tl, _ = tencdec.forward(tcfg, tp, tb)

@@ -57,7 +57,8 @@ def test_port_modules_found():
                  "repro_torch.models.encdec", "repro_torch.configs.phi_3_vision_4_2b",
                  "repro_torch.configs.whisper_medium", "repro_torch.core.wire",
                  "repro_torch.core.buffered", "repro_torch.launch.mesh",
-                 "repro_torch.launch.train", "repro_torch.sharding.api"):
+                 "repro_torch.launch.train", "repro_torch.sharding.api",
+                 "repro_torch.sharding.partition", "repro_torch.train.steps"):
         assert want in mods
 
 

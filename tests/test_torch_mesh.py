@@ -2,8 +2,11 @@
 ``sharding/api.py``): the builders in this process (a world of one rank)
 and in spawned gloo worlds on the CPU, the data path's rank rows, the
 refusals (strict mesh, indivisible C, nccl without a card a rank, the
-model axis, the launcher's flags), a failed rank stopping its world, and
-``fed.simulator.run_on_ranks`` against the unsharded simulator."""
+production mesh in a small world, the launcher's flags), the model axis'
+coordinates and process groups, a failed rank stopping its world,
+``fed.simulator.run_on_ranks`` against the unsharded simulator, and the
+launcher's ``--data-axis 2 --model-axis 2`` on 4 ranks against the
+launcher unsharded."""
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ from repro_torch.launch.mesh import (
     num_clients,
     spawn,
 )
+from repro_torch.launch.train import main as train_main
 from repro_torch.launch.train import parse_args
 from repro_torch.sharding import api
 
@@ -75,21 +79,66 @@ def test_federated_mesh_pod_divisibility():
         make_federated_mesh(3, pod=2, device="cpu")
 
 
-def test_model_axis_and_production_mesh_raise_naming_a18b():
-    with pytest.raises(NotImplementedError, match="A18b"):
-        make_production_mesh()
-    with pytest.raises(NotImplementedError, match="A18b"):
-        make_host_mesh(1, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A18b"):
+def test_model_axis_and_production_mesh_raise_naming_a18b(world):
+    """The model axis: its coordinates and process groups in a spawned
+    world of 8 (mesh (data 4, model 2): ranks 2s and 2s + 1 share client
+    shard s); the production mesh strict in a small world (the start
+    hint), shrunk with ``smoke=True``; only the client axes and 'model'
+    may exceed 1."""
+    with pytest.raises(RuntimeError, match="torch.distributed.run --nproc-per-node 256"):
+        make_production_mesh(device="cpu")
+    with pytest.raises(RuntimeError, match="need 512 ranks"):
+        make_production_mesh(multi_pod=True, device="cpu")
+    m = make_production_mesh(smoke=True, device="cpu")
+    assert m.shape == {"data": 1, "model": 1} and m.model_size == 1 and m.model_group is None
+    assert make_production_mesh(multi_pod=True, smoke=True, device="cpu").shape == {
+        "pod": 1, "data": 1, "model": 1}
+    with pytest.raises(ValueError, match="may exceed 1"):
+        build_mesh(("data", "seq"), (1, 2), device="cpu")
+    with pytest.raises(RuntimeError, match="--model-axis M"):
         build_mesh(("data", "model"), (1, 2), device="cpu")
+    assert make_host_mesh(1, 2, device="cpu").shape == {"data": 1, "model": 1}
+    for r, o in enumerate(world):
+        d, j = divmod(r, 2)
+        assert o["model_coords"] == {"data": d, "model": j}
+        assert o["model_rows"] == [d]  # a client shard's ranks hold the same clients
+        # the model group sums the two ranks of the rank's client shard; the
+        # client group the four ranks that share its model coordinate
+        np.testing.assert_array_equal(o["model_sum"], [4.0 * d + 1.0])
+        np.testing.assert_array_equal(o["client_sum"], [sum(2.0 * s + j for s in range(4))])
 
 
-@pytest.mark.parametrize("flags,item", [(["--production-mesh"], "A18b"),
-                                        (["--model-axis", "2"], "A18b"),
+def _launch(flags):
+    return train_main(["--arch", "granite-moe-1b-a400m", "--reduced", "--device", "cpu",
+                       "--rounds", "3", "--seq", "16", "--batch-per-client", "2"] + flags)
+
+
+@pytest.mark.parametrize("flags,item", [(["--production-mesh"], "256"),
+                                        (["--model-axis", "2"], None),
                                         (["--sanitize"], "A19")])
 def test_launcher_flags_not_ported_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        parse_args(["--arch", "starcoder2-3b", "--reduced"] + flags)
+    """``--sanitize`` raises naming A19; ``--production-mesh`` raises in a
+    world smaller than its 256 ranks, with the start hint; ``--data-axis 2
+    --model-axis 2`` runs on 4 spawned CPU ranks (C = the data extent, 2
+    clients) and gives the rows of the launcher unsharded on the same 2
+    clients: tau traces exactly, losses to float32 noise."""
+    if flags == ["--sanitize"]:
+        with pytest.raises(NotImplementedError, match=item):
+            parse_args(["--arch", "starcoder2-3b", "--reduced"] + flags)
+        return
+    if flags == ["--production-mesh"]:
+        with pytest.raises(RuntimeError, match=f"nproc-per-node {item}"):
+            _launch(flags)
+        return
+    rows = _launch(["--data-axis", "2", "--model-axis", "2"])
+    ref = _launch(["--mesh", "data=1", "--clients-per-shard", "2"])
+    assert len(rows) == len(ref) == 3
+    for a, b in zip(rows, ref):
+        np.testing.assert_array_equal(a["tau"], b["tau"])
+        np.testing.assert_allclose(a["train_loss"], b["train_loss"], rtol=1e-5)
+        np.testing.assert_allclose(a["tau_k"], b["tau_k"], rtol=1e-6)
+    with pytest.raises(SystemExit):
+        parse_args(["--arch", "starcoder2-3b", "--mesh", "data=2", "--model-axis", "2"])
 
 
 def test_launcher_mesh_flag_parses():
@@ -167,12 +216,21 @@ def _world_rank(datasets):
     out["max_op"] = api.all_reduce([mx], g, op="max")[0].numpy()
     out["gather"] = api.all_gather(torch.tensor([[m.rank, 10 * m.rank]]), g).numpy()
     out["collectives"] = dict(api.collectives)
+    mm = make_host_mesh(4, 2, device="cpu")
+    one = torch.tensor([float(mm.rank)])
+    out.update(model_coords=mm.coords, model_rows=list(api.client_rows(mm, 4)),
+               model_sum=api.all_reduce([one], mm.model_group)[0].numpy(),
+               client_sum=api.all_reduce([one], mm.group)[0].numpy())
     return out
 
 
-def test_spawned_world_meshes_shards_and_collectives():
-    ds = _datasets()
-    outs = spawn(_world_rank, 8, "gloo", ds, timeout_s=240)
+@pytest.fixture(scope="module")
+def world():
+    return spawn(_world_rank, 8, "gloo", _datasets(), timeout_s=240)
+
+
+def test_spawned_world_meshes_shards_and_collectives(world):
+    ds, outs = _datasets(), world
     for s, o in enumerate(outs):
         assert o["rank"] == s and o["device"] == "cpu"
         assert o["shape"] == {"pod": 1, "data": 8}

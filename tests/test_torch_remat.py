@@ -143,7 +143,8 @@ def test_remat_lowers_the_gradient_calls_peak_memory():
     grad runs the backward with create_graph=True, so a recompute whose
     inputs stayed tracked would record its own backward and keep every
     layer's recomputed activations to the end; that showed as the same
-    peak as without remat (99.4 MB against 13.3 here)."""
+    peak as without remat (99.4 MB against 13.3 here). ``"dots"`` keeps
+    the layers' weight products as well, so its peak lies between."""
     cfg = dataclasses.replace(get_arch("qwen1.5-32b").reduced(), num_layers=4)
     tm = build_model(cfg, device="cpu")
     tp = tm.init(0)
@@ -151,10 +152,12 @@ def test_remat_lowers_the_gradient_calls_peak_memory():
     batch = format_batch(seqs, device="cpu")
     pc = {k: v.expand((2,) + v.shape) for k, v in tp.items()}
     peaks = {}
-    for remat in (False, True):
+    for remat in (False, True, "dots"):
         vg = vmap(grad_and_value(lambda p, b: tm.loss(p, b, remat=remat), has_aux=True))
         peaks[remat] = _peak_cpu_bytes(lambda: vg(pc, batch))
     assert 0 < peaks[True] < 0.5 * peaks[False], peaks
+    # "dots" keeps every layer's weight products: between the two
+    assert peaks[True] < peaks["dots"] < peaks[False], peaks
 
 
 def _count_norms(monkeypatch):
@@ -186,12 +189,34 @@ def test_rmsnorm_forwards_under_remat(monkeypatch, arch, per_layer):
 
 @pytest.mark.parametrize("arch", ["qwen1.5-32b", "xlstm-1.3b", "whisper-medium"])
 def test_remat_dots_raises_naming_a18_and_bad_values_raise(arch):
-    _, _, tm, tp = _pair(arch)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(tm.config, (B,), seed=34).items()}
-    with pytest.raises(NotImplementedError, match="A18b"):
-        tm.loss(tp, batch, remat="dots")
+    """``remat="dots"`` (each block keeps its weight products, the JAX
+    package's ``dots_with_no_batch_dims_saveable``): gradients and values
+    bitwise equal to ``remat=True`` under ``vmap(grad_and_value)``, and
+    within the families' bars of ``jax.grad`` of the JAX
+    ``loss_fn(remat="dots")``; a value other than True, False and "dots"
+    still raises."""
+    jm, jp, tm, tp = _pair(arch)
+    batch = _batch(tm.config, (C, B), seed=34)
+    gd, (ld, md) = _vmapped_grads(tm, tp, batch, "dots")
+    g1, (l1, m1) = _vmapped_grads(tm, tp, batch, True)
+    for k in g1:
+        assert torch.equal(gd[k], g1[k]), k
+    assert torch.equal(ld, l1) and torch.equal(md["ce"], m1["ce"])
+    jgv = jax.vmap(jax.value_and_grad(lambda p, b: jm.loss(p, b, remat="dots")[0]),
+                   in_axes=(None, 0))
+    jl, jg = jgv(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    jg = bridge.flatten(jax.tree.map(np.asarray, jg))
+    np.testing.assert_allclose(_np(ld), np.asarray(jl), atol=2e-4, rtol=2e-4)
+    gmax = max(float(np.abs(x).max()) for x in jg.values())
+    for k, v in jg.items():
+        # b_k: 0 in exact arithmetic, float32 noise on both sides (the bar above)
+        tol = 1e-6 * gmax if "b_k" in k else 1e-5 * max(float(np.abs(v).max()), 1e-30)
+        np.testing.assert_allclose(_np(gd[k]), v, atol=tol, rtol=0, err_msg=k)
+    one = {k: torch.from_numpy(v[0]) for k, v in batch.items()}
     with pytest.raises(ValueError, match="remat"):
-        tm.forward(tp, batch, remat="full")
+        tm.forward(tp, one, remat="full")
+    with pytest.raises(ValueError, match="remat"):
+        tm.loss(tp, one, remat=1)
 
 
 def test_remat_leaves_the_forward_and_the_serving_paths_alone():
