@@ -235,29 +235,49 @@ Phases, each fatal on failure (non-zero exit, no result line):
      2e-5 / 1e-4 while they agree), vecavg exactly 2 a round on every
      rank, ms a round sharded and unsharded, the collectives a round and
      one all-reduce's ms at the CNN's size; Qwen1.5-0.5B's widths at
-     phase 9's traffic on 2 ranks of one client, one teacher-forced round
+     phase 9's traffic on 2 ranks of one client (12 of 24 layers since PR
+     35), one teacher-forced round
      against the C = 2 round (tests/test_torch_lm_round.py's bars), rmsnorm
      on each rank equal to the unsharded round's, each rank's peak GB;
      beside it, ``python -m repro_torch.launch.train --mesh data=4`` as two
      subprocesses (sync, and buffered under int8), each exiting 0 with 3
      rows and vecavg 6 on each of its ranks;
  18. model axis — parameters partitioned over a model axis (ROADMAP.md
-     A18b) on 4 gloo ranks that share the card, mesh (data 2, model 2),
-     through the step bundles (``train/steps.py``): (a) granite-moe-1b-a400m
-     at full width, 4 of 24 layers, float32, and (b) Qwen1.5-0.5B's widths
-     (tied embedding: the logits take an all-reduce), each one
-     teacher-forced ``fedveca_round`` of phase 9's traffic over 2 clients
-     against the unsharded C = 2 round (atol 5e-5 / rtol 5e-4), vecavg
-     exactly 4 and rmsnorm exactly 4 (4L + 1) on every rank, collectives,
-     ms and peak GB a rank; (c) on the model group of data 0 (2 ranks), in
+     A18b, A18c) on 4 gloo ranks that share the card, mesh (data 2, model
+     2), through the step bundles (``train/steps.py``): (a)
+     granite-moe-1b-a400m at full width, 2 of 24 layers, (b) Qwen1.5-0.5B's
+     widths at 12 layers (tied embedding: the logits take an all-reduce),
+     (e) Hymba-1.5B, 2 of 32 layers (25 heads: attention whole on every
+     rank, the MLP and the SSM split), each float32, one teacher-forced
+     ``fedveca_round`` of phase 9's traffic over 2 clients, and (f)
+     xLSTM-1.3B, one super-block, at phase 15's traffic with one local step
+     a client, each against the unsharded C = 2 round (atol 5e-5 / rtol
+     5e-4; xLSTM's: 10 times the distance one ulp of the params moves the
+     one-process round, which is measured beside it at one and at two
+     steps a client), vecavg
+     exactly 4 and rmsnorm exactly as unsharded on every rank, collectives,
+     ms and peak GB a rank, and the parameter arithmetic of xLSTM's 48
+     layers a rank; (c), (g) on the model group of data 0 (2 ranks), in
      bf16: StarCoder2-3B's ``forward(impl="pallas")`` at S 2048 (flash
      exactly 30 a rank on [1, 2048, 12/1, 128]) against the one-rank
      forward (5e-2 relative) and at 2 layers in float32 (2e-4),
      Qwen1.5-32B at full width, 4 of 64 layers (flash 4 and rmsnorm 9 a
-     rank, the vocab-parallel head's gathered logits), and StarCoder2-3B's
-     ``decode_step[paged]`` with ``cache_update="kernel"`` from a prefilled
-     8-slot state (paged decode exactly 30 a rank, greedy tokens equal to
-     the one-rank step's); (d) ``python -m repro_torch.launch.train ...
+     rank, the vocab-parallel head's gathered logits), phi-3-vision-4.2B 2
+     of 32 layers at S 2048 with its 576 patch rows (flash 2 a rank at hd
+     96 on 16/16 heads), whisper-medium 2 + 2 layers (no kernel), and
+     ``decode_step[paged]`` with ``cache_update="kernel"`` from a
+     prefilled 8-slot state of StarCoder2-3B and of Hymba-1.5B (2 layers,
+     its SSM rows cut on ``d_in``; paged decode exactly L a rank), and
+     xLSTM-1.3B's contiguous ``decode_step`` (one super-block, float32,
+     2e-4) with its states on heads, greedy tokens equal to the one-rank
+     step's; (h) ``lm_config("100m")``
+     at phase 9's traffic: 2 rounds under int8 and under top-1000, each
+     teacher-forced against the one-process round (entries on a codec
+     boundary at most 1e-4 of the residual, the params within 1e-6 of what
+     the residual differences imply, the codec's scales and indices exact
+     on a round's update rows, wire bytes the one-process engine's), and 2
+     buffered commits against the same in one process, vecavg exactly 4 a
+     round or commit a rank; (d) ``python -m repro_torch.launch.train ...
      --data-axis 2 --model-axis 2`` as a subprocess, exiting 0 with 3 rows
      and vecavg 12 on each of its 4 ranks.
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
@@ -289,7 +309,8 @@ from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.core.controller import ControllerConfig, ControllerCore  # noqa: E402
 from repro_torch.core.engine import EngineConfig, RoundEngine  # noqa: E402
 from repro_torch.core.fedveca import make_round_step  # noqa: E402
-from repro_torch.core.wire import make_codec  # noqa: E402
+from repro_torch.core.buffered import BufferedConfig, BufferedRoundEngine, LatencyModel  # noqa: E402
+from repro_torch.core.wire import make_codec, roundtrip_rows  # noqa: E402
 from repro_torch.data.device import DeviceShards, host_stacked_batches  # noqa: E402
 from repro_torch.data.partition import partition_case3  # noqa: E402
 from repro_torch.data.synthetic import Dataset, make_classification, make_lm_tokens  # noqa: E402
@@ -311,9 +332,10 @@ from repro_torch.kernels.vecavg import ops as va_ops  # noqa: E402
 from repro_torch.kernels.vecavg import ref as va_ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import cross_entropy  # noqa: E402
 from repro_torch.models.attention import PagedKVPool  # noqa: E402
-from repro_torch.models.model import build_model, build_model_by_name  # noqa: E402
+from repro_torch.models.model import build_model, build_model_by_name, params_struct  # noqa: E402
 from repro_torch.models.transformer import PagedDecodeCache  # noqa: E402
 from repro_torch.metrics.logger import latency_summary  # noqa: E402
 from repro_torch.serve import (PagedServeLoop, Request, SamplerConfig, SerialLoop,  # noqa: E402
@@ -441,6 +463,7 @@ BUF16 = dict(parity_commits=5, commits=20, waves=2, latency="exp", grad_decay=0.
 # g0 norms rtol 1e-4).
 SHARD = dict(clients=20, ranks=4, rounds=10)
 SHARD_LM_RANKS = 2
+SHARD_LM_LAYERS = 12  # of Qwen1.5-0.5B's 24, since PR 35 (the script's time)
 SHARD_STAT = dict(rtol=1e-5, atol=1e-6)
 SHARD_RUN = dict(atol=2e-5, rtol=1e-4)
 LM_STAT = {"loss0": dict(rtol=1e-5, atol=1e-6), "g0_sqnorm": dict(rtol=1e-4, atol=0),
@@ -2027,13 +2050,16 @@ def lm_data(vocab, n_clients):
     return clients, test
 
 
-def grad_call_norms(cfg, remat=True) -> int:
-    """rmsnorm launches of one vmapped gradient call of the loss: 2L + 1
-    norm calls in the forward, each launched once for all clients (the op's
-    vmap rule), and under ``remat`` (the default) each layer's two norms
-    once more in its recompute, the final norm not: 4L + 1."""
-    L = cfg.num_layers
-    return (4 if remat else 2) * L + 1
+def grad_call_norms(cfg, remat=True, grad=True) -> int:
+    """rmsnorm launches of one loss call: a vmapped gradient call, or with
+    ``grad=False`` a forward or a decode step. Each layer's rmsnorm norms
+    (its two where ``cfg.norm`` is rmsnorm, and the hybrid fusion's two,
+    rmsnorm whatever ``cfg.norm``) launch once for all clients (the op's
+    vmap rule), and under ``remat`` (the default) once more in the layer's
+    recompute of a gradient call; the final norm once: 4L + 1 a gradient
+    call of a dense rmsnorm model, 2L + 1 a forward, 0 for layernorm ones."""
+    per = 2 * (cfg.norm == "rmsnorm") + 2 * bool(cfg.hybrid_parallel_ssm)
+    return (2 if grad and remat else 1) * cfg.num_layers * per + int(cfg.norm == "rmsnorm")
 
 
 def expected_rmsnorm_launches(cfg, rounds: int) -> int:
@@ -4076,6 +4102,12 @@ def _close(a, b, atol, rtol):
     return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
 
 
+def _close_t(a, b, atol, rtol):
+    """``_close`` of two tensors, in float64 on ``a``'s device."""
+    a, b = a.double(), b.to(a.device).double()
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
 def _first_parting(ref_rows, rows):
     """(round, clients) where two tau traces first differ, or None."""
     for a, b in zip(ref_rows, rows):
@@ -4195,7 +4227,7 @@ def phase_sharded_lm(dev):
     """17b: Qwen1.5-0.5B widths at phase 9's traffic, one teacher-forced
     round (host batches from the seed's init) on 2 ranks of one client
     against the unsharded C = 2 round."""
-    cfg = qwen05_config()
+    cfg = dataclasses.replace(qwen05_config(), num_layers=SHARD_LM_LAYERS)
     K = SHARD_LM_RANKS
     clients, _ = lm_data(cfg.vocab_size, K)
     one = FedSimConfig(mode=LM["mode"], eta=LM["eta"], tau_max=LM["tau_max"],
@@ -4234,14 +4266,16 @@ def phase_sharded_lm(dev):
     peaks = [o["peak_mem_gb"] for o in outs]
     total = torch.cuda.get_device_properties(dev).total_memory / 1e9
     require(sum(peaks) < total, f"[sharded-lm] ranks' peaks {peaks} GB exceed the card's {total}")
-    out = dict(model="qwen1.5-0.5b", ranks=K, clients_per_rank=1, max_abs_params=perr,
+    out = dict(model=f"qwen1.5-0.5b ({cfg.num_layers} layers)", ranks=K, clients_per_rank=1,
+               max_abs_params=perr,
                stats_share_of_bar=stats, launches_per_rank=[o["launches"] for o in outs],
                launches_unsharded=ref_launches, peak_mem_gb_per_rank=peaks,
                peak_mem_gb_unsharded=ref_peak, ms_round_per_rank=[o["ms_per_round"]
                                                                   for o in outs],
                ms_round_unsharded=ms_ref, all_reduce_ms_at_model_size=outs[0]["all_reduce_ms"],
                collectives=outs[0]["collectives"])
-    print(f"[sharded-lm] qwen1.5-0.5b, one round on {K} ranks of 1 client: max|params| "
+    print(f"[sharded-lm] qwen1.5-0.5b ({cfg.num_layers} layers), one round on {K} ranks of 1 "
+          f"client: max|params| "
           f"{perr:.3e} (tol {ROUND_PARAMS_ATOL}), statistics at "
           f"{ {k: f'{v:.3f}' for k, v in stats.items()} } of their bar, rmsnorm "
           f"{[o['launches']['rmsnorm'] for o in outs]} = unsharded {want}, vecavg "
@@ -4317,26 +4351,79 @@ def granite_config():
 # 18. the model axis (ROADMAP.md A18b): gloo ranks that share the card
 # ---------------------------------------------------------------------------
 
-MA = dict(data=2, model=2)  # (a), (b): 4 ranks; (c): the model group of data 0
+MA = dict(data=2, model=2)  # (a), (b), (e), (f), (h): 4 ranks; (c), (g): the model group of data 0
 MA_BAR = dict(atol=5e-5, rtol=5e-4)  # tests/test_sharding.py's sharded-round bar
 MA_FWD_S = 2048
 MA_QWEN32_LAYERS = 4
 MA_DECODE = dict(slots=8, prompt=256, page=16)
 MA_LAUNCHER = ["--arch", "granite-moe-1b-a400m", "--reduced", "--data-axis", "2",
                "--model-axis", "2", "--rounds", "3", "--seq", "64", "--batch-per-client", "2"]
+# (e)-(h), ROADMAP.md A18c. Hymba-1.5B cut to 2 of 32 layers; xLSTM-1.3B to
+# one super-block (8 of 48 layers: 7 mLSTM + 1 sLSTM) at phase 15's traffic
+# (2 clients, batch 1, tau_max 2, S 16): at phase 9's (batch 4, S 128) its
+# mLSTM memory C, [B, 4, 1024, 1024] float32 a step kept for the backward,
+# would take ~56 GB a client in the super-block's recompute; phi-3-vision-
+# 4.2B and whisper-medium cut to 2 layers (whisper: 2 + 2); the wire and
+# buffered runs on lm_config("100m") at phase 9's traffic.
+# xLSTM's round takes one local step a client: at this random init its
+# second step is chaotic in float32 (two one-process rounds from params 1
+# ulp apart differ about as much as the sharded round does from one
+# rank's), while one step, a gradient at the initial params, is not. The
+# ``probe`` measures both beside the round, and the one-step round is held
+# to its own 1-ulp distance (MA_PROBE_FACTOR): its updates reach ~1, where
+# the other rounds' stay below 1e-2, and its gradients carry the mLSTM
+# normalizers' cancellations, so MA_BAR's atol does not fit it
+MA_HYMBA_LAYERS, MA_PHI3_LAYERS, MA_WHISPER_LAYERS = 2, 2, 2
+# (a) and (b) cut for the script's time when (e)-(h) came (PR 35): granite
+# from 4 to 2 of 24 layers, Qwen1.5-0.5B's widths from 24 to 12 layers
+MA_GRANITE_LAYERS, MA_QWEN05_LAYERS = 2, 12
+MA_XLSTM_TRAFFIC = dict(seq=16, batch=1, tau_max=2, eta=0.05, taus=(1, 1), probe=True)
+# a probed round's bar: the sharded round within this many times the
+# distance one ulp of the params moves the one-process round (max|d|)
+MA_PROBE_FACTOR = 10
+# xLSTM's decode step in float32, held to STEP_F32_ATOL: in bf16 its
+# recurrences amplify the roundings at this random init (phase 10: bf16
+# logits 0.17-0.28 from float32's, relative), and a bf16 step on 2 ranks
+# took another greedy token than one rank's in 1 of 4 rows (PR 35)
+MA_XLSTM_DECODE = dict(slots=8, prompt=64)
+MA_WIRE = dict(rounds=2, wires=("int8", "topk:1000"), commits=2, waves=2, latency="exp",
+               grad_decay=0.9)
+# a wire round against the one-process round, teacher-forced: entries whose
+# operand sat on a codec boundary (an int8 half step, a top-k magnitude at
+# the cut) at most this share of the residual entries (the sharded products
+# differ from one rank's in the last bits); the params equal to what the
+# residual differences imply within 1e-6 (tests/test_torch_model_axis_wire.py)
+MA_WIRE_FLIPS, MA_WIRE_IMPLIED_ATOL = 1e-4, 1e-6
 
 
 def model_axis_plan(device="cuda"):
     """What phase 18's ranks run (handed to them whole, so that a rehearsal
-    can hand them smaller configs): the rounds' and the forwards' configs,
-    the decode's, the sizes, the device."""
-    sc = get_arch("starcoder2-3b")
-    return dict(device=device, fwd_s=MA_FWD_S, decode=dict(MA_DECODE, cfg=sc),
-                rounds={"granite": granite_config(), "qwen0.5b": qwen05_config()},
-                forwards={"starcoder2-3b": sc,
-                          "starcoder2-3b f32 2 layers": _f32(sc, num_layers=2),
-                          "qwen1.5-32b": dataclasses.replace(get_arch("qwen1.5-32b"),
-                                                             num_layers=MA_QWEN32_LAYERS)})
+    can hand them smaller configs): each round's config and traffic (None:
+    phase 9's), each forward's config and S, the decodes' configs and
+    sizes, the wire and buffered runs', the device."""
+    sc, hy, xl = get_arch("starcoder2-3b"), get_arch("hymba-1.5b"), get_arch("xlstm-1.3b")
+    return dict(
+        device=device,
+        rounds={"granite": (dataclasses.replace(granite_config(), num_layers=MA_GRANITE_LAYERS),
+                            None),
+                "qwen0.5b": (dataclasses.replace(qwen05_config(), num_layers=MA_QWEN05_LAYERS),
+                             None),
+                "hymba": (_f32(hy, num_layers=MA_HYMBA_LAYERS), None),
+                "xlstm": (xlstm_remat_config(1), MA_XLSTM_TRAFFIC)},
+        forwards={"starcoder2-3b": (sc, MA_FWD_S),
+                  "starcoder2-3b f32 2 layers": (_f32(sc, num_layers=2), MA_FWD_S),
+                  "qwen1.5-32b": (dataclasses.replace(get_arch("qwen1.5-32b"),
+                                                      num_layers=MA_QWEN32_LAYERS), MA_FWD_S),
+                  "phi-3-vision-4.2b": (dataclasses.replace(
+                      get_arch(PHI3_ARCH), num_layers=MA_PHI3_LAYERS), MA_FWD_S),
+                  "whisper-medium": (dataclasses.replace(
+                      get_arch(WHISPER_ARCH), num_layers=MA_WHISPER_LAYERS,
+                      encoder_layers=MA_WHISPER_LAYERS), WHISPER_S)},
+        decodes={"starcoder2-3b": dict(MA_DECODE, cfg=sc),
+                 "hymba-1.5b": dict(MA_DECODE, cfg=dataclasses.replace(
+                     hy, num_layers=MA_HYMBA_LAYERS))},
+        xlstm_decode=dict(MA_XLSTM_DECODE, cfg=_f32(xl, num_layers=len(xl.xlstm_pattern))),
+        wire=dict(MA_WIRE, cfg=lm_config("100m")))
 
 
 def _ma_sync(dev):
@@ -4374,26 +4461,72 @@ def _ma_barrier(dev, group=None):
     torch.distributed.barrier(group=group)
 
 
-def _ma_round_inputs(cfg, C):
-    """Phase 9's LM traffic for C clients: host batches [C, tau_max, b, S]
-    of the JAX example's clients, one teacher-forced round's."""
-    clients, _ = lm_data(cfg.vocab_size, C)
-    batches = host_stacked_batches(clients, np.random.default_rng(7), LM["tau_max"],
-                                   LM["batch"], device="cpu")
-    tau = torch.tensor([LM["tau_max"], LM["tau_max"] - 1][:C], dtype=torch.int32)
+def _ma_traffic(traffic):
+    """A round's traffic: ``traffic`` or phase 9's."""
+    return traffic or dict(seq=LM["seq"], batch=LM["batch"], tau_max=LM["tau_max"],
+                           eta=LM["eta"])
+
+
+def _ma_round_inputs(cfg, C, traffic=None):
+    """One teacher-forced round's inputs for C clients: host batches [C,
+    tau_max, b, S] of the JAX example's clients (phase 9's traffic), or of
+    seeded tokens at ``traffic``'s sizes; taus tau_max and tau_max - 1, or
+    ``traffic["taus"]``."""
+    t = _ma_traffic(traffic)
+    if traffic is None:
+        clients, _ = lm_data(cfg.vocab_size, C)
+        batches = host_stacked_batches(clients, np.random.default_rng(7), t["tau_max"],
+                                       t["batch"], device="cpu")
+    else:
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        toks = torch.randint(0, cfg.vocab_size, (C, t["tau_max"], t["batch"], t["seq"] + 1),
+                             generator=gen, dtype=torch.int32)
+        batches = {"tokens": toks[..., :-1].contiguous(), "targets": toks[..., 1:].contiguous()}
+    taus = t.get("taus", (t["tau_max"], t["tau_max"] - 1))
+    tau = torch.tensor(taus[:C], dtype=torch.int32)
     return batches, tau, torch.full((C,), 1.0 / C), torch.tensor(0.0)
 
 
-def _ma_round(mesh, cfg):
+def _ma_probe(step, full, args, t, rp):
+    """The round's float32 conditioning, from one-process rounds whose
+    params start one ulp away from the seed's (a seeded sign an entry):
+    ``one_step``, the round as run (``rp`` its result) from the moved
+    params; ``two_step``, the round at taus tau_max and tau_max - 1 from
+    both. Each: max|d| and |d| / |update| (Frobenius) between the two
+    results, and the share of MA_BAR."""
+    dev = next(iter(full.values())).device
+    gen = torch.Generator(device=dev).manual_seed(18)
+    moved = {k: v * (1 + 2.0 ** -23 * (torch.randint(0, 2, v.shape, device=dev, generator=gen)
+                                       .float() * 2 - 1)) for k, v in full.items()}
+
+    def run(params, tau):
+        with strict_fp32():
+            return step(params, args[0], tau, *args[2:])[0]
+
+    def dist(a, b):
+        d = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in a) ** 0.5
+        u = sum(float(((b[k] - full[k]).double() ** 2).sum()) for k in a) ** 0.5
+        return dict(max_abs=max(float((a[k] - b[k]).abs().max()) for k in a), rel_update=d / u,
+                    max_abs_update=max(float((b[k] - full[k]).abs().max()) for k in a),
+                    share_of_bar=max(_close_t(a[k], b[k], **MA_BAR) for k in a))
+
+    out = dict(one_step=dist(run(moved, args[1]), rp))
+    two = torch.tensor([t["tau_max"], t["tau_max"] - 1], dtype=torch.int32, device=dev)
+    out["two_step"] = dict(dist(run(moved, two), run(full, two)), taus=two.tolist())
+    return out
+
+
+def _ma_round(mesh, cfg, traffic=None):
     """One teacher-forced ``fedveca_round`` bundle on (data 2, model 2) from
     the seed's params; rank 0 first runs the unsharded C = 2 round of the
     same inputs (the others wait)."""
     dev, C = mesh.device, MA["data"]
+    t = _ma_traffic(traffic)
     full = build_model(cfg, device=dev).init(0)
-    batches, tau, p, g = _ma_round_inputs(cfg, C)
+    batches, tau, p, g = _ma_round_inputs(cfg, C, traffic)
     ref = None
     if mesh.rank == 0:
-        step = make_round_step(build_model(cfg, device=dev).loss, eta=LM["eta"])
+        step = make_round_step(build_model(cfg, device=dev).loss, eta=t["eta"])
         args = ({k: v.to(dev) for k, v in batches.items()}, tau.to(dev), p.to(dev), g.to(dev))
         _ma_reset(dev)
         t0 = time.perf_counter()
@@ -4401,15 +4534,18 @@ def _ma_round(mesh, cfg):
             rp, rst, _ = step(full, *args)
         _ma_sync(dev)
         ref = dict(ms=1e3 * (time.perf_counter() - t0), launches=_ma_counts(),
-                   peak_gb=_ma_peak_gb(dev),
+                   peak_gb=_ma_peak_gb(dev), taus=tau.tolist(),
+                   max_abs_update=max(float((rp[k] - full[k]).abs().max()) for k in rp),
                    params={k: v.cpu() for k, v in rp.items()},
                    stats={k: getattr(rst, k).cpu().numpy() for k in
                           ("loss0", "beta", "delta", "g0_sqnorm")},
                    tau_k=float(rst.tau_k))
+        if t.get("probe"):
+            ref["probe"] = _ma_probe(step, full, args, t, rp)
         del rp, rst, args
     model = build_model(cfg, device=dev, mesh=mesh)
-    shape = ShapeConfig("lm", LM["seq"], C * LM["batch"], "train")
-    bundle = build_bundle(model, mesh, shape, tau_max=LM["tau_max"], eta=LM["eta"])
+    shape = ShapeConfig("lm", t["seq"], C * t["batch"], "train")
+    bundle = build_bundle(model, mesh, shape, tau_max=t["tau_max"], eta=t["eta"])
     ins = bundle.shard_inputs(full, batches, tau, p, g)
     del full
     _ma_free(dev)
@@ -4432,9 +4568,9 @@ def _ma_round(mesh, cfg):
                digest=float(sum(v.double().sum() for v in gathered.values())))
     if ref is not None:
         out["ref"] = {k: v for k, v in ref.items() if k != "params"}
-        out["max_abs_params"] = max((gathered[k].cpu() - v).abs().max().item()
+        out["max_abs_params"] = max((gathered[k] - v.to(dev)).abs().max().item()
                                     for k, v in ref["params"].items())
-        out["share_of_bar"] = max(_close(gathered[k].cpu(), v, **MA_BAR)
+        out["share_of_bar"] = max(_close_t(gathered[k], v, **MA_BAR)
                                   for k, v in ref["params"].items())
     del newp, gathered, ins
     _ma_free(dev)
@@ -4460,6 +4596,10 @@ def _ma_forward(mesh, cfg, S):
     gen = torch.Generator(device="cpu").manual_seed(18)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                                      dtype=torch.int32).to(dev)}
+    if cfg.family == "vlm":  # its seeded float32 patch rows, as phase 11's
+        batch["patches"] = torch.randn(1, cfg.num_patches, cfg.vision_dim, generator=gen).to(dev)
+    if cfg.family == "audio":  # its seeded float32 frame rows, as phase 11's
+        batch["frames"] = torch.randn(1, cfg.encoder_seq, cfg.frontend_dim, generator=gen).to(dev)
     ref = None
     if mesh.coords["model"] == 0:
         _ma_reset(dev)
@@ -4496,16 +4636,18 @@ def _ma_forward(mesh, cfg, S):
 
 
 def _ma_decode_state(mesh, cfg, full, sizes):
-    """StarCoder2-3B's prefilled 8-slot state: rank 0 of the model group
-    prefills 8 prompts of MA_DECODE["prompt"] tokens (``impl="pallas"``) and
-    lays each slot's rows into pages of 16 (its own pages, one more for the
-    next token); the pool is broadcast to the model group."""
+    """A prefilled 8-slot state: rank 0 of the model group prefills 8
+    prompts of ``sizes["prompt"]`` tokens (``impl="pallas"``) and lays each
+    slot's rows into pages of 16 (its own pages, one more for the next
+    token); the hybrid family's SSM rows [L, 8, ...] beside them. The state
+    is broadcast to the model group."""
     dev, L = mesh.device, cfg.num_layers
     B, S, ps = sizes["slots"], sizes["prompt"], sizes["page"]
     per = S // ps + 1
     shape = (L, B * per, ps, cfg.num_kv_heads, cfg.head_dim)
     k = torch.zeros(shape, dtype=getattr(torch, cfg.param_dtype), device=dev)
     v = torch.zeros_like(k)
+    ssm = transformer.init_paged_cache(cfg, B, 1, 1, device=dev).ssm  # zero rows, or None
     gen = torch.Generator(device="cpu").manual_seed(19)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32)
     if mesh.coords["model"] == 0:
@@ -4516,48 +4658,54 @@ def _ma_decode_state(mesh, cfg, full, sizes):
             pages = slice(b * per, b * per + S // ps)
             k[:, pages] = cache.kv.k[:, b, :S].reshape(L, S // ps, ps, *shape[3:])
             v[:, pages] = cache.kv.v[:, b, :S].reshape(L, S // ps, ps, *shape[3:])
+        if ssm is not None:
+            for dst, src in zip(ssm, cache.ssm):
+                dst.copy_(src)
         nxt = logits.argmax(-1).to(torch.int32)
         del cache, logits
     else:
         nxt = torch.zeros(B, dtype=torch.int32, device=dev)
     src = mesh.rank - mesh.coords["model"]
-    for t in (k, v, nxt):
+    for t in (k, v, nxt, *(ssm or ())):
         torch.distributed.broadcast(t, src=src, group=mesh.model_group)
     P = -(-cfg.sliding_window // ps) if cfg.sliding_window else per
     table = torch.full((B, P), -1, dtype=torch.int32)
     table[:, :per] = torch.arange(B * per, dtype=torch.int32).reshape(B, per)
     pos = torch.full((B,), S, dtype=torch.int32)
-    return k, v, table, nxt, pos
+    return PagedDecodeCache(kv=PagedKVPool(k, v), ssm=ssm), table, nxt, pos
+
+
+def _ma_clone(cache):
+    return type(cache)(*(None if st is None else type(st)(*(t.clone() for t in st))
+                         for st in cache))
 
 
 def _ma_decode(mesh, sizes):
-    """StarCoder2-3B's ``decode_step[paged]`` (``cache_update="kernel"``)
-    from a prefilled 8-slot state on the model group: rank 0 first takes the
-    step on the whole params and pool, then both take it on their pieces."""
+    """``decode_step[paged]`` (``cache_update="kernel"``) from a prefilled
+    8-slot state on the model group (StarCoder2-3B's; Hymba-1.5B's with its
+    SSM rows cut on d_in): rank 0 first takes the step on the whole params,
+    pool and rows, then both take it on their pieces."""
     dev = mesh.device
     cfg = sizes["cfg"]
     full = build_model(cfg, device=dev).init(0)
-    k, v, table, nxt, pos = _ma_decode_state(mesh, cfg, full, sizes)
+    cache, table, nxt, pos = _ma_decode_state(mesh, cfg, full, sizes)
     B = sizes["slots"]
     active = torch.ones(B, dtype=torch.bool)
     ref = None
     if mesh.coords["model"] == 0:
-        pool = PagedDecodeCache(kv=PagedKVPool(k.clone(), v.clone()))
         _ma_reset(dev)
         with torch.no_grad():
             ref, _ = build_model(cfg, device=dev).paged_decode_step(
-                full, pool, table.to(dev), nxt, pos.to(dev), cache_update="kernel",
+                full, _ma_clone(cache), table.to(dev), nxt, pos.to(dev), cache_update="kernel",
                 active=active.to(dev))
         _ma_sync(dev)
         ref_counts = _ma_counts()
-        del pool
     shape = ShapeConfig("decode", cfg.sliding_window or sizes["prompt"], B, "decode")
     bundle = build_bundle(build_model(cfg, device=dev), mesh, shape, paged=True,
                           cache_update="kernel", page_size=sizes["page"],
-                          n_pages=k.shape[1])
-    ins = bundle.shard_inputs(full, PagedDecodeCache(kv=PagedKVPool(k, v)), table, nxt, pos,
-                              active)
-    del full, k, v
+                          n_pages=cache.kv.k.shape[1])
+    ins = bundle.shard_inputs(full, cache, table, nxt, pos, active)
+    del full, cache
     _ma_free(dev)
     _ma_barrier(dev, mesh.model_group)
     _ma_reset(dev)
@@ -4567,7 +4715,9 @@ def _ma_decode(mesh, sizes):
     _ma_sync(dev)
     ms = 1e3 * (time.perf_counter() - t0)
     out = dict(ms=ms, launches=_ma_counts(), collectives=dict(sh_api.collectives),
-               pool_per_rank=list(ins[1].kv.k.shape), finite=bool(torch.isfinite(logits).all()),
+               pool_per_rank=list(ins[1].kv.k.shape),
+               ssm_per_rank=None if ins[1].ssm is None else list(ins[1].ssm.h.shape),
+               finite=bool(torch.isfinite(logits).all()),
                tokens=logits.argmax(-1).cpu().tolist(), digest=float(logits.double().sum()))
     if ref is not None:
         err, bar = _ma_logits_check(logits, ref, STEP_BF16_REL)
@@ -4579,9 +4729,241 @@ def _ma_decode(mesh, sizes):
     return out
 
 
+def _ma_decode_xlstm(mesh, sizes):
+    """xLSTM-1.3B's contiguous ``decode_step`` bundle, one step, from a
+    prefilled 8-slot state with its states cut on heads: rank 0 of the
+    model group prefills and takes the one-rank step, then both take the
+    bundle's step (the rows of their client shard, data 0's: half the
+    slots)."""
+    dev = mesh.device
+    cfg, B, P = sizes["cfg"], sizes["slots"], sizes["prompt"]
+    full = build_model(cfg, device=dev).init(0)
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, dtype=torch.int32)
+    ref = None
+    if mesh.coords["model"] == 0:
+        with torch.no_grad():
+            logits, cache = build_model(cfg, device=dev).prefill(full, {"tokens": toks.to(dev)})
+        nxt = logits.argmax(-1).to(torch.int32)
+    else:
+        cache = transformer.init_cache(cfg, B, P, device=dev)
+        nxt = torch.zeros(B, dtype=torch.int32, device=dev)
+    src = mesh.rank - mesh.coords["model"]
+    for t in (nxt, *cache.xlstm_m, *cache.xlstm_s):
+        torch.distributed.broadcast(t, src=src, group=mesh.model_group)
+    pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+    if mesh.coords["model"] == 0:
+        _ma_reset(dev)
+        with torch.no_grad():
+            ref, _ = build_model(cfg, device=dev).decode_step(full, _ma_clone(cache), nxt, pos)
+        _ma_sync(dev)
+        ref_counts = _ma_counts()
+    bundle = build_bundle(build_model(cfg, device=dev), mesh,
+                          ShapeConfig("decode", P, B, "decode"))
+    ins = bundle.shard_inputs(full, cache, nxt, pos)
+    rows = sh_api.client_rows(mesh, B)
+    del full, cache
+    _ma_free(dev)
+    _ma_barrier(dev, mesh.model_group)
+    _ma_reset(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = bundle.fn(*ins)
+    _ma_sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    out = dict(ms=ms, launches=_ma_counts(), collectives=dict(sh_api.collectives),
+               state_per_rank=list(ins[1].xlstm_m.C.shape), rows=[rows.start, rows.stop],
+               finite=bool(torch.isfinite(logits).all()),
+               tokens=logits.argmax(-1).cpu().tolist(), digest=float(logits.double().sum()))
+    if ref is not None:
+        ref = ref[rows.start:rows.stop]
+        err, bar = _ma_logits_check(logits, ref, STEP_BF16_REL)
+        out.update(ref_launches=ref_counts, err=err, bar=bar,
+                   ref_tokens=ref.argmax(-1).cpu().tolist())
+    del ins, logits, ref
+    _ma_free(dev)
+    _ma_barrier(dev, mesh.model_group)
+    return out
+
+
+def _ma_engine(model, mesh, wire="none", shards=None):
+    """A ``RoundEngine`` of ``model`` at phase 9's traffic for MA["data"]
+    clients (``mesh`` None: in one process)."""
+    C = MA["data"]
+    ctl = ControllerCore(ControllerConfig(eta=LM["eta"], tau_max=LM["tau_max"]), C, mesh=mesh,
+                         model_axis=model.model_axis)
+    return RoundEngine(model.loss, EngineConfig(eta=LM["eta"], tau_max=LM["tau_max"],
+                                                batch_size=LM["batch"], wire=wire),
+                       shards=shards, num_clients=C, controller=ctl, mesh=mesh,
+                       model_axis=model.model_axis)
+
+
+class _MACounter:
+    """Launches and collectives summed over timed stretches (the gathers
+    between them for the comparisons are left out)."""
+
+    def __init__(self, dev):
+        self.dev, self.ms, self.launches, self.coll = dev, [], {}, {}
+
+    def start(self):
+        _ma_reset(self.dev)
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        _ma_sync(self.dev)
+        self.ms.append(1e3 * (time.perf_counter() - self.t0))
+        for tot, new in ((self.launches, _ma_counts()), (self.coll, dict(sh_api.collectives))):
+            for k, v in new.items():
+                tot[k] = tot.get(k, 0) + v
+
+
+def _ma_codec_exact(mesh, cfg, codec, rows, model_axis):
+    """The codec's decoded pieces of ``rows`` (this rank's pieces, [C, ...])
+    gathered, and the one-process codec on the gathered rows (rank 0):
+    the number of leaves that differ in any bit (0: the int8 scales and
+    top-k indices are exact)."""
+    dec = partition.gather_params(codec.roundtrip_pieces(model_axis.split(rows)[0], model_axis),
+                                  mesh, cfg, lead=1)
+    whole = partition.gather_params(rows, mesh, cfg, lead=1)
+    if mesh.rank != 0:
+        return None
+    want = roundtrip_rows(codec, {k: whole[k] for k in dec})
+    return sum(not torch.equal(dec[k], want[k]) for k in dec)
+
+
+def _ma_wire_buffered(mesh, w):
+    """(h): ``w["cfg"]`` (lm_config("100m")) on (data 2, model 2) at phase
+    9's traffic: ``w["rounds"]`` rounds under each wire codec, each round
+    against the one-process round teacher-forced from the sharded run's
+    params and residual rows (rank 0); the codecs' exactness on a round's
+    update rows; ``w["commits"]`` buffered commits against the same in one
+    process."""
+    dev, C, cfg = mesh.device, MA["data"], w["cfg"]
+    full = build_model(cfg, device=dev).init(0)
+    model, one = build_model(cfg, device=dev, mesh=mesh), build_model(cfg, device=dev)
+    local = partition.shard_params(full, mesh, cfg)
+    clients, _ = lm_data(cfg.vocab_size, C)
+    rng = np.random.default_rng(7)
+    batches = [host_stacked_batches(clients, rng, LM["tau_max"], LM["batch"], device=dev)
+               for _ in range(w["rounds"])]
+    taus = np.array([LM["tau_max"], LM["tau_max"] - 1], np.int32)
+    p = np.full(C, 1.0 / C, np.float32)
+    out = {}
+    for spec in w["wires"]:
+        eng = _ma_engine(model, mesh, wire=spec)
+        count = _MACounter(dev)
+        params, states = local, []
+        for r in range(w["rounds"]):
+            _ma_barrier(dev)
+            count.start()
+            new, _, _ = eng.run_round(params, taus, p, 0.0, batches=batches[r])
+            count.stop()
+            peak = _ma_peak_gb(dev)
+            res = {k: sh_api.all_gather(v, mesh.group) for k, v in eng._wire_res.items()}
+            states.append((partition.gather_params(params, mesh, cfg),
+                           partition.gather_params(new, mesh, cfg),
+                           partition.gather_params(res, mesh, cfg, lead=1)))
+            if r == 0:  # a real update's rows: this round's delta, and its half negated
+                delta = {k: new[k] - params[k] for k in new}
+                rows = {k: torch.stack([v, -0.5 * v]) for k, v in delta.items()}
+                exact = _ma_codec_exact(mesh, cfg, eng.wire_codec, rows, model.model_axis)
+                del delta, rows
+            params = new
+        o = dict(ms=count.ms, launches=count.launches, collectives=count.coll, peak_gb=peak,
+                 codec_leaves_differing=exact, bytes_per_client=eng.wire_bytes_per_client(local))
+        if mesh.rank == 0:
+            o.update(_ma_wire_reference(one, spec, states, batches, taus, p))
+        out[spec] = o
+        del eng, params, states
+        _ma_free(dev)
+    out["buffered"] = _ma_buffered(mesh, w, model, one, cfg, full, local, clients, taus, p)
+    del full, local
+    _ma_free(dev)
+    _ma_barrier(dev)
+    return out
+
+
+def _ma_wire_reference(one, spec, states, batches, taus, p):
+    """Rank 0: each sharded round against the one-process round from the
+    same params and residual rows: entries on a codec boundary, the params
+    against what the residual differences imply, ms a round, wire bytes."""
+    dev = next(iter(states[0][0].values())).device
+    eng = _ma_engine(one, None, wire=spec)
+    C = len(taus)
+    pw = torch.tensor(p, dtype=torch.float64, device=dev)
+    tau = torch.tensor(taus, dtype=torch.float64, device=dev)
+    tau_k = float((pw * tau).sum())
+    flips = total = 0
+    implied_err = share = 0.0
+    ms = []
+    for r, (before, after, res) in enumerate(states):
+        eng._wire_res = None if r == 0 else {k: v.clone() for k, v in states[r - 1][2].items()}
+        _ma_sync(dev)
+        t0 = time.perf_counter()
+        new, _, _ = eng.run_round(before, taus, p, 0.0, batches=batches[r])
+        _ma_sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        for k, want in eng._wire_res.items():
+            got = res[k]
+            scale = want.abs().reshape(C, -1).amax(1).reshape((C,) + (1,) * (want.dim() - 1))
+            flips += int(((got - want).abs() > 1e-6 + 1e-3 * scale).sum())
+            total += want.numel()
+            implied = sum(LM["eta"] * tau_k * pw[c] * (got[c] - want[c]).double() / tau[c]
+                          for c in range(C))
+            d = after[k].double() - new[k].double()
+            implied_err = max(implied_err, float((d - implied).abs().max()))
+            share = max(share, _close_t(after[k], new[k], **MA_BAR))
+    return dict(flips=flips, entries=total, implied_err=implied_err, share_of_bar=share,
+                ms_one=ms, bytes_per_client_one=eng.wire_bytes_per_client(states[0][0]))
+
+
+def _ma_buffered(mesh, w, model, one, cfg, full, local, clients, taus, p):
+    """``w["commits"]`` buffered commits (``w["waves"]`` waves in flight,
+    exponential latency, decay ``w["grad_decay"]``) on (data 2, model 2),
+    against the same run in one process (rank 0)."""
+    dev = mesh.device
+    bcfg = BufferedConfig(waves=w["waves"], grad_decay=w["grad_decay"],
+                          latency=LatencyModel(w["latency"], seed=0), seed=0)
+    ref = None
+    if mesh.rank == 0:
+        eng = _ma_engine(one, None, shards=DeviceShards.from_datasets(clients, device=dev))
+        _ma_reset(dev)
+        t0 = time.perf_counter()
+        log = BufferedRoundEngine(eng, p, bcfg).run(full, w["commits"], taus)
+        _ma_sync(dev)
+        ref = dict(ms=1e3 * (time.perf_counter() - t0), launches=_ma_counts(),
+                   params={k: v.clone() for k, v in log.params.items()},
+                   loss=[r["train_loss"] for r in log.rows])
+        del eng, log
+    shards = DeviceShards.from_datasets(clients, device=dev, mesh=mesh)
+    eng = _ma_engine(model, mesh, shards=shards)
+    runner = BufferedRoundEngine(eng, p, bcfg)
+    _ma_barrier(dev)
+    _ma_reset(dev)
+    t0 = time.perf_counter()
+    log = runner.run(local, w["commits"], taus)
+    _ma_sync(dev)
+    out = dict(ms=1e3 * (time.perf_counter() - t0), launches=_ma_counts(),
+               collectives=dict(sh_api.collectives), peak_gb=_ma_peak_gb(dev),
+               waves=runner.wave_dispatches, folds=runner.fold_dispatches)
+    gathered = partition.gather_params(log.params, mesh, cfg)
+    out["digest"] = float(sum(v.double().sum() for v in gathered.values()))
+    if ref is not None:
+        out.update(ref_ms=ref["ms"], ref_launches=ref["launches"],
+                   share_of_bar=max(_close_t(gathered[k], v, **MA_BAR)
+                                    for k, v in ref["params"].items()),
+                   max_abs_params=max((gathered[k] - v).abs().max().item()
+                                      for k, v in ref["params"].items()),
+                   loss=[r["train_loss"] for r in log.rows], ref_loss=ref["loss"])
+    del eng, runner, log, gathered
+    return out
+
+
 def _model_axis_rank(plan):
-    """One rank of phase 18's world: (a) and (b) on (data 2, model 2); (c)
-    on the model group of data 0 (the other group's ranks are done)."""
+    """One rank of phase 18's world: the rounds (a, b, e, f) on (data 2,
+    model 2); the forwards and decodes (c, g) on the model group of data 0
+    (the other group's ranks wait); the wire and buffered runs (h) on all
+    four."""
     mesh = make_host_mesh(MA["data"], MA["model"], device=plan["device"])
     out = dict(rank=mesh.rank, coords=mesh.coords, ms={})
 
@@ -4589,13 +4971,19 @@ def _model_axis_rank(plan):
         t0 = time.perf_counter()
         out[tag] = fn(mesh, *args)
         out["ms"][tag] = 1e3 * (time.perf_counter() - t0)
+        if mesh.rank == 0:  # progress, in case a later part fails the world
+            print(f"[model-axis] rank 0: {tag} took {out['ms'][tag] / 1e3:.1f} s", flush=True)
 
-    for tag, cfg in plan["rounds"].items():
-        part(tag, _ma_round, cfg)
+    for tag, (cfg, traffic) in plan["rounds"].items():
+        part(tag, _ma_round, cfg, traffic)
     if mesh.coords["data"] == 0:
-        for tag, cfg in plan["forwards"].items():
-            part(tag, _ma_forward, cfg, plan["fwd_s"])
-        part("decode", _ma_decode, plan["decode"])
+        for tag, (cfg, S) in plan["forwards"].items():
+            part(tag, _ma_forward, cfg, S)
+        for tag, sizes in plan["decodes"].items():
+            part(f"decode {tag}", _ma_decode, sizes)
+        part("decode xlstm-1.3b", _ma_decode_xlstm, plan["xlstm_decode"])
+    _ma_barrier(mesh.device)
+    part("wire", _ma_wire_buffered, plan["wire"])
     return out
 
 
@@ -4607,13 +4995,13 @@ def _ma_require_equal(outs, key, field):
 
 
 def phase_model_axis_rounds(outs, plan):
-    """(a), (b): each rank's exact launches and the bars."""
+    """(a), (b), (e), (f): each rank's exact launches and the bars."""
     res = {}
-    for tag, cfg in plan["rounds"].items():
+    for tag, (cfg, traffic) in plan["rounds"].items():
         r0 = outs[0][tag]
         ref = r0["ref"]
-        want = dict(vecavg=2, rmsnorm=LM["tau_max"] * grad_call_norms(cfg), flash=0,
-                    paged_decode=0)
+        tau_max = _ma_traffic(traffic)["tau_max"]
+        want = dict(vecavg=2, rmsnorm=tau_max * grad_call_norms(cfg), flash=0, paged_decode=0)
         require(ref["launches"] == want, f"[model-axis] {tag}: the unsharded round's launches "
                 f"{ref['launches']}, expected {want}")
         # every rank: the model-axis reduce launches vecavg once over the
@@ -4624,9 +5012,17 @@ def phase_model_axis_rounds(outs, plan):
                     f"launches {o[tag]['launches']}, expected {want_r}")
         _ma_require_equal(outs, tag, "collectives")
         _ma_require_equal(outs, tag, "digest")  # gathered params, the same bits on each rank
-        require(r0["share_of_bar"] <= 1, f"[model-axis] {tag}: params at "
-                f"{r0['share_of_bar']:.3f} of the bar (atol 5e-5, rtol 5e-4), max|diff| "
-                f"{r0['max_abs_params']:.3e}")
+        pr = ref.get("probe")
+        if pr is None:
+            require(r0["share_of_bar"] <= 1, f"[model-axis] {tag}: params at "
+                    f"{r0['share_of_bar']:.3f} of the bar (atol 5e-5, rtol 5e-4), max|diff| "
+                    f"{r0['max_abs_params']:.3e}")
+        else:  # the bar is the reference's own conditioning (MA_PROBE_FACTOR)
+            lim = MA_PROBE_FACTOR * pr["one_step"]["max_abs"]
+            require(r0["max_abs_params"] <= lim, f"[model-axis] {tag}: max|params - unsharded| "
+                    f"{r0['max_abs_params']:.3e} above {MA_PROBE_FACTOR} x "
+                    f"{pr['one_step']['max_abs']:.3e}, what one ulp of the params moves the "
+                    "one-process round")
         stats = {}
         for k, v in ref["stats"].items():
             got = np.concatenate([o[tag]["stats"][k] for o in outs if o["coords"]["model"] == 0])
@@ -4647,12 +5043,23 @@ def phase_model_axis_rounds(outs, plan):
                         ms_round_per_rank=[o[tag]["ms"] for o in outs],
                         ms_round_unsharded=ref["ms"],
                         peak_gb_per_rank=[o[tag]["peak_gb"] for o in outs],
-                        peak_gb_unsharded=ref["peak_gb"])
+                        peak_gb_unsharded=ref["peak_gb"], taus=ref.get("taus"),
+                        max_abs_update=ref["max_abs_update"], probe=pr)
+        if pr is not None:
+            for name, q in (("one step", pr["one_step"]), ("two steps", pr["two_step"])):
+                print(f"[model-axis] {tag}: the one-process round at taus "
+                      f"{q.get('taus', ref['taus'])} ({name}) from the params and from the params "
+                      f"1 ulp away: max|d| {q['max_abs']:.4e} against a largest update of "
+                      f"{q['max_abs_update']:.4e}, |d| / |update| {q['rel_update']:.4e}, "
+                      f"{q['share_of_bar']:.1f} of atol 5e-5 / rtol 5e-4")
         print(f"[model-axis] {tag} ({cfg.num_layers} layers, d {cfg.d_model}, "
               f"{'experts a rank ' + str(r0['experts_per_rank']) + ', ' if cfg.is_moe else ''}"
               f"{r0['sharded_leaves']} of {r0['leaves']} leaves sharded), one teacher-forced "
-              f"round on (data 2, model 2): max|params - unsharded| {r0['max_abs_params']:.3e} "
-              f"({r0['share_of_bar']:.3f} of atol 5e-5 / rtol 5e-4), statistics at "
+              f"round on (data 2, model 2), taus {ref['taus']}: max|params - unsharded| "
+              f"{r0['max_abs_params']:.3e} against a largest update of "
+              f"{ref['max_abs_update']:.3e} ({r0['share_of_bar']:.3f} of atol 5e-5 / rtol 5e-4"
+              f"{'' if pr is None else '; the bar here: ' + str(MA_PROBE_FACTOR) + ' x ' + format(pr['one_step']['max_abs'], '.3e')}), "
+              f"statistics at "
               f"{ {k: f'{v:.3f}' for k, v in stats.items()} } of the bar; launches on each rank "
               f"vecavg {[o[tag]['launches']['vecavg'] for o in outs]} (unsharded "
               f"{ref['launches']['vecavg']}), rmsnorm "
@@ -4665,15 +5072,32 @@ def phase_model_axis_rounds(outs, plan):
     return res
 
 
+def _ma_xlstm_full_depth(res, plan):
+    """What (f)'s rank would hold at xLSTM-1.3B's 48 layers on a card of
+    its own: its parameter pieces (the sharded leaves halved, the
+    replicated whole) in float32, and six parameter-sized trees of them in
+    a round (the params, one client's params, g0, cum_g and gradient a
+    rank, the new params), beside the measured peak a rank at one
+    super-block. Arithmetic, not a run."""
+    cfg, _ = plan["rounds"]["xlstm"]
+    full = dataclasses.replace(cfg, num_layers=48)
+    lay = partition.layout(full, MA["model"])
+    n = sum(v.numel() // (MA["model"] if partition.exec_dim(k, v.dim(), lay) is not None else 1)
+            for k, v in params_struct(build_model(full, device="meta")).items())
+    return dict(params_per_rank_48=n, param_gb_per_rank_48=4 * n / 1e9,
+                round_state_gb_per_rank_48=6 * 4 * n / 1e9,
+                peak_gb_per_rank_one_super_block=res["xlstm"]["peak_gb_per_rank"])
+
+
 def phase_model_axis_serving(outs, plan):
-    """(c): flash, rmsnorm and paged decode launches on each rank of the
-    model group, the logits against the one-rank forward and step."""
+    """(c), (g): flash, rmsnorm and paged decode launches on each rank of
+    the model group, the logits against the one-rank forward and step."""
     group = [o for o in outs if o["coords"]["data"] == 0]
     res = {}
-    for tag, cfg in plan["forwards"].items():
+    for tag, (cfg, S) in plan["forwards"].items():
         L = cfg.num_layers
-        want = dict(vecavg=0, rmsnorm=2 * L + 1 if cfg.norm == "rmsnorm" else 0, flash=L,
-                    paged_decode=0)
+        want = dict(vecavg=0, rmsnorm=grad_call_norms(cfg, grad=False),
+                    flash=0 if cfg.family == "audio" else L, paged_decode=0)
         r0 = group[0][tag]
         require(r0["ref_launches"] == want, f"[model-axis] {tag}: one-rank forward launches "
                 f"{r0['ref_launches']}, expected {want}")
@@ -4691,38 +5115,125 @@ def phase_model_axis_serving(outs, plan):
                         ms_per_rank=[o[tag]["ms"] for o in group], ms_one_rank=r0["ref_ms"],
                         collectives_per_rank=r0["collectives"],
                         peak_gb_per_rank=[o[tag]["peak_gb"] for o in group])
-        print(f"[model-axis] {tag} forward(impl=\"pallas\") S {plan['fwd_s']} on (model 2): flash "
-              f"{[o[tag]['launches']['flash'] for o in group]} a rank on {r0['flash_shape']} "
-              f"([B, S, Hq, Hkv, hd] a rank), rmsnorm "
+        print(f"[model-axis] {tag} ({L} layers) forward(impl=\"pallas\") S {S} on (model 2): "
+              f"flash {[o[tag]['launches']['flash'] for o in group]} a rank on "
+              f"{r0['flash_shape']} ([B, S, Hq, Hkv, hd] a rank), rmsnorm "
               f"{[o[tag]['launches']['rmsnorm'] for o in group]}; logits against the one-rank "
               f"forward {r0['err']:.3e} (bar {r0['bar']}), argmax agreement "
               f"{r0['argmax_agree']:.4f}; ms {[round(o[tag]['ms'], 1) for o in group]} against "
               f"{r0['ref_ms']:.1f} on one rank; {r0['collectives']['all_reduce']} all-reduces, "
               f"{r0['collectives']['all_gather']} all-gathers, "
-              f"{r0['collectives']['bytes'] / 1e6:.1f} MB a rank")
-    L = plan["decode"]["cfg"].num_layers
-    d0 = group[0]["decode"]
-    want = dict(vecavg=0, rmsnorm=0, flash=0, paged_decode=L)
-    require(d0["ref_launches"] == want, f"[model-axis] decode: one-rank step {d0['ref_launches']}")
-    for o in group:
-        require(o["decode"]["launches"] == want, f"[model-axis] decode: rank {o['rank']} "
-                f"launches {o['decode']['launches']}, expected {want}")
-        require(o["decode"]["finite"], "[model-axis] decode: non-finite logits")
-    _ma_require_equal(group, "decode", "digest")
-    require(d0["tokens"] == d0["ref_tokens"], f"[model-axis] decode: greedy tokens "
-            f"{d0['tokens']} against the one-rank step's {d0['ref_tokens']}")
-    require(d0["err"] <= d0["bar"], f"[model-axis] decode: logits {d0['err']:.3e} (bar "
-            f"{d0['bar']})")
-    res["decode"] = dict(err=d0["err"], bar=d0["bar"], tokens_equal=True,
-                         pool_per_rank=d0["pool_per_rank"],
-                         launches_per_rank=[o["decode"]["launches"] for o in group],
-                         ms_per_rank=[o["decode"]["ms"] for o in group],
-                         collectives_per_rank=d0["collectives"])
-    print(f"[model-axis] starcoder2-3b decode_step[paged] (kernel) from a prefilled "
-          f"{plan['decode']['slots']}-slot state on (model 2): paged decode "
-          f"{[o['decode']['launches']['paged_decode'] for o in group]} a rank on a pool "
-          f"{d0['pool_per_rank']} a rank; greedy tokens equal the one-rank step's; logits "
-          f"{d0['err']:.3e} (bar {d0['bar']}); ms {[round(o['decode']['ms'], 1) for o in group]}")
+              f"{r0['collectives']['bytes'] / 1e6:.1f} MB a rank; peak GB a rank "
+              f"{[round(o[tag]['peak_gb'], 2) for o in group]}")
+    decodes = {f"decode {t}": (sz["cfg"], "paged") for t, sz in plan["decodes"].items()}
+    decodes["decode xlstm-1.3b"] = (plan["xlstm_decode"]["cfg"], "contiguous")
+    for tag, (cfg, kind) in decodes.items():
+        d0 = group[0][tag]
+        want = dict(vecavg=0, rmsnorm=grad_call_norms(cfg, grad=False), flash=0,
+                    paged_decode=cfg.num_layers if kind == "paged" else 0)
+        require(d0["ref_launches"] == want, f"[model-axis] {tag}: one-rank step "
+                f"{d0['ref_launches']}, expected {want}")
+        for o in group:
+            require(o[tag]["launches"] == want, f"[model-axis] {tag}: rank {o['rank']} "
+                    f"launches {o[tag]['launches']}, expected {want}")
+            require(o[tag]["finite"], f"[model-axis] {tag}: non-finite logits")
+        _ma_require_equal(group, tag, "digest")
+        require(d0["tokens"] == d0["ref_tokens"], f"[model-axis] {tag}: greedy tokens "
+                f"{d0['tokens']} against the one-rank step's {d0['ref_tokens']}")
+        require(d0["err"] <= d0["bar"], f"[model-axis] {tag}: logits {d0['err']:.3e} (bar "
+                f"{d0['bar']})")
+        state = d0.get("pool_per_rank") or d0.get("state_per_rank")
+        res[tag] = dict(err=d0["err"], bar=d0["bar"], tokens_equal=True, state_per_rank=state,
+                        ssm_per_rank=d0.get("ssm_per_rank"),
+                        launches_per_rank=[o[tag]["launches"] for o in group],
+                        ms_per_rank=[o[tag]["ms"] for o in group],
+                        collectives_per_rank=d0["collectives"])
+        print(f"[model-axis] {tag[7:]} decode_step[{kind}] one step on (model 2): launches "
+              f"{[o[tag]['launches'] for o in group]} a rank; "
+              f"{'pool' if kind == 'paged' else 'mLSTM C'} {state} a rank"
+              f"{', SSM h ' + str(d0['ssm_per_rank']) if d0.get('ssm_per_rank') else ''}; "
+              f"greedy tokens equal the one-rank step's; logits {d0['err']:.3e} (bar "
+              f"{d0['bar']}); ms {[round(o[tag]['ms'], 1) for o in group]}; "
+              f"{d0['collectives']['all_reduce']} all-reduces, "
+              f"{d0['collectives']['all_gather']} all-gathers, "
+              f"{d0['collectives']['bytes'] / 1e6:.2f} MB a rank")
+    return res
+
+
+def phase_model_axis_wire(outs, plan):
+    """(h): the wire rounds and the buffered commits of lm_config("100m")
+    on (data 2, model 2), each rank's exact launches and the bars."""
+    w = plan["wire"]
+    cfg = w["cfg"]
+    tau_max, R = LM["tau_max"], w["rounds"]
+    norms = tau_max * grad_call_norms(cfg)
+    res = {}
+    for spec in w["wires"]:
+        r0 = outs[0]["wire"][spec]
+        want = dict(vecavg=4 * R, rmsnorm=R * norms, flash=0, paged_decode=0)
+        for o in outs:
+            require(o["wire"][spec]["launches"] == want, f"[model-axis] wire {spec}: rank "
+                    f"{o['rank']} launches {o['wire'][spec]['launches']}, expected {want}")
+        _ma_require_equal([o["wire"] for o in outs], spec, "collectives")
+        require(r0["codec_leaves_differing"] == 0, f"[model-axis] wire {spec}: "
+                f"{r0['codec_leaves_differing']} leaves' decoded pieces differ from the one-process "
+                "codec's (scales or indices not exact)")
+        require(r0["bytes_per_client"] == r0["bytes_per_client_one"],
+                f"[model-axis] wire {spec}: {r0['bytes_per_client']} bytes a client against "
+                f"{r0['bytes_per_client_one']} in one process")
+        require(r0["flips"] <= MA_WIRE_FLIPS * r0["entries"], f"[model-axis] wire {spec}: "
+                f"{r0['flips']} of {r0['entries']} residual entries on a codec boundary")
+        require(r0["implied_err"] <= MA_WIRE_IMPLIED_ATOL, f"[model-axis] wire {spec}: params "
+                f"{r0['implied_err']:.3e} from what the residual differences imply")
+        coll = r0["collectives"]
+        res[spec] = dict(flips=r0["flips"], entries=r0["entries"],
+                         implied_err=r0["implied_err"], share_of_bar=r0["share_of_bar"],
+                         codec_exact=True, bytes_per_client=r0["bytes_per_client"],
+                         launches_per_rank=[o["wire"][spec]["launches"] for o in outs],
+                         collectives_per_rank=coll,
+                         ms_round_per_rank=[o["wire"][spec]["ms"] for o in outs],
+                         ms_round_one=r0["ms_one"],
+                         peak_gb_per_rank=[o["wire"][spec]["peak_gb"] for o in outs])
+        print(f"[model-axis] wire {spec}: {cfg.name} ({cfg.num_layers} layers) {R} rounds on "
+              f"(data 2, model 2), each teacher-forced against the one-process round: "
+              f"{r0['flips']} of {r0['entries']} residual entries on a codec boundary, params "
+              f"{r0['implied_err']:.2e} from what the residual differences imply "
+              f"({r0['share_of_bar']:.3f} of atol 5e-5 / rtol 5e-4 directly); the codec on a "
+              f"round's update rows bitwise the one-process codec's (scales and indices exact); "
+              f"{r0['bytes_per_client']} wire bytes a client (the same in one process); launches "
+              f"a rank {r0['launches']}; {coll['all_reduce']} all-reduces, {coll['all_gather']} "
+              f"all-gathers, {coll['bytes'] / 1e6 / R:.1f} MB a round a rank; ms a round "
+              f"{[round(x, 1) for x in r0['ms']]} (rank 0) against "
+              f"{[round(x, 1) for x in r0['ms_one']]} in one process; peak GB a rank "
+              f"{[round(o['wire'][spec]['peak_gb'], 2) for o in outs]}")
+    b0 = outs[0]["wire"]["buffered"]
+    want = dict(vecavg=4 * w["commits"], rmsnorm=w["commits"] * norms, flash=0, paged_decode=0)
+    require(b0["ref_launches"] == dict(want, vecavg=2 * w["commits"]),
+            f"[model-axis] buffered: one-process launches {b0['ref_launches']}")
+    for o in outs:
+        require(o["wire"]["buffered"]["launches"] == want, f"[model-axis] buffered: rank "
+                f"{o['rank']} launches {o['wire']['buffered']['launches']}, expected {want}")
+    _ma_require_equal([o["wire"] for o in outs], "buffered", "digest")
+    _ma_require_equal([o["wire"] for o in outs], "buffered", "collectives")
+    require(b0["share_of_bar"] <= 1, f"[model-axis] buffered: params at "
+            f"{b0['share_of_bar']:.3f} of the bar, max|diff| {b0['max_abs_params']:.3e}")
+    coll = b0["collectives"]
+    res["buffered"] = dict(share_of_bar=b0["share_of_bar"], max_abs_params=b0["max_abs_params"],
+                           loss=b0["loss"], loss_one=b0["ref_loss"], waves=b0["waves"],
+                           folds=b0["folds"],
+                           launches_per_rank=[o["wire"]["buffered"]["launches"] for o in outs],
+                           collectives_per_rank=coll,
+                           ms_per_rank=[o["wire"]["buffered"]["ms"] for o in outs],
+                           ms_one=b0["ref_ms"],
+                           peak_gb_per_rank=[o["wire"]["buffered"]["peak_gb"] for o in outs])
+    print(f"[model-axis] buffered: {w['commits']} commits ({w['waves']} waves in flight, "
+          f"{w['latency']} latency, decay {w['grad_decay']}) on (data 2, model 2): params "
+          f"{b0['max_abs_params']:.3e} from the one-process run ({b0['share_of_bar']:.3f} of the "
+          f"bar), losses {b0['loss']} against {b0['ref_loss']}; vecavg "
+          f"{[o['wire']['buffered']['launches']['vecavg'] for o in outs]} a rank (one process "
+          f"{b0['ref_launches']['vecavg']}); {coll['all_reduce']} all-reduces, "
+          f"{coll['all_gather']} all-gathers, {coll['bytes'] / 1e6:.1f} MB a rank; ms "
+          f"{[round(o['wire']['buffered']['ms'], 1) for o in outs]} against {b0['ref_ms']:.1f}")
     return res
 
 
@@ -4767,7 +5278,17 @@ def phase_model_axis(dev, plan=None):
     world_s = time.perf_counter() - t0
     out = {"rounds": phase_model_axis_rounds(outs, plan),
            "serving": phase_model_axis_serving(outs, plan),
+           "wire": phase_model_axis_wire(outs, plan),
            "world_s": world_s, "rank_ms": [o["ms"] for o in outs]}
+    if "xlstm" in out["rounds"]:
+        out["xlstm_full_depth"] = x = _ma_xlstm_full_depth(out["rounds"], plan)
+        print(f"[model-axis] xlstm-1.3b at 48 layers, arithmetic: {x['params_per_rank_48']} "
+              f"parameters a rank on (model 2), {x['param_gb_per_rank_48']:.2f} GB in float32, "
+              f"~{x['round_state_gb_per_rank_48']:.1f} GB of parameter-sized trees in a round "
+              f"a rank; measured at one super-block: peak GB a rank "
+              f"{[round(v, 2) for v in x['peak_gb_per_rank_one_super_block']]}. The 4 ranks "
+              "share one card here, so a model axis lowers the peak a rank, not the card's "
+              "total: no full-depth run is claimed")
     print(f"[model-axis] the 4 ranks' world took {world_s:.1f} s; each part's ms on rank 0: "
           f"{ {k: round(v) for k, v in outs[0]['ms'].items()} }")
     out["launcher"] = finish_model_axis_launcher(start_model_axis_launcher(
@@ -4882,14 +5403,15 @@ def main() -> int:
     sharded = run("17 sharded", phase_sharded, dev)
     torch.cuda.empty_cache()
     model_axis = run("18 model axis", phase_model_axis, dev)
-    ma_r, ma_s = model_axis["rounds"], model_axis["serving"]
+    ma_r, ma_s, ma_w = model_axis["rounds"], model_axis["serving"], model_axis["wire"]
     paged = {f"{arch} {name}": v["launches"]
              for arch, key in ((FAM_MOE, "moe"), (FAM_HYMBA, "hymba"), (FAM_PHI3, "phi-3"))
              for name, v in fam13[key].items() if isinstance(v, dict) and "launches" in v}
     rows[0]["launches_by_path"] = {  # paged decode: L a tick on every paged loop
         "starcoder2-3b serve": serve["launches"]["paged_decode"],
-        "starcoder2-3b decode_step[paged] on (model 2), one step (each rank)":
-            [n["paged_decode"] for n in ma_s["decode"]["launches_per_rank"]],
+        **{f"{k[7:]} decode_step[paged] on (model 2), one step (each rank)":
+           [n["paged_decode"] for n in ma_s[k]["launches_per_rank"]]
+           for k in ("decode starcoder2-3b", "decode hymba-1.5b")},
         **{f"qwen1.5-32b sched {n}": v["launches"]["paged_decode"]
            for n, v in sched["variants"].items()},
         **{k: v["paged_decode"] for k, v in paged.items()}}
@@ -4907,7 +5429,8 @@ def main() -> int:
         "phi-3-vision-4.2b forward (32 layers, hd 96)": fam["phi-3"]["flash_launches"],
         "whisper-medium forward": fam["whisper"]["kernel_launches"],
         **{f"{k} forward on (model 2) (each rank)": [n["flash"] for n in ma_s[k]["launches_per_rank"]]
-           for k in ("starcoder2-3b", "starcoder2-3b f32 2 layers", "qwen1.5-32b")}}
+           for k in ("starcoder2-3b", "starcoder2-3b f32 2 layers", "qwen1.5-32b",
+                     "phi-3-vision-4.2b")}}
     rms_row["launches_by_path"] = {
         "qwen1.5-0.5b LM, 5 rounds": lm["qwen1.5-0.5b"]["launches"]["rmsnorm"],
         "qwen1.5-moe-a2.7b forward": fam["moe"]["rmsnorm_launches"],
@@ -4924,8 +5447,11 @@ def main() -> int:
             [n["rmsnorm"] for n in sharded["lm"]["launches_per_rank"]],
         **{f"{k} on (data 2, model 2), one round (each rank)":
            [n["rmsnorm"] for n in v["launches_per_rank"]] for k, v in ma_r.items()},
-        f"qwen1.5-32b ({MA_QWEN32_LAYERS} layers) forward on (model 2) (each rank)":
-            [n["rmsnorm"] for n in ma_s["qwen1.5-32b"]["launches_per_rank"]]}
+        **{f"{k} forward on (model 2) (each rank)":
+           [n["rmsnorm"] for n in ma_s[k]["launches_per_rank"]]
+           for k in ("qwen1.5-32b", "phi-3-vision-4.2b")},
+        "hymba-1.5b decode_step[paged] on (model 2), one step (each rank)":
+            [n["rmsnorm"] for n in ma_s["decode hymba-1.5b"]["launches_per_rank"]]}
     proto = part["prototype"]
     tree_row["launches_by_path"] = {
         "cnn experiment": fed["launches"]["vecavg"],
@@ -4954,6 +5480,10 @@ def main() -> int:
            for n, v in sharded["launcher"].items()},
         **{f"{k} on (data 2, model 2), one round (each rank)":
            [n["vecavg"] for n in v["launches_per_rank"]] for k, v in ma_r.items()},
+        **{f"lm 100m on (data 2, model 2), {MA_WIRE['rounds']} rounds under {w} (each rank)":
+           [n["vecavg"] for n in ma_w[w]["launches_per_rank"]] for w in MA_WIRE["wires"]},
+        f"lm 100m on (data 2, model 2), {MA_WIRE['commits']} buffered commits (each rank)":
+            [n["vecavg"] for n in ma_w["buffered"]["launches_per_rank"]],
         "launcher --data-axis 2 --model-axis 2, 3 rounds (each rank)":
             model_axis["launcher"]["vecavg_per_rank"]}
     for r in rows:

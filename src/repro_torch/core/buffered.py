@@ -38,6 +38,14 @@ the buffer's statistics and steps on every rank. The JAX package reduces
 sharded commits through its fallback tensordot under GSPMD: the same
 partial-sum-then-all-reduce structure (ROADMAP.md P11).
 
+**Under a model axis** (an engine with ``model_axis``) the buffer holds the
+rank's pieces, the commit reduces through ``strategy.model_reduce`` (four
+vecavg launches a commit where some leaves are sharded and some
+replicated) and its norms complete over the model group. Waves, cohorts
+and latency draws are host state, the same on every rank of a model group
+by construction (one seed, one call order); each dispatch checks it with
+one all-gather over the group.
+
 **Parity.** With instant arrivals, ``waves=1`` and ``grad_decay=1.0`` the
 buffered engine IS the synchronous engine: wave k fills the whole buffer
 in cohort order, and the commit reproduces ``RoundEngine.run_fused``
@@ -67,12 +75,12 @@ from repro_torch import not_ported, strict_fp32
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.fedveca import RoundStats
 from repro_torch.core.scheduler import AdmissionScheduler
-from repro_torch.core.strategy import global_sum, psum_reduce
+from repro_torch.core.strategy import global_sum, model_reduce, psum_reduce
 from repro_torch.core.tree import tree_axpy, tree_sqnorm
 from repro_torch.data.device import round_key
 from repro_torch.metrics.logger import RunLogger
 from repro_torch.serve.sampling import _hash32
-from repro_torch.sharding.api import all_reduce
+from repro_torch.sharding.api import all_gather, all_reduce
 
 LATENCY_KINDS = ("instant", "uniform", "exp", "hetero")
 
@@ -177,8 +185,6 @@ class BufferedRoundEngine(AdmissionScheduler):
                              "server state; buffered rounds don't support it")
         if sanitize:
             raise not_ported("sanitize= (the analysis lane)", "A19")
-        if engine.model_axis is not None:
-            raise not_ported("the buffered engine under a model axis", "A18c")
         self.engine = engine
         self.bcfg = bcfg or BufferedConfig()
         if self.bcfg.waves < 1:
@@ -195,8 +201,12 @@ class BufferedRoundEngine(AdmissionScheduler):
                 f"buffered buffer size m={self.m} must divide the {K} client-axis "
                 "shards (slot j is owned by the shard that owns wave row j)")
         self._group = engine._group
-        self._reduce = psum_reduce(engine._reduce, self._group) if engine.sharded \
-            else engine._reduce
+        self._model_axis = engine.model_axis
+        self._reduce = engine._reduce
+        if self._model_axis is not None:
+            self._reduce = model_reduce(self._reduce, self._model_axis)
+        if engine.sharded:
+            self._reduce = psum_reduce(self._reduce, self._group)
         self.m_local = self.m // K  # this rank's slots
         self._slots = slice(engine._shard * self.m_local, (engine._shard + 1) * self.m_local)
         self.p = np.asarray(p, np.float32)
@@ -260,9 +270,9 @@ class BufferedRoundEngine(AdmissionScheduler):
                 tau=buf["tau"],
                 tau_k=global_sum(pw * tau_f, group),
                 global_grad=global_grad,
-                update_sqnorm=tree_sqnorm(delta_w),
-                params_sqnorm=tree_sqnorm(params),
-                global_grad_sqnorm=tree_sqnorm(global_grad),
+                update_sqnorm=tree_sqnorm(delta_w, self._model_axis),
+                params_sqnorm=tree_sqnorm(params, self._model_axis),
+                global_grad_sqnorm=tree_sqnorm(global_grad, self._model_axis),
             )
             # Theorem-2 clamp and Eq. 15 on the buffered statistics, the
             # buffer's client ids as the members, as the sync step does
@@ -311,9 +321,23 @@ class BufferedRoundEngine(AdmissionScheduler):
         self.wave_dispatches += 1
         self._waves[w] = dict(version=self._version, cohort=ids, outs=outs, remaining=self.m)
         lat = self.bcfg.latency.draw(ids, self._counts[ids])
+        if self._model_axis is not None:
+            self._check_model_group_agrees(w, ids, lat)
         self._counts[ids] += 1
         for i in range(self.m):
             heapq.heappush(self._events, (self._now + float(lat[i]), next(self._seq), w, i))
+
+    def _check_model_group_agrees(self, w: int, ids, lat) -> None:
+        """The host state a wave is scheduled from (its number, cohort and
+        latency draws) must be the same on every rank of a model group,
+        whose ranks hold pieces of one model: checked with one all-gather,
+        never assumed."""
+        mine = torch.as_tensor(np.concatenate([[float(w)], ids, lat]), dtype=torch.float64,
+                               device=self._dev)
+        every = all_gather(mine[None], self._model_axis.group)
+        if not bool((every == mine).all()):
+            raise RuntimeError(f"wave {w}: the ranks of a model group drew different cohorts "
+                               "or latencies (their seeds or call orders differ)")
 
     # -- AdmissionScheduler hooks --------------------------------------------
     def _admit(self) -> None:

@@ -229,15 +229,19 @@ class ControllerCore:
 
     With ``mesh`` (a federated mesh, ``launch/mesh.make_federated_mesh``)
     C must divide over the client-axis shards, and ``step`` takes this
-    rank's rows (see the module docstring)."""
+    rank's rows (see the module docstring). With ``model_axis`` (the
+    model's, ``build_model(cfg, mesh=).model_axis``) the global gradients
+    are the rank's pieces and the L estimate's norm completes over the
+    model group, so every model rank takes the same taus."""
 
     def __init__(self, cfg: ControllerConfig, num_clients: int, *, adapt: bool = True,
-                 mesh=None):
+                 mesh=None, model_axis=None):
         _check_decay(cfg.decay)
         self.cfg = cfg
         self.C = num_clients
         self.adapt = adapt
         self.mesh = mesh
+        self.model_axis = model_axis
         validate_client_count(mesh, num_clients)
         self._group = None if mesh is None else client_group(mesh)
 
@@ -302,7 +306,8 @@ class ControllerCore:
         # ---- L estimation, one-round delay (Alg. 1 lines 11-16) ----------
         L1 = torch.sqrt(state.prev_grad_sqnorm) / torch.clamp_min(
             torch.sqrt(state.params0_sqnorm), eps)
-        num = tree_norm(tree_sub(state.prev_global_grad, state.prev2_global_grad))
+        num = tree_norm(tree_sub(state.prev_global_grad, state.prev2_global_grad),
+                        self.model_axis)
         den = torch.sqrt(state.prev2_update_sqnorm)
         L2 = num / torch.clamp_min(den, eps)
         L_obs = torch.where(k == 1, L1, L2)

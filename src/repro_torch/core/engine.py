@@ -40,8 +40,9 @@ The engine composes:
     over the model group, and the client axis' collectives run over the
     ranks that share this rank's model coordinate. Client rows come from
     the client coordinates alone, so every model rank of a client slot
-    holds the same clients and minibatches. A wire codec or the buffered
-    engine under a model axis raises (A18c).
+    holds the same clients and minibatches. A wire codec decides over each
+    whole leaf (``core/wire.wire_fold(model_axis=)``); the error-feedback
+    rows hold the rank's pieces (ROADMAP.md A18c).
 
 The message-passing prototype (``fed/prototype.py``) uses the engine's
 half-round entry points: ``client_update`` (one client, ``tau`` trips),
@@ -65,7 +66,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported, strict_fp32
+from repro_torch import strict_fp32
 from repro_torch.core.controller import ControllerCore
 from repro_torch.core.fedveca import ScaffoldState, make_local_update, make_round_step
 from repro_torch.core.strategy import get_strategy, global_sum, make_reduce
@@ -178,12 +179,13 @@ class RoundEngine:
             raise ValueError("a mesh with a model axis needs the model built for it: "
                              "RoundEngine(model.loss, ..., model_axis=model.model_axis) with "
                              "model = build_model(cfg, mesh=mesh)")
+        if controller is not None and controller.model_axis is not model_axis:
+            raise ValueError("the controller's norms need the engine's model axis: "
+                             "ControllerCore(..., model_axis=model.model_axis)")
         self._strategy = get_strategy(cfg.mode, mu=cfg.mu)
         self._reduce = make_reduce(cfg.aggregator)
         self.wire_codec = make_codec(cfg.wire)
         self._wire_active = not self.wire_codec.is_identity
-        if self._wire_active and model_axis is not None:
-            raise not_ported(f"wire={cfg.wire!r} under a model axis", "A18c")
         if self._wire_active and self._strategy.uses_scaffold:
             raise ValueError(
                 f"mode {cfg.mode!r} aggregates parameter deltas, not cum_g; "
@@ -276,13 +278,12 @@ class RoundEngine:
         else:
             batches = self._sample(key, rows.ids)
         new_residual = residual
-        if residual is None:
-            with self._context():
-                new_params, stats, new_scaffold = self._round(
-                    params, batches, tau, pw, gprev_sqnorm, sub_scaffold)
-        else:
-            new_params, stats, new_scaffold, new_residual = self._round(
-                params, batches, tau, pw, gprev_sqnorm, sub_scaffold, res_rows)
+        with self._context():
+            out = self._round(params, batches, tau, pw, gprev_sqnorm, sub_scaffold,
+                              *(() if residual is None else (res_rows,)))
+        new_params, stats, new_scaffold = out[:3]
+        if residual is not None:
+            new_residual = out[3]
             if rows.local is not None:
                 new_residual = _scatter_kept(residual, rows, new_residual)
         if rows.local is not None and scaffold is not None and new_scaffold is not None:
@@ -362,12 +363,14 @@ class RoundEngine:
             tau = torch.clamp(taus, 1, self.cfg.tau_max)[rows.sel]
             batches = self._sample(key, rows.ids)
             gprev = torch.as_tensor(gprev_sqnorm, dtype=torch.float32, device=dev)
-            outs = self._local(params, batches, tau, gprev,
-                               *self._zero_variates(params, len(rows.ids)))
+            with self._context():
+                outs = self._local(params, batches, tau, gprev,
+                                   *self._zero_variates(params, len(rows.ids)))
             cum_g = outs["cum_g"]
             if residual is not None:
                 cum_g, new_rows = wire_fold(
-                    self.wire_codec, cum_g, {k: v[rows.local] for k, v in residual.items()})
+                    self.wire_codec, cum_g, {k: v[rows.local] for k, v in residual.items()},
+                    self.model_axis)
                 self._wire_res = _scatter_kept(residual, rows, new_rows)
         return dict(cum_g=cum_g, g0=outs["g0"], loss0=outs["loss0"], beta=outs["beta"],
                     delta=outs["delta"], tau=tau)
@@ -397,9 +400,11 @@ class RoundEngine:
 
     def wire_bytes_per_client(self, params) -> int:
         """Wire bytes of ONE client's update under the codec (float32
-        rows; the dense bytes for the identity codec)."""
-        like = {k: torch.empty(v.shape, dtype=torch.float32, device="meta")
-                for k, v in params.items()}
+        rows; the dense bytes for the identity codec), the whole leaves'
+        under a model axis."""
+        cuts = {} if self.model_axis is None else self.model_axis.cuts
+        like = {k: torch.empty(cuts[k].shape if k in cuts else v.shape, dtype=torch.float32,
+                               device="meta") for k, v in params.items()}
         return self.wire_codec.payload_nbytes(like)
 
     # -- cohort sub-sampling ------------------------------------------------

@@ -23,7 +23,8 @@ Under a model axis (``model_axis``, ROADMAP.md A18b) the params are this
 rank's pieces: every norm the statistics and the controller read is
 completed over the model group (``core/tree.model_complete``; the local
 loop's three per-client sums a step in ONE all-reduce), so every model
-rank takes the same decisions; the reduce is ``strategy.model_reduce``.
+rank takes the same decisions; the reduce is ``strategy.model_reduce``,
+and a wire codec decides over each whole leaf (``core/wire.wire_fold``).
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch import not_ported
 from repro_torch.core.strategy import (
     MODES,
     Strategy,
@@ -225,9 +225,6 @@ def make_round_step(
         raise ValueError(f"unknown mode {mode!r}; valid: {MODES}")
     if wire is not None and wire.is_identity:
         wire = None  # identity short-circuits: the round without the stage
-    if wire is not None and model_axis is not None:
-        raise not_ported("a wire codec under a model axis (top-k and int8 scales are "
-                         "whole-leaf decisions)", "A18c")
     if wire is not None and mode == "scaffold":
         raise ValueError(
             "wire compression applies to the cum_g update; scaffold "
@@ -259,7 +256,7 @@ def make_round_step(
         outs = local_update(params, batches, tau, gprev_sqnorm, c_server, c_client)
         new_residual = residual
         if wire is not None:
-            decoded, new_residual = wire_fold(wire, outs["cum_g"], residual)
+            decoded, new_residual = wire_fold(wire, outs["cum_g"], residual, model_axis)
             outs = dict(outs, cum_g=decoded)
 
         tau_k = global_sum(p * tau_f, axis_name)

@@ -18,6 +18,20 @@
 runs without the stage. The message-passing prototype
 (``fed/prototype.py``) uses the codecs, and so does the engine
 (``EngineConfig.wire``), whose per-client residual rows are its state.
+
+**Under a model axis** (``wire_fold(..., model_axis=)``, a
+``sharding.partition.ModelAxis``) a rank holds pieces of the sharded
+leaves, and each codec takes its whole-leaf decision across the model
+group, so that the decoded pieces are bitwise the unsharded codec's,
+sliced: int8's scale is the whole leaf's ``max|x|`` (the local maxima of
+every row and leaf, then ONE all-reduce ``max``); top-k keeps the whole
+leaf's k entries (each rank's local top-k as (global flat index, value)
+candidates, ONE all-gather of every row's and leaf's candidates, the k
+largest magnitudes with the lower index first, then each rank keeps the
+entries in its piece). A leaf of at most k entries is sent whole, decided
+on its global count. Replicated leaves take the unsharded path, and the
+payload bytes stay the whole leaves' (``payload_nbytes`` of the global
+shapes).
 """
 from __future__ import annotations
 
@@ -25,6 +39,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.api import all_gather, all_reduce
 
 Tree = Dict[str, torch.Tensor]
 
@@ -57,6 +73,12 @@ class WireCodec:
     def roundtrip(self, tree: Tree) -> Tree:
         """decode(encode(tree)): the lossy projection the server sees."""
         return self.decode(self.encode(tree), tree)
+
+    def roundtrip_pieces(self, rows: Tree, model_axis) -> Tree:
+        """``roundtrip`` of every client row of ``rows`` (leaves [C, ...],
+        this rank's pieces of the leaves ``model_axis`` cuts), with the
+        codec's decisions taken over each whole leaf."""
+        raise NotImplementedError(f"codec {self.name!r} has no model-axis form")
 
 
 class IdentityCodec(WireCodec):
@@ -101,6 +123,20 @@ class Int8QuantCodec(WireCodec):
         # one int8 an element + one float32 scale a leaf
         return sum(_count(x) + 4 for x in like.values())
 
+    def roundtrip_pieces(self, rows, model_axis):
+        keys = sorted(rows)
+        C = rows[keys[0]].shape[0]
+        # every row's local max|x| of every leaf, completed in one all-reduce
+        amax = torch.stack([rows[k].float().abs().reshape(C, -1).amax(1) for k in keys])
+        amax = all_reduce([amax], model_axis.group, op="max")[0]
+        out = {}
+        for k, s in zip(keys, amax / 127.0):
+            a = rows[k].float()
+            s = s.reshape((C,) + (1,) * (a.dim() - 1))
+            q = torch.clamp(torch.round(a / torch.where(s > 0, s, 1.0)), -127, 127).to(torch.int8)
+            out[k] = (q.float() * s).to(rows[k].dtype)
+        return out
+
 
 class TopKCodec(WireCodec):
     """Magnitude sparsification: each leaf's k largest-|x| entries as
@@ -139,20 +175,104 @@ class TopKCodec(WireCodec):
         # (int32 idx, float32 val) a kept entry
         return sum(8 * min(self.k, _count(x)) for x in like.values())
 
+    def roundtrip_pieces(self, rows, model_axis):
+        out, picks, cands = {}, {}, []
+        for key in sorted(rows):
+            x = rows[key]
+            cut = model_axis.cuts[key]
+            if int(np.prod(cut.shape, dtype=np.int64)) <= self.k:  # sent whole
+                out[key] = x.float().to(x.dtype)
+                continue
+            flat = x.float().reshape(x.shape[0], -1)
+            kk = min(self.k, flat.shape[1])
+            # a stable sort of the piece: ties keep the piece's order, which
+            # is the whole leaf's (the index map is increasing)
+            order = torch.sort(flat.abs(), dim=1, descending=True, stable=True).indices[:, :kk]
+            gidx = _whole_index(cut, model_axis, order)
+            picks[key] = kk
+            cands.append(torch.stack([gidx.double(), flat.gather(1, order).double()], dim=-1))
+        if not picks:
+            return out
+        # every rank's (whole-leaf index, value) candidates of every row and
+        # leaf in ONE all-gather: [m, C, sum kk, 2] (float64 holds both exactly)
+        every = all_gather(torch.cat(cands, dim=1)[None], model_axis.group)
+        off = 0
+        for key, kk in picks.items():
+            x = rows[key]
+            C = x.shape[0]
+            cand = every[:, :, off:off + kk].transpose(0, 1).reshape(C, -1, 2)
+            off += kk
+            gidx, val = cand[..., 0].long(), cand[..., 1].float()
+            # the k largest magnitudes, the lower index first among equals
+            order = torch.sort(gidx, dim=1).indices
+            gidx, val = gidx.gather(1, order), val.gather(1, order)
+            order = torch.sort(val.abs(), dim=1, descending=True, stable=True).indices[:, :self.k]
+            gidx, val = gidx.gather(1, order), val.gather(1, order)
+            # the kept entries of this rank's piece, at their piece index
+            li = _piece_index(model_axis.cuts[key], model_axis, gidx)
+            keep = li >= 0
+            flat = torch.zeros((C, x[0].numel()), dtype=torch.float32, device=x.device)
+            row = torch.arange(C, device=x.device)[:, None].expand_as(li)
+            flat[row[keep], li[keep]] = val[keep]
+            out[key] = flat.reshape(x.shape).to(x.dtype)
+        return out
 
-def wire_fold(codec: WireCodec, updates: Tree, residuals: Tree):
+
+def _geometry(cut, m: int):
+    """(halves, n, inner, the cut dim's extent) of a cut leaf: the whole
+    leaf's cut dim is (halves, m, n), a piece's (halves, n)."""
+    shape = cut.shape
+    d = len(shape) + cut.dim
+    inner = int(np.prod(shape[d + 1:], dtype=np.int64))
+    return cut.halves, shape[d] // (cut.halves * m), inner, shape[d]
+
+
+def _whole_index(cut, model_axis, li: torch.Tensor) -> torch.Tensor:
+    """Piece flat indices ``li`` -> the whole leaf's flat indices (an
+    increasing map)."""
+    h, n, inner, _ = _geometry(cut, model_axis.size)
+    i, c = li % inner, li // inner
+    jj, c = c % n, c // n
+    hf, o = c % h, c // h
+    return (((o * h + hf) * model_axis.size + model_axis.rank) * n + jj) * inner + i
+
+
+def _piece_index(cut, model_axis, gi: torch.Tensor) -> torch.Tensor:
+    """The whole leaf's flat indices ``gi`` -> this rank's piece indices, -1
+    where the entry lies in another rank's piece."""
+    h, n, inner, D = _geometry(cut, model_axis.size)
+    m = model_axis.size
+    i, c, o = gi % inner, (gi // inner) % D, gi // (inner * D)
+    hf, rr, jj = c // (m * n), (c // n) % m, c % n
+    li = ((o * h + hf) * n + jj) * inner + i
+    return torch.where(rr == model_axis.rank, li, torch.full_like(li, -1))
+
+
+def roundtrip_rows(codec: WireCodec, total: Tree) -> Tree:
+    """``codec.roundtrip`` of each client row of ``total`` (leaves [C, ...])."""
+    C = next(iter(total.values())).shape[0]
+    rows = [codec.roundtrip({k: v[c] for k, v in total.items()}) for c in range(C)]
+    return {k: torch.stack([r[k] for r in rows]) for k in total}
+
+
+def wire_fold(codec: WireCodec, updates: Tree, residuals: Tree, model_axis=None):
     """Error-feedback fold over STACKED client rows (leaves [C, ...]).
 
     Per client c: t_c = u_c + r_c; dec_c = decode(encode(t_c));
     r'_c = t_c - dec_c. Returns (decoded rows, new residual rows). The
     codec runs client by client, so each row gets its own scale or top-k
-    selection, exactly as one client's ``roundtrip``.
+    selection, exactly as one client's ``roundtrip``; under ``model_axis``
+    the sharded leaves' rows are this rank's pieces and the codec decides
+    over the whole leaves (``roundtrip_pieces``).
     """
     total = {k: u + residuals[k].to(u.dtype) for k, u in updates.items()}
-    C = next(iter(total.values())).shape[0]
-    rows = [codec.roundtrip({k: v[c] for k, v in total.items()}) for c in range(C)]
-    decoded = {k: torch.stack([r[k] for r in rows]) for k in total}
-    return decoded, {k: total[k] - decoded[k] for k in total}
+    if model_axis is None:
+        decoded = roundtrip_rows(codec, total)
+    else:
+        sh, rep = model_axis.split(total)
+        decoded = dict(roundtrip_rows(codec, rep) if rep else {},
+                       **(codec.roundtrip_pieces(sh, model_axis) if sh else {}))
+    return {k: decoded[k] for k in total}, {k: total[k] - decoded[k] for k in total}
 
 
 def make_codec(spec) -> WireCodec:

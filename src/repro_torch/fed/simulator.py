@@ -125,12 +125,15 @@ class FederatedSimulator:
             shards=shards,
             num_clients=self.C,
             controller=ControllerCore(ctrl_cfg, self.C, adapt=(cfg.mode == "fedveca"),
-                                      mesh=cfg.mesh),
+                                      mesh=cfg.mesh, model_axis=model.model_axis),
             mesh=cfg.mesh,
+            model_axis=model.model_axis,
         )
         # the numpy twin stays constructible, as in the JAX package
         self.controller = FedVecaController(ctrl_cfg, self.C)
-        lead = cfg.mesh is None or cfg.mesh.rank == 0  # evaluates and logs
+        # evaluates and logs; under a model axis every rank evaluates (the
+        # forward's collectives span the model group)
+        lead = cfg.mesh is None or cfg.mesh.rank == 0 or cfg.mesh.model_size > 1
         eval_fn = (make_dataset_evaluator(model.loss, test_data, device=self.device)
                    if test_data is not None and lead else None)
         self.driver = TrainDriver(

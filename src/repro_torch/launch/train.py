@@ -24,8 +24,8 @@ a rank. The run is on the card unless ``--device cpu`` is given.
 ``--data-axis D --model-axis M`` (M > 1) runs on D*M ranks, spawned or
 joined as under ``--mesh``: C = D clients (one a client shard, as the JAX
 launcher takes C = the data extent), each rank holding its model-axis
-pieces of the parameters (``sharding/partition.py``; the dense and MoE
-families). ``--production-mesh`` builds the (data 16, model 16) mesh,
+pieces of the parameters (``sharding/partition.py``; every family, with
+``--wire`` and ``--buffered`` too). ``--production-mesh`` builds the (data 16, model 16) mesh,
 which needs 256 ranks (started by ``torch.distributed.run``): a smaller
 world raises with the start hint. ``--sanitize`` raises naming A19.
 """
@@ -156,7 +156,7 @@ def run(args: argparse.Namespace) -> list:
         num_clients=C,
         controller=ControllerCore(
             ControllerConfig(eta=args.eta, alpha=args.alpha, tau_max=args.tau_max), C,
-            adapt=(args.mode == "fedveca"), mesh=fed_mesh),
+            adapt=(args.mode == "fedveca"), mesh=fed_mesh, model_axis=model.model_axis),
         mesh=fed_mesh,
         model_axis=model.model_axis,
     )

@@ -22,6 +22,14 @@ The JAX package's functions take ``impl`` and every other keyword through
 norm is layernorm, so no kernel of the port is on this path. The port's
 functions do the same. There is no decode (the JAX package has none for
 whisper either).
+
+Under a model axis (``sharding/partition.py``) the encoder's and the
+decoder's self-attention and the decoder's cross-attention run on the
+rank's heads, the MLPs on the rank's slice of ``d_ff``, and ``embed``,
+``pos_embed`` and ``enc_pos`` are on d (their rows' pieces gathered);
+``frame_proj`` is replicated. The cross-attention's K/V are projected
+outside the layer from the encoder's output on the rank's heads, and the
+tied unembedding is row-parallel (``transformer.unembed``).
 """
 from __future__ import annotations
 
@@ -33,8 +41,10 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (Params, apply_norm, cross_entropy,
                                        dense_init, embed_init, mlp_apply,
-                                       mlp_init, norm_init, wmatmul)
-from repro_torch.models.transformer import _prefixed, _remat_wrap, _sub, layer_params
+                                       mlp_init, norm_init, tp, wmatmul)
+from repro_torch.models.transformer import (_prefixed, _remat_wrap, _rows, _sub, layer_params,
+                                            unembed)
+from repro_torch.sharding import api
 
 
 def init_params(cfg, gen: Optional[torch.Generator] = None, *, seed: int = 0,
@@ -76,7 +86,7 @@ def encode(cfg, p: Params, frames):
     package's ``encode`` always wraps its layers in ``jax.checkpoint``."""
     dt = getattr(torch, cfg.compute_dtype)
     h = wmatmul(frames, p["frame_proj"]).to(dt)
-    h = h + p["enc_pos"][:h.shape[1]][None].to(dt)
+    h = h + _rows(cfg, p["enc_pos"], slice(0, h.shape[1]))[None].to(dt)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
     def body(h, lp, positions):
@@ -94,29 +104,33 @@ _CROSS_KV = ("cross_attn/w_k", "cross_attn/w_v", "cross_attn/b_k", "cross_attn/b
 
 
 def _cross_kv(cfg, lp: Params, enc_out):
-    """The cross-attention's K and V [B, T, Hkv, hd] from the encoder's
-    output, no RoPE. ``lp`` holds one layer's ``cross_attn/*`` leaves
-    without the prefix."""
+    """The cross-attention's K and V [B, T, Hkv, hd] (the rank's heads)
+    from the encoder's output, no RoPE. ``lp`` holds one layer's
+    ``cross_attn/*`` leaves without the prefix."""
     B, T, _ = enc_out.shape
-    k, v = wmatmul(enc_out, lp["w_k"]), wmatmul(enc_out, lp["w_v"])
+    lay = tp(cfg)
+    e = api.copy_in(enc_out) if lay.attn else enc_out
+    k, v = wmatmul(e, lp["w_k"]), wmatmul(e, lp["w_v"])
     if "b_q" in lp:
         k, v = k + lp["b_k"], v + lp["b_v"]
-    return (k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim))
+    return (k.reshape(B, T, lay.kv_heads, cfg.head_dim),
+            v.reshape(B, T, lay.kv_heads, cfg.head_dim))
 
 
 def _cross_attention(cfg, lp: Params, h, k, v):
     """Queries from the decoder states against :func:`_cross_kv`'s K/V,
-    no RoPE, no mask. ``lp`` holds one layer's ``cross_attn/*`` leaves
-    without the prefix."""
+    no RoPE, no mask; ``w_o`` row-parallel when attention is split. ``lp``
+    holds one layer's ``cross_attn/*`` leaves without the prefix."""
     B, S, _ = h.shape
-    q = wmatmul(h, lp["w_q"])
+    lay = tp(cfg)
+    q = wmatmul(api.copy_in(h) if lay.attn else h, lp["w_q"])
     if "b_q" in lp:
         q = q + lp["b_q"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = q.reshape(B, S, lay.heads, cfg.head_dim)
     o = attn._direct_attention(q, k, v, torch.arange(S, device=h.device),
                                torch.arange(k.shape[1], device=h.device), causal=False, window=0)
-    return wmatmul(o.reshape(B, S, cfg.q_dim), lp["w_o"])
+    y = wmatmul(o.reshape(B, S, -1), lp["w_o"])
+    return api.reduce_out(y) if lay.attn else y
 
 
 def _decoder(cfg, p: Params, batch, enc_out, kv_out=None, remat=False):
@@ -130,9 +144,9 @@ def _decoder(cfg, p: Params, batch, enc_out, kv_out=None, remat=False):
     layers' terms in one order with and without ``remat``, so the two
     agree bit for bit."""
     dt = getattr(torch, cfg.compute_dtype)
-    h = p["embed"][batch["tokens"].long()].to(dt)
+    h = _rows(cfg, p["embed"], batch["tokens"].long()).to(dt)
     S = h.shape[1]
-    h = h + p["pos_embed"][:S][None].to(dt)
+    h = h + _rows(cfg, p["pos_embed"], slice(0, S))[None].to(dt)
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
 
     def body(h, lp, k, v, positions):
@@ -152,10 +166,6 @@ def _decoder(cfg, p: Params, batch, enc_out, kv_out=None, remat=False):
     return h
 
 
-def _unembed(cfg, p: Params, h):
-    return wmatmul(apply_norm(cfg, p, "final_norm", h), p["embed"].T)
-
-
 def forward(cfg, p: Params, batch, impl: str = "auto", remat=True, **_):
     """batch {frames [B, T, frontend_dim], tokens [B, S]} -> (logits [B, S,
     V], aux 0). ``remat`` (True by default, as in the JAX package)
@@ -165,7 +175,7 @@ def forward(cfg, p: Params, batch, impl: str = "auto", remat=True, **_):
     path."""
     del impl
     enc_out = encode(cfg, p, batch["frames"])
-    logits = _unembed(cfg, p, _decoder(cfg, p, batch, enc_out, remat=remat))
+    logits = unembed(cfg, p, _decoder(cfg, p, batch, enc_out, remat=remat))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -188,6 +198,6 @@ def prefill(cfg, p: Params, batch, impl: str = "auto", **_):
     del impl
     enc_out = encode(cfg, p, batch["frames"])
     kvs = []
-    logits = _unembed(cfg, p, _decoder(cfg, p, batch, enc_out, kvs))
+    logits = unembed(cfg, p, _decoder(cfg, p, batch, enc_out, kvs))
     kv = attn.KVCache(*(torch.stack([getattr(c, f) for c in kvs]) for f in attn.KVCache._fields))
     return logits[:, -1], {"kv": kv, "enc_out": enc_out}

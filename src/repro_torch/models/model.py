@@ -12,10 +12,11 @@
     model.paged_prefill_chunk(params, cache, page_row, tokens, start, length, ...)
 
 ``build_model(cfg, device, mesh=)`` builds the model for one rank of a
-mesh with a model axis (ROADMAP.md A18b): ``init`` returns this rank's
-pieces of the seed's full parameters (``sharding.partition.shard_params``:
-the same bits as the unsharded init, cut), the cache builders make the
-rank's kv heads, every other entry point runs under
+mesh with a model axis (ROADMAP.md A18b, A18c; every family): ``init``
+returns this rank's pieces of the seed's full parameters
+(``sharding.partition.shard_params``: the same bits as the unsharded init,
+cut), the cache builders make the rank's kv heads, SSM channels and xLSTM
+heads, every other entry point runs under
 ``sharding.api.logical_axis_rules(mesh)``, and ``model_axis`` is what the
 federated round needs of the axis (its group, the sharded leaves).
 
@@ -38,7 +39,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, get_arch
 from repro_torch.models import encdec, simple, transformer
 from repro_torch.sharding import api
-from repro_torch.sharding.partition import layout, model_axis, shard_params
+from repro_torch.sharding.partition import model_axis, shard_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +81,8 @@ def _toy_model(cfg: ArchConfig, dev: torch.device) -> Model:
 def build_model(cfg: ArchConfig, device=None, mesh=None) -> Model:
     """The model of ``cfg`` on ``device`` (default ``cuda``; raises when no
     GPU is present rather than running on the CPU). ``mesh``: build it for
-    this rank of a mesh whose model axis exceeds 1 (families other than
-    dense, MoE and toy raise naming A18c); a mesh without one changes
-    nothing."""
+    this rank of a mesh whose model axis exceeds 1; a mesh without one
+    changes nothing."""
     dev = resolve_device(device)
     model = _build(cfg, dev)
     if mesh is None or mesh.model_size == 1:
@@ -109,7 +109,7 @@ def _for_mesh(model: Model, mesh) -> Model:
     def init(seed: int = 0):
         return shard_params(model.init(seed), mesh, cfg)
 
-    kv = dict(kv_heads=layout(cfg, mesh.model_size).kv_heads)
+    kv = dict(model_size=mesh.model_size)  # the rank's heads and channels
     return dataclasses.replace(
         model, init=init, mesh=mesh,
         model_axis=model_axis(mesh, cfg, params_struct(model)),

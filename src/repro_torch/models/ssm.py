@@ -7,6 +7,16 @@ have a zero step size and leave the state as it is, so the final state
 is the same). The per-step decay ``exp(dt * A)`` and input ``dt * u * B``
 are formed for all steps at once and the loop carries only the state.
 The JAX package has no Pallas kernel here.
+
+Under a model axis that splits the SSM (``sharding/partition.py``) a rank
+runs its ``d_in / m`` channels: ``w_in``'s x and gate halves are
+column-parallel behind ``copy_in``, the conv, the gate and the scan are
+local to the channels, ``u @ w_bc`` and ``u @ w_dt`` (shared by every
+channel) are partial sums completed with ONE ``reduce_out`` of their
+concatenation before the scan (``copy_in`` after it: the channels' uses
+of them are partial too, so their gradient sums over the ranks), and
+``w_out`` is row-parallel followed by ``reduce_out``. The state holds the
+rank's channels. No collective runs inside the step loop.
 """
 from __future__ import annotations
 
@@ -16,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import Params, dense_init, wmatmul
+from repro_torch.models.layers import Params, dense_init, tp, wmatmul
+from repro_torch.sharding import api
 
 
 class SSMState(NamedTuple):
@@ -63,13 +74,18 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssm_scan(p: Params, u, h0):
+def _ssm_scan(p: Params, u, h0, split: bool = False):
     """Selective scan. u [B, S, d_in] (after conv and activation) -> (y
-    float32, final state [B, d_in, N])."""
+    float32, final state [B, d_in, N]); ``split``: ``u`` holds the rank's
+    channels and the shared projections complete over the model axis."""
     A = -torch.exp(p["A_log"].float())  # [d_in, N]
-    bm, cm = wmatmul(u, p["w_bc"]).float().chunk(2, dim=-1)  # [B, S, N] each
+    N = A.shape[-1]
+    proj = torch.cat([wmatmul(u, p["w_bc"]), wmatmul(u, p["w_dt"])], dim=-1)  # [B, S, 2N + 1]
+    if split:
+        proj = api.copy_in(api.reduce_out(proj))
+    bm, cm, dt = proj.float().split([N, N, 1], dim=-1)  # [B, S, N] each and [B, S, 1]
     # per-channel step: a scalar projection plus a per-channel bias
-    dt = softplus(wmatmul(u, p["w_dt"]).float() + p["dt_bias"])  # [B, S, d_in]
+    dt = softplus(dt + p["dt_bias"])  # [B, S, d_in]
     uf = u.float()
     decay = torch.exp(dt[..., None] * A)  # [B, S, d_in, N]
     inp = (dt * uf)[..., None] * bm[:, :, None, :]
@@ -82,22 +98,25 @@ def _ssm_scan(p: Params, u, h0):
 
 def ssm_apply(cfg, p: Params, x, state: SSMState | None = None):
     """x [B, S, d] -> (y [B, S, d], new state). ``p`` holds one layer's
-    ``ssm/*`` leaves without the prefix."""
+    ``ssm/*`` leaves without the prefix (the rank's channels under a model
+    axis that splits the SSM)."""
     B = x.shape[0]
-    d_in = cfg.ssm_expand * x.shape[-1]
-    u, z = wmatmul(x, p["w_in"]).chunk(2, dim=-1)  # [B, S, d_in] each
+    split = tp(cfg).ssm
+    u, z = wmatmul(api.copy_in(x) if split else x, p["w_in"]).chunk(2, dim=-1)  # [B, S, d_in]
     u, conv = _causal_conv(u, p["conv_w"], None if state is None else state.conv)
     u = F.silu(u)
     h0 = (state.h if state is not None else
-          torch.zeros((B, d_in, cfg.ssm_state), dtype=torch.float32, device=x.device))
-    y, h = _ssm_scan(p, u, h0)
+          torch.zeros((B, u.shape[-1], cfg.ssm_state), dtype=torch.float32, device=x.device))
+    y, h = _ssm_scan(p, u, h0, split)
     y = wmatmul(y.to(x.dtype) * F.silu(z), p["w_out"])
-    return y, SSMState(h=h, conv=conv)
+    return (api.reduce_out(y) if split else y), SSMState(h=h, conv=conv)
 
 
-def init_ssm_state(cfg, batch: int, d: int, dtype=torch.float32, device=None) -> SSMState:
-    """Zero state on ``device`` (default ``cuda``)."""
-    d_in = cfg.ssm_expand * d
+def init_ssm_state(cfg, batch: int, d: int, dtype=torch.float32, device=None,
+                   channels=None) -> SSMState:
+    """Zero state on ``device`` (default ``cuda``) of ``channels`` channels
+    (default ``d_in``; a rank's share under a model axis)."""
+    d_in = channels or cfg.ssm_expand * d
     device = resolve_device(device)
     return SSMState(
         h=torch.zeros((batch, d_in, cfg.ssm_state), dtype=torch.float32, device=device),

@@ -16,14 +16,18 @@ the rows of inactive slots bit for bit as they were.
 
 The audio family is the encoder-decoder of ``models/encdec.py``.
 
-Under a model axis (``sharding.api.logical_axis_rules``, ROADMAP.md A18b)
-the dense and MoE families run on the rank's pieces of the parameters
+Under a model axis (``sharding.api.logical_axis_rules``, ROADMAP.md A18b,
+A18c) every family runs on the rank's pieces of the parameters
 (``sharding/partition.py``): a d-sharded embedding gathers its rows'
-pieces; a tied unembedding is row-parallel (``embed.T`` on the rank's
+pieces (the VLM's replicated ``vision_proj`` then replaces the first
+positions); a tied unembedding is row-parallel (``embed.T`` on the rank's
 slice of d) and takes ``reduce_out``, an untied ``lm_head`` is
 vocab-parallel and gathers its logits; cross entropy and greedy argmax
-then see the full logits on every rank. Caches and pools hold the local
-kv heads (``init_cache``/``init_paged_cache(kv_heads=)``).
+then see the full logits on every rank. The hybrid layer fuses the
+completed attention and SSM outputs (attention sharded or replicated on
+its own rule); the xLSTM blocks run on the rank's heads. Caches and pools
+hold the rank's kv heads, SSM channels and xLSTM heads
+(``init_cache``/``init_paged_cache(model_size=)``).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from repro_torch.models.layers import (Params, ProductTape, apply_norm, cross_en
                                        dense_init, embed_init, mlp_apply, mlp_init,
                                        norm_init, rmsnorm, run_with_tape, tp, wmatmul)
 from repro_torch.sharding import api
+from repro_torch.sharding.partition import layout
 
 FULL_SEQUENCE_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
 
@@ -456,33 +461,36 @@ def _stacked(state, lead):
 
 
 def init_cache(cfg, batch: int, seq_len: int, window: int = 0, device=None,
-               kv_heads: Optional[int] = None) -> DecodeCache:
+               model_size: int = 1) -> DecodeCache:
     """An empty ``DecodeCache`` of ``batch`` slots on ``device`` (default
     ``cuda``): KV rows of ``seq_len`` slots, or a ring of ``window or
-    cfg.sliding_window``, of ``kv_heads`` heads (default the config's; a
-    rank's share under a model axis); zero SSM states for the hybrid
-    family; the xLSTM family's initial states."""
+    cfg.sliding_window``; zero SSM states for the hybrid family; the xLSTM
+    family's initial states. ``model_size``: a rank's share under a model
+    axis of that extent (its kv heads, SSM channels, xLSTM heads)."""
     check_full_sequence(cfg)
     dev = resolve_device(device)
+    lay = layout(cfg, model_size)
     if cfg.family == "ssm":
         n_super, n_m, n_s = _xlstm_counts(cfg)
-        d = cfg.d_model
+        d, H = cfg.d_model, lay.xlstm_heads
         return DecodeCache(
             kv=None,
-            xlstm_m=_stacked(xlstm_mod.init_mlstm_state(cfg, batch, d, device=dev), (n_super, n_m)),
-            xlstm_s=_stacked(xlstm_mod.init_slstm_state(cfg, batch, d, device=dev), (n_super, n_s)))
+            xlstm_m=_stacked(xlstm_mod.init_mlstm_state(cfg, batch, d, device=dev, heads=H),
+                             (n_super, n_m)),
+            xlstm_s=_stacked(xlstm_mod.init_slstm_state(cfg, batch, d, device=dev, heads=H),
+                             (n_super, n_s)))
     kv = attn.init_kv_cache(cfg, batch, seq_len, window=window or cfg.sliding_window,
-                            device=dev, n_layers=cfg.num_layers, kv_heads=kv_heads)
-    return DecodeCache(kv=kv, ssm=_ssm_rows(cfg, batch, dev))
+                            device=dev, n_layers=cfg.num_layers, kv_heads=lay.kv_heads)
+    return DecodeCache(kv=kv, ssm=_ssm_rows(cfg, batch, dev, lay))
 
 
-def _ssm_rows(cfg, batch: int, device):
-    """Zero SSM states of ``batch`` rows stacked ``[L, batch, ...]`` for the
-    hybrid family, None for the others."""
+def _ssm_rows(cfg, batch: int, device, lay):
+    """Zero SSM states of ``batch`` rows stacked ``[L, batch, ...]`` at
+    ``lay``'s channels for the hybrid family, None for the others."""
     if not cfg.hybrid_parallel_ssm:
         return None
-    st = ssm_mod.init_ssm_state(cfg, batch, cfg.d_model,
-                                dtype=getattr(torch, cfg.param_dtype), device=device)
+    st = ssm_mod.init_ssm_state(cfg, batch, cfg.d_model, dtype=getattr(torch, cfg.param_dtype),
+                                device=device, channels=lay.ssm_channels)
     return _stacked(st, (cfg.num_layers,))
 
 
@@ -598,7 +606,7 @@ def prefill(cfg, p: Params, batch, *, impl: str = "auto", window: int = 0, pad_t
     h = embed_tokens(cfg, p, batch)
     B, S = h.shape[:2]
     if cfg.family == "ssm":  # the blocks' final states, captured
-        cache = init_cache(cfg, B, S, device=h.device)
+        cache = init_cache(cfg, B, S, device=h.device, model_size=api.model_size())
         h = _xlstm_stack(cfg, p, h, cache)
         return unembed(cfg, p, h[:, -1:])[:, 0], cache
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
@@ -647,21 +655,22 @@ class PagedDecodeCache(NamedTuple):
 
 
 def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
-                     device=None, kv_heads: Optional[int] = None) -> PagedDecodeCache:
-    """A pool of ``n_pages * page_size`` KV rows of ``kv_heads`` heads
-    (default the config's) for ``n_slots`` slots on ``device`` (default
-    ``cuda``). The xLSTM family has no KV to page and raises, as in the
-    JAX package."""
+                     device=None, model_size: int = 1) -> PagedDecodeCache:
+    """A pool of ``n_pages * page_size`` KV rows for ``n_slots`` slots on
+    ``device`` (default ``cuda``); ``model_size``: a rank's share under a
+    model axis of that extent (its kv heads and SSM channels). The xLSTM
+    family has no KV to page and raises, as in the JAX package."""
     check_full_sequence(cfg)
     if cfg.family == "ssm":
         raise ValueError(
             f"{cfg.name}: family='ssm' keeps O(1) recurrent state per slot "
             "— there is no KV cache to page; use init_cache/decode_step")
     dev = resolve_device(device)
+    lay = layout(cfg, model_size)
     return PagedDecodeCache(
         kv=attn.init_paged_kv_pool(cfg, n_pages, page_size, dev, n_layers=cfg.num_layers,
-                                   kv_heads=kv_heads),
-        ssm=_ssm_rows(cfg, n_slots, dev))
+                                   kv_heads=lay.kv_heads),
+        ssm=_ssm_rows(cfg, n_slots, dev, lay))
 
 
 def paged_decode_step(cfg, p: Params, cache: PagedDecodeCache, page_table,

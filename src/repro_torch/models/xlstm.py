@@ -7,6 +7,18 @@ running max-state ``m``), run step by step in float32 as the JAX package's
 xlstm-1.3b's width, not ``cfg.head_dim``), so its matrix memory C is
 ``[B, H, d_in/H, d_in/H]`` float32. The JAX package has no Pallas kernel
 here.
+
+Under a model axis that splits the blocks (H % m == 0,
+``sharding/partition.py``) a rank runs its H/m heads (hd contiguous in
+every feature dim): mLSTM's ``w_up`` halves (x, output gate) are
+column-parallel behind ``copy_in``; q/k/v and the gates need the whole
+``xi``, which is gathered ONCE (``gather_last``, then ``copy_in``: the
+rank's heads use all of it, so its gradient sums over the ranks) before
+the column-parallel ``w_q/w_k/w_v`` and ``w_if``/``b_if`` (input and
+forget gates of the rank's heads); sLSTM's ``w_x``/``b`` and ``w_r`` hold
+the rank's heads. Both ``w_down`` are row-parallel followed by
+``reduce_out``. The states hold the rank's heads; no collective runs
+inside the step loops.
 """
 from __future__ import annotations
 
@@ -16,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import Params, dense_init, wmatmul
+from repro_torch.models.layers import Params, dense_init, tp, wmatmul
+from repro_torch.sharding import api
 
 
 class MLSTMState(NamedTuple):
@@ -47,10 +60,11 @@ def mlstm_init(gen, cfg, d: int, dtype, device, lead=()) -> Params:
     }
 
 
-def init_mlstm_state(cfg, batch: int, d: int, device=None) -> MLSTMState:
-    """Zero state on ``device`` (default ``cuda``)."""
-    H = cfg.num_heads
-    hd = int(cfg.xlstm_proj_factor * d) // H
+def init_mlstm_state(cfg, batch: int, d: int, device=None, heads=None) -> MLSTMState:
+    """Zero state on ``device`` (default ``cuda``) of ``heads`` heads
+    (default H; a rank's share under a model axis)."""
+    H = heads or cfg.num_heads
+    hd = int(cfg.xlstm_proj_factor * d) // cfg.num_heads
     z = dict(dtype=torch.float32, device=resolve_device(device))
     return MLSTMState(C=torch.zeros((batch, H, hd, hd), **z),
                       n=torch.zeros((batch, H, hd), **z),
@@ -61,17 +75,18 @@ def mlstm_apply(cfg, p: Params, x, state: MLSTMState | None = None):
     """x [B, S, d] -> (y [B, S, d], state). ``p`` holds one mLSTM block's
     leaves without a prefix."""
     B, S, d = x.shape
-    H = cfg.num_heads
-    d_in = int(cfg.xlstm_proj_factor * d)
-    hd = d_in // H
-    xi, og = wmatmul(x, p["w_up"]).chunk(2, dim=-1)
+    lay = tp(cfg)
+    split, H = lay.xlstm, lay.xlstm_heads
+    hd = int(cfg.xlstm_proj_factor * d) // cfg.num_heads
+    xi, og = wmatmul(api.copy_in(x) if split else x, p["w_up"]).chunk(2, dim=-1)
     og = torch.sigmoid(og)
-    q = wmatmul(xi, p["w_q"]).reshape(B, S, H, hd).float()
-    k = (wmatmul(xi, p["w_k"]).reshape(B, S, H, hd) / (hd ** 0.5)).float()
-    v = wmatmul(xi, p["w_v"]).reshape(B, S, H, hd)
-    ig, fg = (wmatmul(xi.float(), p["w_if"]) + p["b_if"]).chunk(2, dim=-1)  # [B, S, H] log-space
+    xa = api.copy_in(api.gather_last(xi)) if split else xi  # the whole xi
+    q = wmatmul(xa, p["w_q"]).reshape(B, S, H, hd).float()
+    k = (wmatmul(xa, p["w_k"]).reshape(B, S, H, hd) / (hd ** 0.5)).float()
+    v = wmatmul(xa, p["w_v"]).reshape(B, S, H, hd)
+    ig, fg = (wmatmul(xa.float(), p["w_if"]) + p["b_if"]).chunk(2, dim=-1)  # [B, S, H] log-space
     if state is None:
-        state = init_mlstm_state(cfg, B, d, device=x.device)
+        state = init_mlstm_state(cfg, B, d, device=x.device, heads=H)
     C, n, m = state
     hs = []
     for t in range(S):
@@ -86,8 +101,9 @@ def mlstm_apply(cfg, p: Params, x, state: MLSTMState | None = None):
         den = torch.abs(torch.einsum("bhj,bhj->bh", n, qt))
         hs.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
         m = m_new
-    h = torch.stack(hs, dim=1).reshape(B, S, d_in).to(x.dtype)
-    return wmatmul(h * og, p["w_down"]), MLSTMState(C, n, m)
+    h = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
+    y = wmatmul(h * og, p["w_down"])
+    return (api.reduce_out(y) if split else y), MLSTMState(C, n, m)
 
 
 def slstm_init(gen, cfg, d: int, dtype, device, lead=()) -> Params:
@@ -104,11 +120,12 @@ def slstm_init(gen, cfg, d: int, dtype, device, lead=()) -> Params:
     }
 
 
-def init_slstm_state(cfg, batch: int, d: int, device=None) -> SLSTMState:
-    """Zero state (n at 1e-6) on ``device`` (default ``cuda``)."""
-    H = cfg.num_heads
+def init_slstm_state(cfg, batch: int, d: int, device=None, heads=None) -> SLSTMState:
+    """Zero state (n at 1e-6) on ``device`` (default ``cuda``) of ``heads``
+    heads (default H; a rank's share under a model axis)."""
+    H = heads or cfg.num_heads
     device = resolve_device(device)
-    z = torch.zeros((batch, H, d // H), dtype=torch.float32, device=device)
+    z = torch.zeros((batch, H, d // cfg.num_heads), dtype=torch.float32, device=device)
     return SLSTMState(c=z, n=z + 1e-6, h=z,
                       m=torch.zeros((batch, H), dtype=torch.float32, device=device))
 
@@ -117,11 +134,13 @@ def slstm_apply(cfg, p: Params, x, state: SLSTMState | None = None):
     """x [B, S, d] -> (y [B, S, d], state). ``p`` holds one sLSTM block's
     leaves without a prefix."""
     B, S, d = x.shape
-    H = cfg.num_heads
-    hd = d // H
+    lay = tp(cfg)
+    split, H = lay.xlstm, lay.xlstm_heads
+    hd = d // cfg.num_heads
     if state is None:
-        state = init_slstm_state(cfg, B, d, device=x.device)
-    xg = (wmatmul(x, p["w_x"]).float() + p["b"]).reshape(B, S, H, 4 * hd)
+        state = init_slstm_state(cfg, B, d, device=x.device, heads=H)
+    xg = (wmatmul(api.copy_in(x) if split else x, p["w_x"]).float() + p["b"]).reshape(
+        B, S, H, 4 * hd)
     w_r = p["w_r"]
     c, n, h, m = state
     hs = []
@@ -139,5 +158,5 @@ def slstm_apply(cfg, p: Params, x, state: SLSTMState | None = None):
         h = torch.sigmoid(ot) * (c / torch.clamp_min(n, 1e-6))
         m = m_new
         hs.append(h)
-    y = wmatmul(torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype), p["w_down"])
-    return y, SLSTMState(c, n, h, m)
+    y = wmatmul(torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype), p["w_down"])
+    return (api.reduce_out(y) if split else y), SLSTMState(c, n, h, m)

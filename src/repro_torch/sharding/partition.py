@@ -11,37 +11,44 @@ Two halves:
     ``shape``. ``mesh`` is anything with a ``shape`` dict.
   * **The port's execution layout.** GSPMD reshards around a spec that
     cuts mid-head; explicit collectives cannot, so the layout the port runs
-    (``ModelLayout``, ``layout``) is head-granular and shards or
-    replicates a whole block:
+    (``ModelLayout``, ``layout``) is head- or channel-granular and shards
+    or replicates a whole block:
 
-      - attention: q/k/v column-parallel and o row-parallel when
-        Hq % m == 0 and Hkv % m == 0, else replicated (every rank
-        computes every head);
+      - attention (the encoder-decoder's self- and cross-attention too):
+        q/k/v column-parallel and o row-parallel when Hq % m == 0 and
+        Hkv % m == 0, else replicated (every rank computes every head);
       - MLP (and the MoE's shared experts): ``d_ff % m``;
       - MoE experts ``[E, d, f]``: on E when E % m == 0 (pad experts
         counted), else each expert on its hidden dim when
         ``moe_d_ff % m == 0``, else replicated; the router replicated;
+      - the hybrid family's SSM: channel-parallel on ``d_in`` when
+        ``d_in % m == 0``: ``w_in`` (x and gate, each half cut by
+        ``d_in / m``), ``conv_w``, ``A_log``, ``dt_bias``, ``D`` on the
+        rank's channels, ``w_bc``, ``w_dt``, ``w_out`` row-parallel;
+      - xLSTM blocks on heads when H % m == 0 (hd contiguous): mLSTM
+        ``w_up`` (x and output gate, each half cut), ``w_q/w_k/w_v``
+        column-parallel, ``w_if``/``b_if`` (input and forget gates, each
+        half cut), ``w_down`` row-parallel; sLSTM ``w_x``/``b`` (laid out
+        ``(H, 4 hd)``) and ``w_r`` on heads, ``w_down`` row-parallel;
       - ``lm_head``: vocab-parallel when V % m == 0;
-      - ``embed`` / ``pos_embed``: on d when d % m == 0 (the JAX rule);
-      - norms, biases of row-parallel outputs, ``vision_proj``:
-        replicated.
+      - ``embed`` / ``pos_embed`` / ``enc_pos``: on d when d % m == 0
+        (the JAX rule);
+      - norms, biases of row-parallel outputs, the router,
+        ``frame_proj``, ``vision_proj``: replicated.
 
-    ``shard_params`` cuts a full tree to this rank's pieces and
+    ``shard_params`` cuts a full tree to this rank's pieces (``piece``) and
     ``gather_params`` rebuilds it by all-gather. Where this departs from
-    ``param_specs`` is ROADMAP.md's known difference P12. The dense and
-    MoE families (and the toy models, all replicated) run on a model axis;
-    the hybrid, ssm, audio and vlm families raise (ROADMAP.md A18c).
+    ``param_specs`` is ROADMAP.md's known difference P12. Every family
+    runs on a model axis.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, FrozenSet, Optional, Tuple
+from typing import Any, Dict, FrozenSet, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-
-from repro_torch import not_ported
 
 Spec = Tuple[Any, ...]
 
@@ -228,9 +235,6 @@ def cache_specs(cache, mesh, kv_seq_shard: bool = False):
 # the port's execution layout
 # ---------------------------------------------------------------------------
 
-MODEL_AXIS_FAMILIES = ("dense", "moe", "toy")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelLayout:
     """How one config's blocks split over a model axis of extent ``m``:
@@ -246,24 +250,27 @@ class ModelLayout:
     experts: Optional[str]  # "experts" (on E), "ff" (each on its f) or None
     experts_local: int
     vocab: bool  # lm_head by vocab
-    embed: bool  # embed / pos_embed by d
+    embed: bool  # embed / pos_embed / enc_pos by d
+    ssm: bool  # the hybrid family's SSM by its d_in channels
+    ssm_channels: int  # d_in a rank
+    xlstm: bool  # the xLSTM blocks by heads
+    xlstm_heads: int  # xLSTM heads a rank
 
 
 @functools.lru_cache(maxsize=None)
 def layout(cfg, m: int) -> ModelLayout:
-    """The execution layout of ``cfg`` on a model axis of extent ``m``;
-    families other than dense, MoE and toy raise naming A18c at m > 1."""
-    if m > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
-        raise not_ported(f"a model axis of {m} for family={cfg.family!r} ({cfg.name}: its "
-                         "channel-parallel rules)", "A18c")
-    toy = cfg.family == "toy"
+    """The execution layout of ``cfg`` on a model axis of extent ``m``."""
+    toy, rec = cfg.family == "toy", cfg.family == "ssm"
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
-    attn = m > 1 and not toy and Hq % m == 0 and Hkv % m == 0
+    attn = m > 1 and not (toy or rec) and Hq % m == 0 and Hkv % m == 0
     E = cfg.num_experts + cfg.num_experts_pad if cfg.is_moe else 0
     f = cfg.moe_d_ff or cfg.d_ff
     experts = None
     if m > 1 and E:
         experts = "experts" if E % m == 0 else ("ff" if f % m == 0 else None)
+    d_in = cfg.ssm_expand * cfg.d_model if cfg.hybrid_parallel_ssm else 0
+    ssm = m > 1 and bool(d_in) and d_in % m == 0
+    xlstm = m > 1 and rec and Hq % m == 0
     return ModelLayout(
         m=m, attn=attn, heads=Hq // m if attn else Hq, kv_heads=Hkv // m if attn else Hkv,
         mlp=m > 1 and not toy and not cfg.is_moe and bool(cfg.d_ff) and cfg.d_ff % m == 0,
@@ -271,7 +278,15 @@ def layout(cfg, m: int) -> ModelLayout:
         and (cfg.num_shared_experts * f) % m == 0,
         experts=experts, experts_local=E // m if experts == "experts" else E,
         vocab=m > 1 and not toy and not cfg.tie_embeddings and cfg.vocab_size % m == 0,
-        embed=m > 1 and not toy and cfg.d_model % m == 0)
+        embed=m > 1 and not toy and cfg.d_model % m == 0,
+        ssm=ssm, ssm_channels=d_in // m if ssm else d_in,
+        xlstm=xlstm, xlstm_heads=Hq // m if xlstm else Hq)
+
+
+_ATTN = ("attn", "self_attn", "cross_attn")
+# leaves whose cut dim holds two halves (x and gate; input and forget
+# gates), each cut by m: the rank holds its slice of each
+_HALVES = {("ssm", "w_in"), ("m", "w_up"), ("m", "w_if"), ("m", "b_if")}
 
 
 def exec_dim(path: str, ndim: int, lay: ModelLayout) -> Optional[int]:
@@ -281,16 +296,30 @@ def exec_dim(path: str, ndim: int, lay: ModelLayout) -> Optional[int]:
         return None
     parts = path.split("/")
     name = parts[-1]
-    if name in ("embed", "pos_embed"):
+    if name in ("embed", "pos_embed", "enc_pos"):
         return ndim - 1 if lay.embed else None
     if name == "lm_head":
         return ndim - 1 if lay.vocab else None
-    if "attn" in parts and lay.attn:
+    if any(a in parts for a in _ATTN):
+        if not lay.attn:
+            return None
         if name in ("w_q", "w_k", "w_v", "b_q", "b_k", "b_v"):
             return ndim - 1
-        if name == "w_o":
-            return ndim - 2
-        return None
+        return ndim - 2 if name == "w_o" else None
+    if "ssm" in parts:
+        if not lay.ssm:
+            return None
+        if name in ("w_in", "conv_w", "dt_bias", "D"):
+            return ndim - 1
+        return ndim - 2 if name in ("A_log", "w_bc", "w_dt", "w_out") else None
+    if "xlstm" in parts:
+        if not lay.xlstm or parts[-2] not in ("m", "s"):
+            return None  # the blocks' norms
+        if name in ("w_up", "w_q", "w_k", "w_v", "w_if", "b_if", "w_x", "b"):
+            return ndim - 1
+        if name == "w_r":  # [H, hd, 4 hd]
+            return ndim - 3
+        return ndim - 2 if name == "w_down" else None
     sharded = (lay.shared if "shared" in parts else
                lay.mlp if "mlp" in parts else False)
     if "moe" in parts and "shared" not in parts and name in ("w_gate", "w_up", "w_down"):
@@ -303,6 +332,30 @@ def exec_dim(path: str, ndim: int, lay: ModelLayout) -> Optional[int]:
         if name == "w_down":
             return ndim - 2
     return None
+
+
+def halves(path: str) -> int:
+    """How many halves the cut dim of leaf ``path`` holds (2 for the SSM's
+    ``w_in`` and the mLSTM's ``w_up``, ``w_if``, ``b_if``), each cut by m."""
+    parts = path.split("/")
+    return 2 if len(parts) >= 2 and (parts[-2], parts[-1]) in _HALVES else 1
+
+
+def piece(v: torch.Tensor, dim: int, n_halves: int, rank: int, m: int) -> torch.Tensor:
+    """Rank ``rank``'s piece of ``v`` cut on ``dim`` over ``m`` ranks: the
+    rank's slice of each of the dim's ``n_halves`` halves, in order."""
+    n = v.shape[dim] // (n_halves * m)
+    if n_halves == 1:
+        return v.narrow(dim, rank * n, n)
+    return torch.cat([v.narrow(dim, (h * m + rank) * n, n) for h in range(n_halves)], dim)
+
+
+def unpiece(parts, dim: int, n_halves: int) -> torch.Tensor:
+    """The whole leaf from every rank's ``piece``, in rank order."""
+    if n_halves == 1:
+        return torch.cat(parts, dim)
+    split = [p.chunk(n_halves, dim) for p in parts]
+    return torch.cat([s[h] for h in range(n_halves) for s in split], dim)
 
 
 def _dims(params: Dict[str, Any], lay: ModelLayout) -> Dict[str, Optional[int]]:
@@ -328,11 +381,7 @@ def shard_params(full: Dict[str, torch.Tensor], mesh, cfg, *, lead: int = 0):
     out = {}
     for k, v in full.items():
         d = exec_dim(k, v.dim() - lead, lay)
-        if d is None:
-            out[k] = v
-        else:
-            n = v.shape[lead + d] // m
-            out[k] = v.narrow(lead + d, r * n, n).contiguous()
+        out[k] = v if d is None else piece(v, lead + d, halves(k), r, m).contiguous()
     return out
 
 
@@ -351,20 +400,33 @@ def gather_params(local: Dict[str, torch.Tensor], mesh, cfg, *, lead: int = 0):
         v = v.contiguous()
         parts = [torch.empty_like(v) for _ in range(m)]
         dist.all_gather(parts, v, group=mesh.model_group)
-        out[k] = torch.cat(parts, dim=lead + d)
+        out[k] = unpiece(parts, lead + d, halves(k))
     return {k: out[k] for k in local}
 
 
-class ModelAxis:
-    """What the federated round needs of the model axis: its process group
-    and the leaves that are sharded (their squared norms are partial on a
-    rank and complete with one all-reduce; the replicated ones count
-    once)."""
+class Cut(NamedTuple):
+    """How a sharded leaf is cut: its cut dim counted from the end (so a
+    leading client axis does not move it), the halves that dim holds, and
+    the whole leaf's shape."""
 
-    def __init__(self, group, sharded: FrozenSet[str], size: int):
+    dim: int
+    halves: int
+    shape: Tuple[int, ...]
+
+
+class ModelAxis:
+    """What the federated round needs of the model axis: its process group,
+    its extent and this rank's coordinate, and how each sharded leaf is cut
+    (``cuts``; their squared norms are partial on a rank and complete with
+    one all-reduce, the replicated ones count once; the wire codecs take
+    whole-leaf decisions from the cuts)."""
+
+    def __init__(self, group, cuts: Dict[str, Cut], size: int, rank: int):
         self.group = group
-        self.sharded = frozenset(sharded)
+        self.cuts = dict(cuts)
+        self.sharded = frozenset(cuts)
         self.size = size
+        self.rank = rank
 
     def split(self, tree: Dict[str, Any]):
         """(sharded leaves, replicated leaves) of a flat tree."""
@@ -374,8 +436,11 @@ class ModelAxis:
 
 def model_axis(mesh, cfg, params: Dict[str, Any]) -> Optional[ModelAxis]:
     """The round's view of ``mesh``'s model axis for ``cfg`` (None at model
-    extent 1); ``params`` gives the keys (any tree of the model's)."""
-    m = mesh.shape.get("model", 1) if mesh is not None else 1
+    extent 1); ``params`` is the model's whole tree (shapes suffice)."""
+    m, r = _model_coord(mesh) if mesh is not None else (1, 0)
     if m <= 1:
         return None
-    return ModelAxis(mesh.model_group, sharded_keys(params, layout(cfg, m)), m)
+    lay = layout(cfg, m)
+    cuts = {k: Cut(d - len(v.shape), halves(k), tuple(v.shape))
+            for k, v in params.items() if (d := exec_dim(k, len(v.shape), lay)) is not None}
+    return ModelAxis(mesh.model_group, cuts, m, r)

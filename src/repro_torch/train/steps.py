@@ -32,13 +32,14 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.func import grad_and_value
 
-from repro_torch import not_ported, strict_fp32
+from repro_torch import strict_fp32
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.fedveca import make_round_step
 from repro_torch.launch.mesh import num_clients
 from repro_torch.models import transformer
 from repro_torch.models.attention import KVCache, PagedKVPool
 from repro_torch.models.model import build_model, input_specs, params_struct
+from repro_torch.models.ssm import SSMState
 from repro_torch.models.transformer import DecodeCache, PagedDecodeCache
 from repro_torch.sharding import partition
 from repro_torch.sharding.api import (all_reduce, all_reduce_tree, client_group,
@@ -80,13 +81,14 @@ def _take(t: torch.Tensor, rows: Optional[range], dim: int = 0) -> torch.Tensor:
     return t if rows is None else t.narrow(dim, rows.start, len(rows))
 
 
-def _kv_heads(mesh, cfg, t: torch.Tensor, dim: int) -> torch.Tensor:
-    """``t``'s kv-head dim cut to this rank's heads when attention splits."""
-    lay = partition.layout(cfg, mesh.model_size)
-    if not lay.attn:
+def _cut(mesh, split: bool, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t``'s ``dim`` cut to this rank's share when ``split`` (kv heads,
+    SSM channels or xLSTM heads of a layout that splits them)."""
+    if not split:
         return t
-    r = mesh.coords["model"]
-    return t.narrow(dim, r * lay.kv_heads, lay.kv_heads)
+    m, r = mesh.model_size, mesh.coords["model"]
+    n = t.shape[dim] // m
+    return t.narrow(dim, r * n, n)
 
 
 def _to(mesh, t: torch.Tensor) -> torch.Tensor:
@@ -100,21 +102,33 @@ def _shard_params(mesh, cfg, params):
 def _shard_cache(mesh, cfg, cache):
     """A contiguous ``DecodeCache``'s or a ``PagedDecodeCache``'s leaves cut
     to this rank: batch rows over the data axes (contiguous caches, where
-    they divide) and kv heads over the model axis."""
-    if isinstance(cache, PagedDecodeCache):
-        if cache.ssm is not None:
-            raise not_ported("the hybrid family's SSM rows under a model axis",
-            "A18c")
-        return PagedDecodeCache(kv=PagedKVPool(
-            *(_to(mesh, _kv_heads(mesh, cfg, t, 3)) for t in cache.kv)))
-    if cache.ssm is not None or cache.xlstm_m is not None:
-        raise not_ported("the recurrent families' states under a model axis", "A18c")
+    they divide) and, over the model axis, kv heads, the hybrid family's
+    SSM channels (``h`` [.., d_in, N], ``conv`` [.., K-1, d_in]) and the
+    xLSTM states' heads."""
+    lay = partition.layout(cfg, mesh.model_size)
+
+    def ssm(st, rows):
+        if st is None:
+            return None
+        h, conv = (_take(t, rows, 1) for t in st)
+        return SSMState(_to(mesh, _cut(mesh, lay.ssm, h, 2)),
+                        _to(mesh, _cut(mesh, lay.ssm, conv, 3)))
+
+    if isinstance(cache, PagedDecodeCache):  # every slot on every data rank (P12)
+        return PagedDecodeCache(
+            kv=PagedKVPool(*(_to(mesh, _cut(mesh, lay.attn, t, 3)) for t in cache.kv)),
+            ssm=ssm(cache.ssm, None))
+    if cache.kv is None:  # xLSTM: [n_super, n_per, B, H, ...]
+        rows = _rows(mesh, cache.xlstm_m.C.shape[2])
+        return DecodeCache(kv=None, **{
+            f: type(st)(*(_to(mesh, _cut(mesh, lay.xlstm, _take(t, rows, 2), 3)) for t in st))
+            for f, st in (("xlstm_m", cache.xlstm_m), ("xlstm_s", cache.xlstm_s))})
     rows = _rows(mesh, cache.kv.k.shape[1])
     k, v, pos = cache.kv
     return DecodeCache(kv=KVCache(
-        _to(mesh, _kv_heads(mesh, cfg, _take(k, rows, 1), 3)),
-        _to(mesh, _kv_heads(mesh, cfg, _take(v, rows, 1), 3)),
-        _to(mesh, _take(pos, rows, 1))))
+        _to(mesh, _cut(mesh, lay.attn, _take(k, rows, 1), 3)),
+        _to(mesh, _cut(mesh, lay.attn, _take(v, rows, 1), 3)),
+        _to(mesh, _take(pos, rows, 1))), ssm=ssm(cache.ssm, rows))
 
 
 def _loss_kw(cfg: ArchConfig, remat) -> dict:

@@ -19,6 +19,8 @@ TAUS = np.array([2, 2, 1, 2], np.int32)
 GPREV = 0.05
 SGD = dict(arch="qwen1.5-32b", seq=16, batch=8, eta=0.01)
 STATS = ("loss0", "beta", "delta", "g0_sqnorm")
+# the hybrid and xLSTM families' round bundles (tests/test_torch_model_axis_families.py)
+FAMILY_ROUNDS = ("hymba-1.5b", "xlstm-1.3b")
 
 
 def init_params(arch: str, seed: int):
@@ -41,9 +43,10 @@ def init_params(arch: str, seed: int):
     return out
 
 
-def round_inputs():
-    """Host batches [C, tau_max, b, S], taus, weights, ||grad F(w_{k-1})||^2."""
-    vocab = get_arch(ROUND["arch"]).reduced().vocab_size
+def round_inputs(arch=None):
+    """Host batches [C, tau_max, b, S], taus, weights, ||grad F(w_{k-1})||^2
+    (of ``ROUND``'s arch, or of ``arch`` at ``ROUND``'s sizes)."""
+    vocab = get_arch(arch or ROUND["arch"]).reduced().vocab_size
     C, b = DATA, ROUND["batch"] // DATA
     r = np.random.RandomState(1)
     shp = (C, ROUND["tau_max"], b, ROUND["seq"])

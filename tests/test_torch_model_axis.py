@@ -39,10 +39,6 @@ import _model_axis_setup as S
 import _torch_model_axis_ranks as R
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.controller import ControllerConfig, ControllerCore
-from repro_torch.core.engine import EngineConfig, RoundEngine
-from repro_torch.data import synthetic as tsyn
-from repro_torch.data.device import DeviceShards
 from repro_torch.launch.mesh import FederatedMesh, spawn
 from repro_torch.models.model import build_model
 from repro_torch.train.steps import build_bundle
@@ -246,32 +242,9 @@ def _leaves(x):
     return [x]
 
 
-@pytest.mark.parametrize("what", ["wire", "buffered"])
-def test_wire_and_buffered_under_a_model_axis_raise_naming_a18c(what):
-    cfg = get_arch("granite-moe-1b-a400m").reduced()
-    mesh = _hand_mesh(1, 2)
-    model = build_model(cfg, device="cpu", mesh=mesh)
-    orig = tsyn.make_classification(16, (4,), 2, seed=0)
-    shards = DeviceShards.from_datasets([orig, orig], device="cpu", mesh=mesh)
-    ctl = ControllerCore(ControllerConfig(eta=0.01, tau_max=2), 2, mesh=mesh)
-    kw = dict(num_clients=2, controller=ctl, mesh=mesh, shards=shards,
-              model_axis=model.model_axis)
-    if what == "wire":
-        with pytest.raises(NotImplementedError, match="A18c"):
-            RoundEngine(model.loss, EngineConfig(wire="int8"), **kw)
-        return
-    from repro_torch.core.buffered import BufferedRoundEngine
-
-    engine = RoundEngine(model.loss, EngineConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="A18c"):
-        BufferedRoundEngine(engine, np.full(2, 0.5, np.float32))
-    with pytest.raises(ValueError, match="model_axis"):
-        RoundEngine(model.loss, EngineConfig(), num_clients=2, mesh=mesh)
-
-
 @pytest.mark.parametrize("module", ["dryrun", "perf"])
 def test_dryrun_and_perf_raise_naming_a18c(module):
     import importlib
 
-    with pytest.raises(NotImplementedError, match="A18c"):
+    with pytest.raises(NotImplementedError, match="A18d"):
         importlib.import_module(f"repro_torch.launch.{module}").main([])

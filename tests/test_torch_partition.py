@@ -11,9 +11,10 @@ half of ``sharding/api.py`` against the JAX package's.
     ``eval_shape``, so the shapes are compared too.
   * ``spec_for`` under ``logical_axis_rules`` equals the JAX package's;
     ``constrain`` returns its input, inside a context and outside.
-  * The execution layout: which leaves the port shards (head-granular),
-    the A18c refusals, and ``shard_params`` then ``gather_params`` bitwise
-    on a spawned 2-rank gloo world.
+  * The execution layout: which leaves the port shards (head- and
+    channel-granular; Hymba's 25 heads whole at m 2), the leaves cut a
+    half at a time, and ``shard_params`` then ``gather_params`` bitwise
+    for every family on a spawned 2-rank gloo world.
 """
 import jax
 import pytest
@@ -226,27 +227,58 @@ def test_layout_is_head_granular():
         "granite-moe-1b-a400m").num_experts // 2
     q = partition.layout(get_arch("qwen2-moe-a2.7b"), 16)
     assert q.experts == "ff" and q.experts_local == 60 and q.shared
+    # Hymba at m 2: 25 query heads do not divide, so attention stays whole
+    # on every rank while the MLP (5504) and the SSM (d_in 3200) split
+    hy = _lay("hymba-1.5b", 2)
+    assert not hy.attn and (hy.heads, hy.kv_heads) == (25, 5) and hy.mlp
+    assert hy.ssm and hy.ssm_channels == 1600
+    cfg = get_arch("hymba-1.5b")
+    keys = partition.sharded_keys(params_struct(build_model(cfg, device="meta")), hy)
+    assert "layers/ssm/w_in" in keys and "layers/attn/w_q" not in keys
+    assert jpart.leaf_spec("layers/attn/w_q", (cfg.d_model, cfg.q_dim),
+                           FakeMesh({"model": 2})) == P(None, "model")  # JAX cuts it (P12)
+    # the split halves: x ‖ gate and x ‖ output gate, a half at a time
+    assert partition.halves("layers/ssm/w_in") == partition.halves("xlstm/m/w_up") == 2
+    assert partition.halves("layers/mlp/w_up") == partition.halves("xlstm/s/w_x") == 1
+    # xLSTM-1.3B: 4 heads, 2 a rank; w_r cut on H where JAX keeps it whole
+    xl = _lay("xlstm-1.3b", 2)
+    assert xl.xlstm and xl.xlstm_heads == 2 and not xl.attn
+    assert partition.exec_dim("xlstm/s/w_r", 5, xl) == 2
+    assert not partition.layout(get_arch("xlstm-1.3b"), 8).xlstm  # H 4 does not divide 8
     # toy: every leaf whole
     cnn = get_arch("cnn-cifar10")
     assert not partition.sharded_keys(params_struct(build_model(cnn, device="meta")),
                                       partition.layout(cnn, 4))
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-1.3b", "whisper-medium",
-                                  "phi-3-vision-4.2b"])
-def test_excluded_families_raise_naming_a18c(arch):
+HALVED = [("hymba-1.5b", "layers/ssm/w_in"), ("xlstm-1.3b", "xlstm/m/w_up"),
+          ("xlstm-1.3b", "xlstm/m/w_if"), ("xlstm-1.3b", "xlstm/m/b_if")]
+
+
+@pytest.mark.parametrize("arch,path", HALVED)
+def test_a_halved_leaf_is_cut_a_half_at_a_time(arch, path):
+    """x and gate (SSM ``w_in``), x and output gate (mLSTM ``w_up``), input
+    and forget gates (mLSTM ``w_if``, ``b_if``): rank r holds its slice of
+    each half, which a contiguous cut of the whole dim (the JAX spec's, P12)
+    would not give."""
     cfg = get_arch(arch).reduced()
-    lay = partition.layout(cfg, 1)  # no model axis: nothing refused, nothing split
-    assert not partition.sharded_keys(params_struct(build_model(cfg, device="meta")), lay)
-    with pytest.raises(NotImplementedError, match="A18c"):
-        partition.layout(cfg, 2)
-    mesh = FederatedMesh(("data", "model"), (1, 2), rank=0, device=torch.device("cpu"),
-                         group=None)
-    with pytest.raises(NotImplementedError, match="A18c"):
-        build_model(cfg, device="cpu", mesh=mesh)
+    full = build_model(cfg, device="cpu").init(0)[path]
+    d = partition.exec_dim(path, full.dim(), partition.layout(cfg, 2))
+    assert d == full.dim() - 1 and partition.halves(path) == 2
+    half = full.shape[d] // 2
+    first, second = full.narrow(d, 0, half), full.narrow(d, half, half)
+    n = half // 2
+    for r in range(2):
+        want = torch.cat([first.narrow(d, r * n, n), second.narrow(d, r * n, n)], d)
+        got = partition.piece(full, d, 2, r, 2)
+        assert torch.equal(got, want)
+    parts = [partition.piece(full, d, 2, r, 2) for r in range(2)]
+    assert torch.equal(partition.unpiece(parts, d, 2), full)
+    assert not torch.equal(parts[0], full.narrow(d, 0, half))
 
 
-ROUND_TRIP = ["granite-moe-1b-a400m", "starcoder2-3b", "qwen1.5-32b"]
+ROUND_TRIP = ["granite-moe-1b-a400m", "starcoder2-3b", "qwen1.5-32b", "hymba-1.5b",
+              "xlstm-1.3b", "whisper-medium", "phi-3-vision-4.2b"]
 
 
 def _round_trips():
@@ -282,5 +314,6 @@ def test_shard_then_gather_is_bitwise(round_trips, arch):
             if d is None:
                 assert torch.equal(o["local"][k], v)
             else:
-                n = v.shape[d] // 2
-                assert torch.equal(o["local"][k], v.narrow(d, r * n, n)), (r, k)
+                piece = partition.piece(v, d, partition.halves(k), r, 2)
+                assert o["local"][k].shape[d] == v.shape[d] // 2
+                assert torch.equal(o["local"][k], piece), (r, k)
