@@ -160,8 +160,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      every tick and every restore checked bitwise: greedy streams identical
      across the variants, integer stats equal to bf16's.
  13. families serving — the rest of serving at full width and depth in
-     bf16 (random weights from seed 0; the MoE cut to 4 of its 24 layers,
-     Hymba to 4 of its 32),
+     bf16 (random weights from seed 0; the MoE cut to 2 of its 24 layers,
+     Hymba to 2 of its 32, for the script's time),
      ``cache_update="kernel"``, traces from ``poisson_trace``:
      Qwen1.5-MoE-A2.7B through ``PagedServeLoop``
      (8 slots, capacity 1024) as base and with prefix caching and 128-token
@@ -188,7 +188,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
  14. partial participation and the prototype — the paper's CNN
      experiment with cohorts (phase 6's data and settings over 20 clients,
      5 a round as benchmarks/controller_driver.py draws them, stats decay
-     0.9, 40 rounds of FedVeca on the device data path): exactly 80 vecavg
+     0.9, 20 rounds of FedVeca on the device data path, 40 before phase
+     19 came):
+     exactly 2 vecavg a round, i.e. 40
      launches, every row's cohort 5 sorted distinct ids, taus in [2, 50],
      finite losses, the test loss every 10 rounds, ms a round, peak GB;
      from one state a cohort
@@ -216,12 +218,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      at the longest S that, extrapolated from the measured peaks, fits
      only with remat, with its peak GB (remat=False is not run there);
  16. wire and buffered — the engine's wire state and the buffered engine
-     on phase 6's CNN data and settings: 10 sync rounds under int8 and
+     on phase 6's CNN data and settings: 5 sync rounds under int8 and
      top-1000 over 5 clients (every row's ``wire_bytes`` the codec's
      payload times 5, vecavg 2 a round, the test loss); over 20 clients, 5
      a round, the buffered parity mode (one wave, instant arrivals, no
      decay, 5 commits, without a codec and with int8) bitwise equal to the
-     synchronous simulator (params, taus, losses, bytes), and 20 buffered
+     synchronous simulator (params, taus, losses, bytes), and 10 buffered
      commits with 2 waves, ``exp`` latency and decay 0.9 (ms a commit,
      mean and max age, ``sim_time``, folds, vecavg 2 a commit);
  17. sharded — the client-axis sharded round on gloo ranks that share the
@@ -230,13 +232,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      clients on ``make_federated_mesh(4)``, 5 a rank, one teacher-forced
      round (host batches from the seed's init) against the same round in
      this process (params 1e-6, the statistics rtol 1e-5 / atol 1e-6,
-     tau_k rtol 1e-6) and 10 rounds of the device data path (tau traces
+     tau_k rtol 1e-6) and 5 rounds of the device data path (tau traces
      equal, or parting only at the A_min client's 19-or-20 floor; params
      2e-5 / 1e-4 while they agree), vecavg exactly 2 a round on every
      rank, ms a round sharded and unsharded, the collectives a round and
      one all-reduce's ms at the CNN's size; Qwen1.5-0.5B's widths at
-     phase 9's traffic on 2 ranks of one client (12 of 24 layers since PR
-     35), one teacher-forced round
+     phase 9's traffic on 2 ranks of one client (6 of 24 layers since PR
+     36), one teacher-forced round
      against the C = 2 round (tests/test_torch_lm_round.py's bars), rmsnorm
      on each rank equal to the unsharded round's, each rank's peak GB;
      beside it, ``python -m repro_torch.launch.train --mesh data=4`` as two
@@ -246,7 +248,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      A18b, A18c) on 4 gloo ranks that share the card, mesh (data 2, model
      2), through the step bundles (``train/steps.py``): (a)
      granite-moe-1b-a400m at full width, 2 of 24 layers, (b) Qwen1.5-0.5B's
-     widths at 12 layers (tied embedding: the logits take an all-reduce),
+     widths at 6 layers (12 before phase 19 came; tied embedding: the logits take an
+     all-reduce),
      (e) Hymba-1.5B, 2 of 32 layers (25 heads: attention whole on every
      rank, the MLP and the SSM split), each float32, one teacher-forced
      ``fedveca_round`` of phase 9's traffic over 2 clients, and (f)
@@ -270,7 +273,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      its SSM rows cut on ``d_in``; paged decode exactly L a rank), and
      xLSTM-1.3B's contiguous ``decode_step`` (one super-block, float32,
      2e-4) with its states on heads, greedy tokens equal to the one-rank
-     step's; (h) ``lm_config("100m")``
+     step's; (h) ``lm_config("100m")`` (6 of its 12 layers since phase 19 came)
      at phase 9's traffic: 2 rounds under int8 and under top-1000, each
      teacher-forced against the one-process round (entries on a codec
      boundary at most 1e-4 of the residual, the params within 1e-6 of what
@@ -278,8 +281,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      on a round's update rows, wire bytes the one-process engine's), and 2
      buffered commits against the same in one process, vecavg exactly 4 a
      round or commit a rank; (d) ``python -m repro_torch.launch.train ...
-     --data-axis 2 --model-axis 2`` as a subprocess, exiting 0 with 3 rows
+     --data-axis 2 --model-axis 2`` as a subprocess beside the world,
+     exiting 0 with 3 rows
      and vecavg 12 on each of its 4 ranks.
+ 19. dry run and sanitizer (ROADMAP.md A18d, A19): (a) the dry run
+     (``launch/dryrun.py``: meta tensors, rank 0 of a fake process group
+     of 4 in this process, run in a thread beside phase 18's ranks) of
+     phase 18's four round bundles and its StarCoder2-3B and phi-3
+     forwards, each held to what the ranks counted on the card:
+     all-reduces, all-gathers and their bytes a rank equal, the wrappers'
+     ``meta_launches`` equal the launches a rank, the predicted parameter
+     and input bytes a rank at most the measured peak a rank; (b) the
+     sanitizer lanes: ``TrainDriver(sanitize=True)`` on the CNN
+     experiment for 4 rounds and ``BufferedRoundEngine(sanitize=True)``
+     for 4 commits (each against its plain run under deterministic
+     cuDNN: params and taus bitwise, vecavg 8), ``PagedServeLoop(
+     cache_update="kernel", sanitize=True)`` on phase 4's trace on
+     StarCoder2-3B cut to 4 of its 30 layers (the trace twice; greedy
+     streams equal the plain loop's, paged decode 2 x 4 a tick and insert
+     2 an admission), each with 0
+     library builds and 0 new allocator segments after its warm-up and
+     its ms beside the plain run's; (c) a NaN-seeded CNN round raises
+     ``FloatingPointError`` naming the op.
 Each phase's seconds are printed as a ``[time]`` line. Prints, before the
 last line, one JSON object with a row per kernel and
 the card's ``name, power.limit``; the last line is
@@ -288,6 +311,7 @@ Needs one card and no network; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -316,6 +340,7 @@ from repro_torch.data.partition import partition_case3  # noqa: E402
 from repro_torch.data.synthetic import Dataset, make_classification, make_lm_tokens  # noqa: E402
 from repro_torch.fed import FederatedSimulator, FedSimConfig, fair_fixed_tau  # noqa: E402
 from repro_torch.fed.simulator import run_on_ranks  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, spawn  # noqa: E402
 from repro_torch.fed.prototype import FedVecaClient, FedVecaServer  # noqa: E402
 from repro_torch.fed.train_lm import lm_config  # noqa: E402
@@ -415,7 +440,8 @@ ROUND_PARAMS_ATOL = 1e-6
 CARD_CPU_PARAMS_ATOL = 1e-5
 # Phase 14: partial participation (benchmarks/controller_driver.py's
 # _setup: C // 4 of 20 clients a round) on phase 6's data and settings
-COHORT = dict(clients=20, cohort=5, stats_decay=0.9)
+# on phase 6's data and settings; 20 rounds (40 before phase 19 came: the script's time)
+COHORT = dict(clients=20, cohort=5, stats_decay=0.9, rounds=20)
 # A cohort of every client against the round without one, same state and
 # batches (tests/test_round_engine.py's bar): only the renormalised weights
 # p / sum(p) differ, by an ulp.
@@ -450,20 +476,21 @@ REMAT_FIT = 0.92
 # against the sync simulator, and a real buffered run (two waves in
 # flight, exponential latency, decay 0.9), both over phase 14's 20 clients,
 # 5 a round (the buffer's 5 slots).
-WIRE16 = dict(rounds=10, wires=("int8", "topk:1000"))
-BUF16 = dict(parity_commits=5, commits=20, waves=2, latency="exp", grad_decay=0.9)
+# rounds 10 -> 5 and commits 20 -> 10 since phase 19 came (the script's time)
+WIRE16 = dict(rounds=5, wires=("int8", "topk:1000"))
+BUF16 = dict(parity_commits=5, commits=10, waves=2, latency="exp", grad_decay=0.9)
 # Phase 17, the client-axis sharded round: gloo ranks sharing the one card.
 # The CNN experiment over 20 clients (phase 14's) on 4 ranks of 5 clients,
-# 10 rounds; Qwen1.5-0.5B widths at phase 9's traffic on 2 ranks of 1
+# 5 rounds; Qwen1.5-0.5B widths at phase 9's traffic on 2 ranks of 1
 # client; the launcher on 4 ranks. Bars of tests/test_sharded_round.py:
 # one teacher-forced round params 1e-6, per-client statistics rtol 1e-5 /
 # atol 1e-6, tau_k rtol 1e-6; the whole run's params 2e-5 / 1e-4 while the
 # tau traces agree; the LM round at tests/test_torch_lm_round.py's bars
 # (params 1e-6, beta/delta rtol 1e-3 atol 1e-5, loss0 rtol 1e-5 atol 1e-6,
 # g0 norms rtol 1e-4).
-SHARD = dict(clients=20, ranks=4, rounds=10)
+SHARD = dict(clients=20, ranks=4, rounds=5)  # 10 before phase 19 came (the script's time)
 SHARD_LM_RANKS = 2
-SHARD_LM_LAYERS = 12  # of Qwen1.5-0.5B's 24, since PR 35 (the script's time)
+SHARD_LM_LAYERS = 6  # of Qwen1.5-0.5B's 24 (12 before phase 19 came: the script's time)
 SHARD_STAT = dict(rtol=1e-5, atol=1e-6)
 SHARD_RUN = dict(atol=2e-5, rtol=1e-4)
 LM_STAT = {"loss0": dict(rtol=1e-5, atol=1e-6), "g0_sqnorm": dict(rtol=1e-4, atol=0),
@@ -638,13 +665,15 @@ SCHED_ONE_SLOT = 8
 # The families of phase 13 (configs of src/repro_torch/configs), served at
 # full width and depth in bf16 from random weights (seed 0), traces made by
 # the port's poisson_trace (no EOS, so the integer stats cannot depend on
-# the tokens): Qwen1.5-MoE-A2.7B, cut to 4 of 24 layers (full depth until
-# phase 17 and 12 layers until phase 18 needed the script's time), through
+# the tokens): Qwen1.5-MoE-A2.7B, cut to 2 of 24 layers (full depth until
+# phase 17, 12 layers until phase 18 and 4 until phase 19 needed the
+# script's time), through
 # PagedServeLoop (8 slots,
 # pages of 16, capacity 1024), base and then prefix caching with
 # 128-token chunks on the same trace shape with two shared 256-token
-# prefixes; Hymba-1.5B (window 2048, parallel SSM), cut to 4 of 32 layers
-# (full depth until phase 18 needed the script's time), through PagedServeLoop,
+# prefixes; Hymba-1.5B (window 2048, parallel SSM), cut to 2 of 32 layers
+# (full depth until phase 18, 4 until phase 19 needed the script's time),
+# through PagedServeLoop,
 # base on the default pool (128 pages a slot) and with preemption after one
 # blocked tick on 300 pages (the port's loop on a 1-layer, d_model-40 copy at
 # the full vocabulary preempts twice on this trace; its largest request
@@ -660,8 +689,8 @@ SCHED_ONE_SLOT = 8
 FAM_MOE, FAM_HYMBA, FAM_XLSTM, FAM_PHI3 = ("qwen2-moe-a2.7b", "hymba-1.5b", "xlstm-1.3b",
                                            "phi-3-vision-4.2b")
 FAM_SLOTS, FAM_PS, FAM_CAPACITY = 8, 16, 1024
-FAM_MOE_LAYERS = 4
-FAM_HYMBA_LAYERS = 4
+FAM_MOE_LAYERS = 2  # 4 before phase 19 came (the script's time)
+FAM_HYMBA_LAYERS = 2  # 4 before phase 19 came
 FAM_MOE_TRACE = dict(n_requests=16, rate=2.0, plen_choices=(128, 256, 512),
                      max_new_choices=(32, 64), seed=0)
 FAM_MOE_PREFIX = dict(prefix_families=2, prefix_len=256)
@@ -1173,6 +1202,11 @@ def phase_rmsnorm_parity(dev):
 # ---------------------------------------------------------------------------
 
 
+# phase 4's trace (phase 19 serves it again under the sanitizer)
+SERVE_TRACE = dict(n_requests=16, rate=2.0, plen_choices=(128, 256, 512, 1024),
+                   max_new_choices=(32, 64, 128), seed=0)
+
+
 def phase_serve(dev):
     t0 = time.perf_counter()
     model = build_model_by_name("starcoder2-3b", device=dev)
@@ -1182,9 +1216,7 @@ def phase_serve(dev):
     n_params = sum(t.numel() for t in params.values())
     print(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B params {cfg.param_dtype}, "
           f"init {time.perf_counter() - t0:.1f} s")
-    trace_kw = dict(rate=2.0, plen_choices=(128, 256, 512, 1024),
-                    max_new_choices=(32, 64, 128), vocab_size=cfg.vocab_size, seed=0)
-    reqs = poisson_trace(16, **trace_kw)
+    reqs = poisson_trace(**SERVE_TRACE, vocab_size=cfg.vocab_size)
     loop = PagedServeLoop(model, params, device=dev, n_slots=B, page_size=PS,
                           cache_update="kernel")
     # warm-up on two short requests (cuBLAS handles, allocator), not counted
@@ -1485,7 +1517,7 @@ def phase_fed_checks(dev, model, clients, params):
     return out
 
 
-def phase_fed_profile(dev, model, clients, params, n_rounds=2):
+def phase_fed_profile(dev, model, clients, params, n_rounds=1):
     """torch.profiler over ``n_rounds`` fused FedVeca rounds (device data
     path), and the same rounds without it."""
     from torch.profiler import ProfilerActivity, profile
@@ -3545,10 +3577,11 @@ def _weights(clients):
 
 def phase_cohort(dev):
     """The paper's CNN experiment with partial participation: 20 clients,
-    5 a round, 40 rounds of FedVeca on the device data path."""
+    5 a round, COHORT["rounds"] rounds of FedVeca on the device data path."""
     model = build_model_by_name(FED["model"], device=dev)
     clients, test = fed_data(COHORT["clients"])
-    cfg = fed_cfg("fedveca", cohort_size=COHORT["cohort"], stats_decay=COHORT["stats_decay"])
+    cfg = fed_cfg("fedveca", cohort_size=COHORT["cohort"], stats_decay=COHORT["stats_decay"],
+                  rounds=COHORT["rounds"])
     FederatedSimulator(model, clients, fed_cfg("fedveca", rounds=2, cohort_size=COHORT["cohort"]),
                        test).run()  # warm-up, not counted
     sync()
@@ -3556,7 +3589,7 @@ def phase_cohort(dev):
     va_ops.reset_launches()
     log, out = run_mode(model, clients, test, cfg)
     launches = va_ops.launches["vecavg"]
-    want = 2 * FED["rounds"]
+    want = 2 * COHORT["rounds"]
     require(launches == want, f"[cohort] vecavg launched {launches} times, expected {want}")
     for r in log.rows:
         ids = np.asarray(r["cohort"])
@@ -3574,7 +3607,7 @@ def phase_cohort(dev):
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                cohorts_first=[r["cohort"] for r in log.rows[:3]],
                taus_last=log.rows[-1]["tau"])
-    print(f"[cohort] {FED['rounds']} rounds of {COHORT['cohort']} of {COHORT['clients']} clients: "
+    print(f"[cohort] {COHORT['rounds']} rounds of {COHORT['cohort']} of {COHORT['clients']} clients: "
           f"{out['ms_per_round']:.1f} ms a round, peak {out['peak_mem_gb']:.2f} GB, vecavg "
           f"{launches} launches, test loss {out['first_test_loss']:.4f} -> "
           f"{out['final_test_loss']:.4f} (every 10 rounds "
@@ -4121,7 +4154,7 @@ def phase_sharded_cnn(dev):
     """17a: the CNN experiment over 20 clients on ``make_federated_mesh(4)``
     (4 gloo ranks on the card, 5 clients each) against the same runs
     unsharded in this process: one teacher-forced round (host batches from
-    one state) and 10 rounds of the device data path."""
+    one state) and SHARD["rounds"] rounds of the device data path."""
     model = build_model_by_name(FED["model"], device=dev)
     clients, _ = fed_data(SHARD["clients"])
     one = fed_cfg("fedveca", rounds=1, data_path="host")
@@ -4376,7 +4409,8 @@ MA_LAUNCHER = ["--arch", "granite-moe-1b-a400m", "--reduced", "--data-axis", "2"
 MA_HYMBA_LAYERS, MA_PHI3_LAYERS, MA_WHISPER_LAYERS = 2, 2, 2
 # (a) and (b) cut for the script's time when (e)-(h) came (PR 35): granite
 # from 4 to 2 of 24 layers, Qwen1.5-0.5B's widths from 24 to 12 layers
-MA_GRANITE_LAYERS, MA_QWEN05_LAYERS = 2, 12
+# and Qwen1.5-0.5B's from 12 to 6 when phase 19 came
+MA_GRANITE_LAYERS, MA_QWEN05_LAYERS = 2, 6
 MA_XLSTM_TRAFFIC = dict(seq=16, batch=1, tau_max=2, eta=0.05, taus=(1, 1), probe=True)
 # a probed round's bar: the sharded round within this many times the
 # distance one ulp of the params moves the one-process round (max|d|)
@@ -4386,6 +4420,8 @@ MA_PROBE_FACTOR = 10
 # logits 0.17-0.28 from float32's, relative), and a bf16 step on 2 ranks
 # took another greedy token than one rank's in 1 of 4 rows (PR 35)
 MA_XLSTM_DECODE = dict(slots=8, prompt=64)
+# (h)'s LM cut from 12 to 6 layers for the script's time when phase 19 came
+MA_WIRE_LAYERS = 6
 MA_WIRE = dict(rounds=2, wires=("int8", "topk:1000"), commits=2, waves=2, latency="exp",
                grad_decay=0.9)
 # a wire round against the one-process round, teacher-forced: entries whose
@@ -4423,7 +4459,8 @@ def model_axis_plan(device="cuda"):
                  "hymba-1.5b": dict(MA_DECODE, cfg=dataclasses.replace(
                      hy, num_layers=MA_HYMBA_LAYERS))},
         xlstm_decode=dict(MA_XLSTM_DECODE, cfg=_f32(xl, num_layers=len(xl.xlstm_pattern))),
-        wire=dict(MA_WIRE, cfg=lm_config("100m")))
+        wire=dict(MA_WIRE, cfg=dataclasses.replace(lm_config("100m"),
+                                                    num_layers=MA_WIRE_LAYERS)))
 
 
 def _ma_sync(dev):
@@ -5269,10 +5306,13 @@ def finish_model_axis_launcher(proc):
 
 
 def phase_model_axis(dev, plan=None):
-    """18: the model axis on 4 gloo ranks sharing the card, then the
-    launcher's model axis as a subprocess."""
+    """18: the model axis on 4 gloo ranks sharing the card and, beside
+    them, the launcher's model axis as a subprocess."""
     plan = plan or model_axis_plan()
     _ma_free(dev)
+    # (d) runs beside the world (its 4 ranks of a reduced model share the card)
+    launcher = start_model_axis_launcher(
+        () if plan["device"] == "cuda" else ("--device", plan["device"]))
     t0 = time.perf_counter()
     outs = spawn(_model_axis_rank, MA["data"] * MA["model"], "gloo", plan, timeout_s=900)
     world_s = time.perf_counter() - t0
@@ -5291,9 +5331,241 @@ def phase_model_axis(dev, plan=None):
               "total: no full-depth run is claimed")
     print(f"[model-axis] the 4 ranks' world took {world_s:.1f} s; each part's ms on rank 0: "
           f"{ {k: round(v) for k, v in outs[0]['ms'].items()} }")
-    out["launcher"] = finish_model_axis_launcher(start_model_axis_launcher(
-        () if plan["device"] == "cuda" else ("--device", plan["device"])))
+    out["launcher"] = finish_model_axis_launcher(launcher)
     print(f"[model-axis] {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 19. the dry run against phase 18, and the sanitizer lanes (ROADMAP.md A18d,
+# A19)
+# ---------------------------------------------------------------------------
+
+SAN = dict(rounds=4, commits=4, tau_init=2)  # the CNN lanes' rounds and commits
+# the serve lane's StarCoder2-3B, cut to 4 of its 30 layers: the lane serves
+# phase 4's trace twice with a device flag an op, ~100 s at full depth
+SAN_SERVE_LAYERS = 4
+
+
+def _forward_call(S):
+    """The dry run's ``make_call`` of phase 18's forwards: the rank's meta
+    pieces, a batch of one [1, S] prompt (the VLM's float32 patch rows too),
+    ``forward(impl="pallas")`` under ``no_grad``."""
+    def make(cfg, mesh):
+        model = build_model(cfg, device="meta", mesh=mesh)
+        params = model.init(0)
+        batch = {"tokens": torch.empty((1, S), dtype=torch.int32, device="meta")}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.empty((1, cfg.num_patches, cfg.vision_dim),
+                                           dtype=torch.float32, device="meta")
+
+        def fn():
+            with torch.no_grad(), sh_api.logical_axis_rules(mesh):
+                model.forward(params, batch, impl="pallas")
+        return fn, ()
+    return make
+
+
+def _forward_bytes(cfg, S):
+    """A rank's parameter pieces and its batch, in bytes."""
+    n = dryrun.param_bytes(cfg, MA["model"])["total"] + 4 * S
+    if cfg.family == "vlm":
+        n += 4 * cfg.num_patches * cfg.vision_dim
+    return n
+
+
+DRYRUN_FORWARDS = ("starcoder2-3b", "phi-3-vision-4.2b")  # phase 18 (c), (g)
+
+
+def dryrun_predictions(plan=None):
+    """19 (a), the prediction: the dry run (meta tensors, a fake group of 4
+    ranks in this process, no card) of phase 18's round bundles and of its
+    StarCoder2-3B and phi-3 forwards: counts, parameter and input bytes a
+    rank, seconds. It needs nothing of phase 18's run, so ``main`` runs it
+    in a thread while phase 18's ranks run."""
+    plan = plan or model_axis_plan()
+    axes, ext = ("data", "model"), (MA["data"], MA["model"])
+    out = {}
+    for tag, (cfg, traffic) in plan["rounds"].items():
+        t0 = time.perf_counter()
+        t = _ma_traffic(traffic)
+        shape = ShapeConfig("lm", t["seq"], MA["data"] * t["batch"], "train")
+        kw = dict(tau_max=t["tau_max"], eta=t["eta"])
+        pred = dryrun.predict(cfg, axes, ext, dryrun.bundle_call(shape, **kw))
+        pred["bytes_per_rank"] = dryrun.param_bytes(cfg, MA["model"])["total"] + \
+            dryrun.input_bytes(cfg, axes, ext, shape, **kw)[1]
+        out[tag] = dict(pred, seconds=time.perf_counter() - t0)
+    for tag in DRYRUN_FORWARDS:
+        t0 = time.perf_counter()
+        cfg, S = plan["forwards"][tag]
+        pred = dryrun.predict(cfg, axes, ext, _forward_call(S))
+        pred["bytes_per_rank"] = _forward_bytes(cfg, S)
+        out[f"{tag} forward"] = dict(pred, seconds=time.perf_counter() - t0)
+    return out
+
+
+def phase_dryrun_check(model_axis, preds, plan=None):
+    """19 (a), the check: each prediction against what phase 18's gloo ranks
+    counted on the card: collectives (count and bytes by kind) and
+    launches equal, the predicted parameter and input bytes a rank at most
+    the measured peak a rank."""
+    plan = plan or model_axis_plan()
+    names = dict(vecavg="vecavg", rmsnorm="rmsnorm", flash="flash_attention",
+                 paged_decode="paged_decode")
+    out = {}
+    for tag, pred in preds.items():
+        got = (model_axis["rounds"][tag] if tag in plan["rounds"] else
+               model_axis["serving"][tag[:-len(" forward")]])
+        cfg = (plan["rounds"][tag][0] if tag in plan["rounds"] else
+               plan["forwards"][tag[:-len(" forward")]][0])
+        secs, b = pred["seconds"], pred["bytes_per_rank"]
+        pc = pred["collectives"]
+        mc = got["collectives_per_rank"]
+        want_c = dict(all_reduce=pc["all_reduce"]["count"], all_gather=pc["all_gather"]["count"],
+                      bytes=pc["all_reduce"]["bytes"] + pc["all_gather"]["bytes"])
+        pl = {k: pred["launches"][v] for k, v in names.items()}
+        peak = min(got["peak_gb_per_rank"]) * 1e9
+        row = dict(predicted=dict(collectives=pc, launches=pl, bytes_per_rank=b,
+                                  flops_per_rank=pred["flops"], scan_trip=pred["scan_trip"]),
+                   measured=dict(collectives=mc, launches=got["launches_per_rank"],
+                                 peak_bytes_per_rank=[g * 1e9 for g in got["peak_gb_per_rank"]]),
+                   seconds=secs)
+        print(f"[dryrun-check] {tag} ({cfg.num_layers} layers; dry run {secs:.1f} s): "
+              f"all-reduces {want_c['all_reduce']} predicted / {mc['all_reduce']} measured, "
+              f"all-gathers {want_c['all_gather']} / {mc['all_gather']}, bytes a rank "
+              f"{want_c['bytes']} / {mc['bytes']}; launches {pl} / {got['launches_per_rank']}; "
+              f"parameter and input bytes a rank {b / 1e9:.4f} GB predicted, peak "
+              f"{[round(g, 4) for g in got['peak_gb_per_rank']]} GB measured")
+        require(want_c == mc, f"[dryrun-check] {tag}: predicted collectives {want_c}, phase 18 "
+                f"counted {mc}")
+        require(all(m == pl for m in got["launches_per_rank"]),
+                f"[dryrun-check] {tag}: meta_launches {pl}, phase 18 launched "
+                f"{got['launches_per_rank']}")
+        require(b <= peak, f"[dryrun-check] {tag}: predicted {b} bytes a rank above the "
+                f"measured peak {peak:.0f}")
+        out[tag] = row
+    return out
+
+
+def _cnn_lane(dev, model, clients, params, sanitize, buffered=False):
+    """The CNN experiment through ``TrainDriver`` (4 rounds) or
+    ``BufferedRoundEngine`` (4 commits, 3 of 5 clients, 2 waves) with or
+    without the sanitizer: (log, runner, ms, vecavg launches)."""
+    from repro_torch.core.driver import TrainDriver
+
+    C = len(clients)
+    sizes = np.array([len(c) for c in clients], np.float64)
+    p = (sizes / sizes.sum()).astype(np.float32)
+    cc = ControllerConfig(eta=FED["eta"], alpha=FED["alpha"], tau_max=FED["tau_max"])
+    eng = RoundEngine(model.loss, EngineConfig(eta=FED["eta"], tau_max=FED["tau_max"],
+                                               batch_size=FED["batch"],
+                                               cohort_size=3 if buffered else None),
+                      shards=DeviceShards.from_datasets(clients, device=dev),
+                      controller=ControllerCore(cc, C))
+    if buffered:
+        runner = BufferedRoundEngine(eng, p, BufferedConfig(
+            waves=2, grad_decay=0.9, latency=LatencyModel("exp", seed=0), seed=0),
+            sanitize=sanitize)
+        n = SAN["commits"]
+    else:
+        runner = TrainDriver(eng, p, seed=0, sanitize=sanitize)
+        n = SAN["rounds"]
+    start = {k: v.clone() for k, v in params.items()}
+    sync()
+    va_ops.reset_launches()
+    t0 = time.perf_counter()
+    # deterministic cuDNN (as phase 16's parity runs): two plain runs give the same bits
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        log = runner.run(start, n, np.full(C, SAN["tau_init"], np.int32))
+    sync()
+    return log, runner, 1e3 * (time.perf_counter() - t0), va_ops.launches["vecavg"]
+
+
+def _lane_report(tag, runner, ms_plain, ms_lane, launches, want):
+    s = runner.sanitizer
+    require(s is not None and not s.active, f"[sanitize] {tag}: no sanitizer ran")
+    require(s.steady_builds == 0 and s.steady_segments == 0,
+            f"[sanitize] {tag}: {s.steady_builds} builds and {s.steady_segments} new allocator "
+            "segments after mark_steady()")
+    require(launches == want, f"[sanitize] {tag}: launches {launches}, expected {want}")
+    out = dict(builds=s.builds, segments=s.segments, steady_builds=s.steady_builds,
+               steady_segments=s.steady_segments, launches=launches, ms_plain=ms_plain,
+               ms_sanitized=ms_lane)
+    print(f"[sanitize] {tag}: bitwise the plain run; after warm-up {s.steady_builds} builds "
+          f"and {s.steady_segments} new segments (in the warm-up {s.builds} and "
+          f"{s.segments}); launches {launches}; {ms_lane:.1f} ms sanitized against "
+          f"{ms_plain:.1f} plain")
+    return out
+
+
+def phase_sanitize(dev):
+    """19 (b), (c): the sanitized lanes on the card, each against its plain
+    run, and a NaN-seeded CNN round."""
+    out = {}
+    model = build_model_by_name(FED["model"], device=dev)
+    clients, _ = fed_data()
+    params = model.init(0)
+    for tag, buffered, n in (("train-driver", False, SAN["rounds"]),
+                             ("buffered-rounds", True, SAN["commits"])):
+        lp, _, ms_p, va_p = _cnn_lane(dev, model, clients, params, None, buffered)
+        ls, runner, ms_s, va_s = _cnn_lane(dev, model, clients, params, True, buffered)
+        require(all(torch.equal(lp.params[k], ls.params[k]) for k in lp.params),
+                f"[sanitize] {tag}: params differ from the plain run's")
+        require([np.asarray(r["tau"]).tolist() for r in lp.rows] ==
+                [np.asarray(r["tau"]).tolist() for r in ls.rows],
+                f"[sanitize] {tag}: tau traces differ")
+        require(va_p == 2 * n, f"[sanitize] {tag}: the plain run launched vecavg {va_p} times")
+        out[tag] = _lane_report(f"{tag} (cnn, {n} {'commits' if buffered else 'rounds'})",
+                                runner, ms_p, ms_s, dict(vecavg=va_s), dict(vecavg=2 * n))
+    bad = {k: v.clone() for k, v in params.items()}
+    key = sorted(bad)[0]
+    bad[key].view(-1)[0] = float("nan")
+    try:
+        _cnn_lane(dev, model, clients, bad, True)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    require(raised is not None, "[sanitize] a NaN-seeded CNN round did not raise")
+    out["nan_round"] = dict(seeded=key, error=raised)
+    print(f"[sanitize] a NaN in {key}[0] raised FloatingPointError: {raised}")
+    del model, params, bad
+    torch.cuda.empty_cache()
+
+    smodel = build_model(dataclasses.replace(get_arch("starcoder2-3b"),
+                                             num_layers=SAN_SERVE_LAYERS), device=dev)
+    cfg = smodel.config
+    sparams = smodel.init(0)
+    loop_kw = dict(device=dev, n_slots=B, page_size=PS, cache_update="kernel")
+    plain = PagedServeLoop(smodel, sparams, **loop_kw)
+    plain.run(poisson_trace(2, rate=2.0, plen_choices=(128,), max_new_choices=(4,),
+                            vocab_size=cfg.vocab_size, seed=1))  # phase 4's warm-up
+    reqs_p = poisson_trace(**SERVE_TRACE, vocab_size=cfg.vocab_size)
+    sync()
+    stats_p = plain.run(reqs_p)
+    ms_p = 1e3 * stats_p["wall_s"]
+    del plain
+    lane = PagedServeLoop(smodel, sparams, sanitize=True, **loop_kw)
+    reqs_s = poisson_trace(**SERVE_TRACE, vocab_size=cfg.vocab_size)
+    pa_ops.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    stats_s = lane.run(reqs_s)  # the trace twice: cloned requests, then these
+    ms_s = 1e3 * (time.perf_counter() - t0)
+    require([r.out for r in reqs_s] == [r.out for r in reqs_p],
+            "[sanitize] serve-loop: greedy streams differ from the plain run's")
+    ticks = stats_s["decode_dispatches"]
+    require(ticks == stats_p["decode_dispatches"], f"[sanitize] serve-loop: {ticks} ticks "
+            f"against {stats_p['decode_dispatches']}")
+    want = dict(paged_decode=2 * cfg.num_layers * ticks, paged_insert=2 * len(reqs_s))
+    out["serve-loop"] = _lane_report(
+        f"serve-loop (starcoder2-3b {cfg.num_layers} of 30 layers, phase 4's trace of "
+        f"{len(reqs_s)} requests, {ticks} ticks, run twice)", lane, ms_p, ms_s,
+        dict(pa_ops.launches), want)
+    out["serve-loop"].update(wall_s_measured_pass=stats_s["wall_s"],
+                             wall_s_plain=stats_p["wall_s"])
+    del smodel, sparams, lane
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5402,7 +5674,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = run("17 sharded", phase_sharded, dev)
     torch.cuda.empty_cache()
-    model_axis = run("18 model axis", phase_model_axis, dev)
+    # 19 (a)'s dry run needs no card: it runs in a thread beside phase 18's ranks
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        predicting = pool.submit(dryrun_predictions)
+        model_axis = run("18 model axis", phase_model_axis, dev)
+        preds = run("19 dry run (after phase 18)", predicting.result)
+    torch.cuda.empty_cache()
+    dry = {"check": run("19 dry run vs phase 18", phase_dryrun_check, model_axis, preds)}
+    dry["sanitize"] = run("19 sanitizer lanes", phase_sanitize, dev)
     ma_r, ma_s, ma_w = model_axis["rounds"], model_axis["serving"], model_axis["wire"]
     paged = {f"{arch} {name}": v["launches"]
              for arch, key in ((FAM_MOE, "moe"), (FAM_HYMBA, "hymba"), (FAM_PHI3, "phi-3"))
@@ -5456,7 +5735,7 @@ def main() -> int:
     tree_row["launches_by_path"] = {
         "cnn experiment": fed["launches"]["vecavg"],
         f"granite-moe round, {GRANITE_ROUNDS} rounds": fam["granite_round"]["launches"]["vecavg"],
-        f"cnn cohort, {FED['rounds']} rounds of {COHORT['cohort']} of {COHORT['clients']}":
+        f"cnn cohort, {COHORT['rounds']} rounds of {COHORT['cohort']} of {COHORT['clients']}":
             part["cohort"]["launches"],
         f"qwen1.5-0.5b LM cohort, {LM_COHORT['rounds']} rounds":
             part["lm_cohort"]["launches"]["vecavg"],
@@ -5480,9 +5759,11 @@ def main() -> int:
            for n, v in sharded["launcher"].items()},
         **{f"{k} on (data 2, model 2), one round (each rank)":
            [n["vecavg"] for n in v["launches_per_rank"]] for k, v in ma_r.items()},
-        **{f"lm 100m on (data 2, model 2), {MA_WIRE['rounds']} rounds under {w} (each rank)":
+        **{f"lm 100m ({MA_WIRE_LAYERS} of 12 layers) on (data 2, model 2), {MA_WIRE['rounds']} "
+           f"rounds under {w} (each rank)":
            [n["vecavg"] for n in ma_w[w]["launches_per_rank"]] for w in MA_WIRE["wires"]},
-        f"lm 100m on (data 2, model 2), {MA_WIRE['commits']} buffered commits (each rank)":
+        f"lm 100m ({MA_WIRE_LAYERS} of 12 layers) on (data 2, model 2), {MA_WIRE['commits']} "
+        "buffered commits (each rank)":
             [n["vecavg"] for n in ma_w["buffered"]["launches_per_rank"]],
         "launcher --data-axis 2 --model-axis 2, 3 rounds (each rank)":
             model_axis["launcher"]["vecavg_per_rank"]}
@@ -5494,7 +5775,7 @@ def main() -> int:
                       "families": fam, "sched": sched, "families_serve": fam13,
                       "partial_participation": part, "remat": remat,
                       "wire_buffered": wire_buf, "sharded": sharded,
-                      "model_axis": model_axis, "ptxas": ptxas,
+                      "model_axis": model_axis, "dryrun_sanitize": dry, "ptxas": ptxas,
                       "seconds": clock,
                       "card": smi}))
     print(json.dumps({"kernels": rows}))

@@ -26,13 +26,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a part of the JAX package that the port lacks raises,
-    naming its ROADMAP.md item."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
-
-
 @contextlib.contextmanager
 def strict_fp32():
     """Run float32 work in full float32 on the card, as the JAX reference

@@ -1,3 +1,5 @@
-from repro_torch.configs.base import ArchConfig, get_arch, list_archs
+from repro_torch.configs.base import (ASSIGNED_ARCHS, SHAPES, ArchConfig, ShapeConfig, get_arch,
+                                     get_shape, list_archs, shape_supported)
 
-__all__ = ["ArchConfig", "get_arch", "list_archs"]
+__all__ = ["ASSIGNED_ARCHS", "SHAPES", "ArchConfig", "ShapeConfig", "get_arch", "get_shape",
+           "list_archs", "shape_supported"]

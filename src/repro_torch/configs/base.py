@@ -1,6 +1,6 @@
 """Architecture configs and the registry (a copy of the JAX package's
 ``configs/base.py``: ``ArchConfig``, ``param_count()``, ``reduced()``,
-``ShapeConfig`` and ``get_arch``).
+``ShapeConfig``, ``SHAPES``, ``get_arch`` and ``shape_supported``).
 
 Only the architectures the port runs are registered (the decoder-only,
 VLM and audio families and the paper's three toy models); each resolves to a module of
@@ -200,6 +200,19 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
 
 
+# the JAX package's assigned input shapes (the dry run's sweep)
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -225,6 +238,12 @@ ARCH_MODULES = {
 }
 
 
+# the ten assigned architectures, in the JAX package's order (the dry run's sweep)
+ASSIGNED_ARCHS = ["starcoder2-3b", "granite-moe-1b-a400m", "qwen1.5-32b", "whisper-medium",
+                  "hymba-1.5b", "phi-3-vision-4.2b", "deepseek-coder-33b", "qwen2-moe-a2.7b",
+                  "xlstm-1.3b", "nemotron-4-15b"]
+
+
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; the port has: "
@@ -235,3 +254,25 @@ def get_arch(name: str) -> ArchConfig:
 
 def list_archs():
     return list(ARCH_MODULES)
+
+
+def shape_supported(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is a valid dry-run pair, with the reason if not
+    (the JAX package's rules and words):
+
+      * long_500k needs sub-quadratic attention: SSM / hybrid run it; dense
+        archs only via their sliding-window variant;
+      * whisper's decoder is 448-token; decode shapes are meaningless for it;
+      * toy models only train.
+    """
+    if cfg.family == "toy":
+        return (shape.kind == "train", "toy models train only")
+    if cfg.name.startswith("whisper") and shape.kind == "decode":
+        return (False, "whisper decoder context is 448 tokens; 32k/500k decode n/a")
+    if shape.name == "long_500k":
+        if cfg.family in ("ssm", "hybrid"):
+            return (True, "")
+        if cfg.sliding_window or cfg.swa_long_context_variant:
+            return (True, "")
+        return (False, "full quadratic attention only; no SWA variant claimed by source")
+    return (True, "")

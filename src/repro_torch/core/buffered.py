@@ -58,6 +58,11 @@ an integer hash of (seed, stream tag, client id, dispatch count), as the
 sampler's (``serve/sampling.py``, P7), since ``jax.random.fold_in`` cannot
 be reproduced. A client's draw depends only on those four, never on the
 cohort it shares.
+
+``sanitize=`` runs the commits inside ``analysis.sanitize.Sanitizer``:
+everything up to commit 0 is the warm-up, then no library build and no
+new allocator segment (asserted after the last commit), NaN trapped at
+the op that makes it.
 """
 from __future__ import annotations
 
@@ -71,7 +76,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported, strict_fp32
+from repro_torch import strict_fp32
+from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.fedveca import RoundStats
 from repro_torch.core.scheduler import AdmissionScheduler
@@ -183,8 +189,7 @@ class BufferedRoundEngine(AdmissionScheduler):
         if engine._strategy.uses_scaffold:
             raise ValueError(f"mode {engine.cfg.mode!r} keeps per-client "
                              "server state; buffered rounds don't support it")
-        if sanitize:
-            raise not_ported("sanitize= (the analysis lane)", "A19")
+        self.sanitizer = _sanitize.coerce(sanitize, label="buffered-rounds")
         self.engine = engine
         self.bcfg = bcfg or BufferedConfig()
         if self.bcfg.waves < 1:
@@ -442,26 +447,38 @@ class BufferedRoundEngine(AdmissionScheduler):
         self.dispatch_s = 0.0
         self.tau_all = 0
 
-        for _ in range(min(self.bcfg.waves, steps)):
-            self._dispatch_wave()
-        while self._version < steps:
-            before = self._version
-            self.tick()
-            if self._version == before:
-                raise RuntimeError("buffered scheduler made no progress: buffer "
-                                   "cannot fill (no arrivals left?)")
-        while self._pend:
-            self._finalize(self._pend.popleft())
+        # under sanitize= everything up to commit 0 is the warm-up, inside
+        # the context (the JAX package's order)
+        with _sanitize.maybe(self.sanitizer):
+            for _ in range(min(self.bcfg.waves, steps)):
+                self._dispatch_wave()
+            while self._version < steps:
+                before = self._version
+                self.tick()
+                if self._version == before:
+                    raise RuntimeError("buffered scheduler made no progress: buffer "
+                                       "cannot fill (no arrivals left?)")
+                if self.sanitizer is not None and before == 0:
+                    # commit 0 ran every piece once: waves, folds, the commit step
+                    self._sync()
+                    self.sanitizer.mark_steady()
+            while self._pend:
+                self._finalize(self._pend.popleft())
 
-        t0 = time.perf_counter()
-        if self._dev.type == "cuda":
-            torch.cuda.synchronize(self._dev)
-        self.host_blocked_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self._sync()
+            self.host_blocked_s += time.perf_counter() - t0
+            if self.sanitizer is not None and steps > 1:
+                self.sanitizer.assert_steady_state()
         log.params = self._params  # type: ignore[attr-defined]
         log.tau_all = self.tau_all  # type: ignore[attr-defined]
         log.controller_state = self._cstate  # type: ignore[attr-defined]
         log.close()
         return log
+
+    def _sync(self) -> None:
+        if self._dev.type == "cuda":
+            torch.cuda.synchronize(self._dev)
 
     @property
     def sim_time(self) -> float:

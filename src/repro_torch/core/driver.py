@@ -26,6 +26,11 @@ On a client-sharded engine every rank runs this loop and dispatches every
 round; the rows are built from the replicated scalars and the gathered
 ``[C]`` arrays, so they are the same on every rank, and rank 0 alone logs
 them and calls ``on_row``. ``host_blocked_s`` is the rank's own.
+
+``sanitize=`` (True or an ``analysis.sanitize.Sanitizer``) runs the loop
+inside the sanitizer: NaN trapped at the op that makes it, round 0 the
+warm-up, and after it no kernel library built or loaded and no new
+allocator segment (``assert_steady_state`` after the last round).
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported, strict_fp32
+from repro_torch import strict_fp32
+from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.core.engine import RoundEngine
 from repro_torch.data.device import format_batch, round_key
 from repro_torch.data.synthetic import Dataset
@@ -127,8 +133,7 @@ class TrainDriver:
                              "controller=ControllerCore")
         if overlap < 0:
             raise ValueError(f"overlap must be >= 0, got {overlap}")
-        if sanitize:
-            raise not_ported("sanitize= (the analysis lane)", "A19")
+        self.sanitizer = _sanitize.coerce(sanitize, label="train-driver")
         self.engine = engine
         self.p = np.asarray(p, np.float32)
         self.overlap = overlap
@@ -165,28 +170,38 @@ class TrainDriver:
         self.dispatch_s = 0.0
         self.tau_all = 0
 
-        for k in range(rounds):
-            # the cohort is drawn before the batches from the one RNG, as the
-            # JAX package's driver draws them, so host batches stay in step
-            cohort = engine.sample_cohort(rng)
-            batches = self.batches_fn(rng) if self.batches_fn else None
-            key = None if batches is not None else round_key(self.seed, k)
-            t0 = time.perf_counter()
-            params, cstate, scaffold, diag = engine.run_fused(
-                params, cstate, p, key=key, batches=batches, scaffold=scaffold, cohort=cohort)
-            self.dispatch_s += time.perf_counter() - t0
-            ev = None
-            if self.eval_fn and ((k % self.eval_every) == 0 or k == rounds - 1):
-                ev = self.eval_fn(params)
-            pending.append((k, cohort, diag, ev))
-            while len(pending) > self.overlap:
+        # under sanitize= round 0 is the warm-up, inside the context (the
+        # JAX package's order): it builds the kernels and fills the
+        # allocator's pool; every later round must do neither
+        with _sanitize.maybe(self.sanitizer):
+            for k in range(rounds):
+                # the cohort is drawn before the batches from the one RNG, as
+                # the JAX package's driver draws them, so host batches stay in step
+                cohort = engine.sample_cohort(rng)
+                batches = self.batches_fn(rng) if self.batches_fn else None
+                key = None if batches is not None else round_key(self.seed, k)
+                t0 = time.perf_counter()
+                params, cstate, scaffold, diag = engine.run_fused(
+                    params, cstate, p, key=key, batches=batches, scaffold=scaffold,
+                    cohort=cohort)
+                self.dispatch_s += time.perf_counter() - t0
+                ev = None
+                if self.eval_fn and ((k % self.eval_every) == 0 or k == rounds - 1):
+                    ev = self.eval_fn(params)
+                pending.append((k, cohort, diag, ev))
+                while len(pending) > self.overlap:
+                    self._finalize(pending.popleft(), log)
+                if self.sanitizer is not None and k == 0:
+                    _sync(params)
+                    self.sanitizer.mark_steady()
+            while pending:
                 self._finalize(pending.popleft(), log)
-        while pending:
-            self._finalize(pending.popleft(), log)
 
-        t0 = time.perf_counter()
-        _sync(params)
-        self.host_blocked_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _sync(params)
+            self.host_blocked_s += time.perf_counter() - t0
+            if self.sanitizer is not None and rounds > 1:
+                self.sanitizer.assert_steady_state()
         log.params = params  # type: ignore[attr-defined]
         log.tau_all = self.tau_all  # type: ignore[attr-defined]
         log.controller_state = cstate  # type: ignore[attr-defined]

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -38,6 +38,21 @@ SOURCES: Dict[str, str] = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+# libraries compiled by nvcc and loaded by ctypes in this process: what can
+# recur after a run's warm-up (``analysis/sanitize.py`` counts them)
+events: Dict[str, int] = {"builds": 0, "loads": 0}
+
+# the active sanitizers' checks of a kernel's outputs (a ctypes launch is
+# no aten op, so no dispatch mode sees what it writes)
+output_checks: List[Callable] = []
+
+
+def check_outputs(kernel: str, *outs) -> None:
+    """Hand ``kernel``'s freshly written outputs to every active check (none
+    outside a sanitizer: a loop over an empty list)."""
+    for check in output_checks:
+        check(kernel, outs)
 
 
 class KernelBuildError(RuntimeError):
@@ -92,6 +107,7 @@ def build_all(names: List[str] | None = None) -> Dict[str, float]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a reader never sees a half-written .so
+        events["builds"] += 1
     if failed:
         raise KernelBuildError("\n".join(failed))
     return secs
@@ -109,4 +125,5 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         _loaded[name] = lib
+        events["loads"] += 1
     return lib

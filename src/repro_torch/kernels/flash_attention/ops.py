@@ -7,6 +7,13 @@ no fallback. ``launches["flash_attention"]`` counts kernel launches and is
 bumped only where the kernel is launched, so a run can prove that its
 attention went through it.
 
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the plain
+version for its outputs' shapes and dtypes and adds one to
+``meta_launches``: what the card would launch for the same call, counted
+where the CUDA path launches, never in ``launches``. This is no fallback:
+``meta`` carries no data, so nothing is computed. Any device other than
+``cpu``, ``cuda`` and ``meta`` raises.
+
 The op is forward only, as the JAX package's Pallas kernel is
 (``jax.grad`` through it fails): its backward raises on every device.
 """
@@ -22,6 +29,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
 launches: Dict[str, int] = {"flash_attention": 0}
+meta_launches: Dict[str, int] = {"flash_attention": 0}  # what the card would launch (meta)
 
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernel's template instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,8 +48,9 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, meta_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _lib():
@@ -109,6 +118,7 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int):
         raise RuntimeError(f"flash_attention launch: CUDA error {err} "
                            f"({torch.cuda.get_device_name(dev)})")
     launches["flash_attention"] += 1
+    build.check_outputs("flash_attention", out)
     return out
 
 
@@ -122,6 +132,11 @@ class _FlashAttention(torch.autograd.Function):
     def forward(q, k, v, causal, window, q_offset):
         if q.device.type == "cpu":
             return ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        if q.device.type == "meta":
+            out = ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+            if out.numel():  # as _launch, which returns an empty output unlaunched
+                meta_launches["flash_attention"] += 1
+            return out
         if q.device.type != "cuda":
             raise ValueError(f"flash_attention: no kernel for {q.device}")
         return _launch(q, k, v, causal, window, q_offset)

@@ -6,6 +6,15 @@ kernel or raises (bad dtype, shape, layout, a failed build or launch);
 there is no fallback. ``launches`` counts kernel launches per op and is
 bumped only where a kernel is launched, so a run can prove its path went
 through the kernels. Both ops update the pools in place.
+
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the plain
+version for its outputs' shapes and dtypes and adds one to
+``meta_launches``: what the card would launch for the same call, counted
+where the CUDA path launches, never in ``launches``. This is no fallback:
+``meta`` carries no data, so nothing is computed. The in-place writes
+(the decode's new rows, the insert's pages) change no shape and select by
+value, so ``meta`` skips them. Any device other than ``cpu``, ``cuda`` and
+``meta`` raises.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import ref
 
 launches: Dict[str, int] = {"paged_decode": 0, "paged_insert": 0}
+# what the card would launch (meta tensors)
+meta_launches: Dict[str, int] = {"paged_decode": 0, "paged_insert": 0}
 # the split count, blocks an SM and workspace bytes of the last decode launch
 last_decode: Dict[str, int] = {}
 
@@ -29,8 +40,9 @@ _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, meta_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # csrc/paged_attention.cu's decode: the head dims it is built for, and G <=
@@ -114,6 +126,11 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
     if q.device.type == "cpu":
         return ref.paged_decode_attention(q, k_pool, v_pool, k_new, v_new,
                                           page_table, pos, active, window=window)
+    if q.device.type == "meta":
+        # the pool write selects rows by value, which meta cannot; it changes
+        # no shape, so meta runs the plain attention alone
+        meta_launches["paged_decode"] += 1
+        return ref.paged_attend(q, k_pool, v_pool, page_table, pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
     dt = q.dtype
@@ -167,6 +184,7 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
         int(window), 1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "paged_decode_attention launch")
     launches["paged_decode"] += 1
+    build.check_outputs("paged_decode", out)
     last_decode.update(splits=splits, blocks_per_sm=per_sm, workspace_bytes=work.numel() * 4)
     return out
 
@@ -178,6 +196,10 @@ def paged_insert(k_pool, v_pool, k_src, v_src, page_ids):
     other page is touched."""
     if k_pool.device.type == "cpu":
         ref.paged_insert(k_pool, v_pool, k_src, v_src, page_ids)
+        return
+    if k_pool.device.type == "meta":  # an in-place copy: nothing for meta to run
+        if page_ids.shape[0]:
+            meta_launches["paged_insert"] += 1
         return
     if k_pool.device.type != "cuda":
         raise ValueError(f"paged_insert: no kernel for {k_pool.device}")
@@ -202,3 +224,4 @@ def paged_insert(k_pool, v_pool, k_src, v_src, page_ids):
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "paged_insert launch")
     launches["paged_insert"] += 1
+    build.check_outputs("paged_insert", k_pool, v_pool)

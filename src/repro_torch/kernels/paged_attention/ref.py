@@ -59,17 +59,31 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, page_table, pos,
 
     Writes the new token's row into the pools (active slots whose target
     page is allocated), then attends over the slot's gathered pages."""
+    write_new_rows(k_pool, v_pool, k_new, v_new, page_table, pos, active, window=window)
+    return paged_attend(q, k_pool, v_pool, page_table, pos, window=window)
+
+
+def write_new_rows(k_pool, v_pool, k_new, v_new, page_table, pos, active, *,
+                   window: int = 0) -> None:
+    """The decode's pool write, in place: each active slot's new K/V row at
+    its position, where its target page is allocated."""
+    ps = k_pool.shape[1]
+    pos = pos.to(torch.int64)
+    phys, ok = write_target(page_table.to(torch.int64), pos, ps, window, active)
+    idx = (pos % window) if window else pos
+    k_pool[phys[ok], idx[ok] % ps] = k_new[ok]
+    v_pool[phys[ok], idx[ok] % ps] = v_new[ok]
+
+
+def paged_attend(q, k_pool, v_pool, page_table, pos, *, window: int = 0):
+    """The decode's attention of each slot's query heads over its gathered
+    pages (the pools as they are) -> o [B,Hq,hd] in q.dtype."""
     B, Hq, hd = q.shape
     N, ps, Hkv, _ = k_pool.shape
     P = page_table.shape[1]
     G = Hq // Hkv
     pos = pos.to(torch.int64)
     page_table = page_table.to(torch.int64)
-
-    phys, ok = write_target(page_table, pos, ps, window, active)
-    idx = (pos % window) if window else pos
-    k_pool[phys[ok], idx[ok] % ps] = k_new[ok]
-    v_pool[phys[ok], idx[ok] % ps] = v_new[ok]
 
     safe_pt = page_table.clamp(min=0)
     k = k_pool[safe_pt].reshape(B, P * ps, Hkv, hd)

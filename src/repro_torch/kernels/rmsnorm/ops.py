@@ -7,6 +7,13 @@ no fallback. ``launches["rmsnorm"]`` counts kernel launches and is bumped
 only where the kernel is launched, so a run can prove its norms went
 through it.
 
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the plain
+version for its outputs' shapes and dtypes and adds one to
+``meta_launches``: what the card would launch for the same call, counted
+where the CUDA path launches, never in ``launches``. This is no fallback:
+``meta`` carries no data, so nothing is computed. Any device other than
+``cpu``, ``cuda`` and ``meta`` raises.
+
 The op is a ``torch.autograd.Function`` written for ``torch.func``:
 
   * the backward is the gradient of the plain formula, in torch ops on the
@@ -31,6 +38,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm import ref
 
 launches: Dict[str, int] = {"rmsnorm": 0}
+meta_launches: Dict[str, int] = {"rmsnorm": 0}  # what the card would launch (meta tensors)
 
 MAX_D = 8192  # csrc/rmsnorm.cu's kMaxD
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,8 +53,9 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, meta_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _lib():
@@ -70,16 +79,31 @@ def _row_stride(t: torch.Tensor):
     return stride
 
 
-def _launch(x: torch.Tensor, scale: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
-    dev = x.device
+def _validate(x: torch.Tensor, scale: torch.Tensor) -> None:
+    """What the kernel takes (checked on ``meta`` too, so that the dry run
+    predicts a call the card would refuse)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"rmsnorm: dtype {x.dtype} not supported (float32, bfloat16)")
-    if scale.dtype != torch.float32 or scale.device != dev:
-        raise TypeError(f"rmsnorm: scale must be float32 on {dev}, got {scale.dtype} on "
+    if scale.dtype != torch.float32 or scale.device != x.device:
+        raise TypeError(f"rmsnorm: scale must be float32 on {x.device}, got {scale.dtype} on "
                         f"{scale.device}")
     d = x.shape[-1]
     if not 1 <= d <= MAX_D:
         raise ValueError(f"rmsnorm: d={d} outside [1, {MAX_D}]")
+
+
+def _on_meta(x: torch.Tensor, scale: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
+    _validate(x, scale)
+    out = ref.rmsnorm(x, scale, eps, groups)
+    if out.numel():
+        meta_launches["rmsnorm"] += 1
+    return out
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
+    dev = x.device
+    _validate(x, scale)
+    d = x.shape[-1]
     out = torch.empty(x.shape, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -100,6 +124,7 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, groups: int, eps: float) -> to
     if err != 0:
         raise RuntimeError(f"rmsnorm launch: CUDA error {err} ({torch.cuda.get_device_name(dev)})")
     launches["rmsnorm"] += 1
+    build.check_outputs("rmsnorm", out)
     return out
 
 
@@ -117,6 +142,8 @@ class RMSNorm(torch.autograd.Function):
         _check(x, scale, groups)
         if x.device.type == "cpu":
             return ref.rmsnorm(x, scale, eps, groups)
+        if x.device.type == "meta":
+            return _on_meta(x, scale, groups, eps)
         if x.device.type != "cuda":
             raise ValueError(f"rmsnorm: no kernel for {x.device}")
         return _launch(x, scale, groups, eps)

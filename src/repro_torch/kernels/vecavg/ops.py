@@ -6,6 +6,13 @@ kernel or raises (bad dtype, shape, too many leaves, a failed build or
 launch); there is no fallback. ``launches["vecavg"]`` counts kernel
 launches, one a call, and is bumped only where the kernel is launched, so
 a run can prove its server reduce went through it.
+
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the plain
+version for its outputs' shapes and dtypes and adds one to
+``meta_launches``: what the card would launch for the same call, counted
+where the CUDA path launches, never in ``launches``. This is no fallback:
+``meta`` carries no data, so nothing is computed. Any device other than
+``cpu``, ``cuda`` and ``meta`` raises.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.vecavg import ref
 
 launches: Dict[str, int] = {"vecavg": 0}
+meta_launches: Dict[str, int] = {"vecavg": 0}  # what the card would launch (meta tensors)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PER_16B = {torch.float32: 4, torch.bfloat16: 8}  # elements in 16 bytes
@@ -48,8 +56,9 @@ _workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, meta_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,11 +109,10 @@ def _f32_on(dev, t, C, what):
     return t.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def _launch(leaves: List[torch.Tensor], p, scale, div) -> Tuple[List[torch.Tensor],
-                                                                 torch.Tensor]:
-    """One kernel launch over ``leaves`` (CUDA tensors [C, ...]) -> (one
-    output a leaf, shaped like the leaf without its client axis, and the
-    per-client squared norms [C] float32)."""
+def _check_leaves(leaves: List[torch.Tensor]):
+    """(device, C) of leaves the kernel takes; raises otherwise (checked on
+    ``meta`` too, so that the dry run predicts a call the card would
+    refuse)."""
     dev = leaves[0].device
     C = leaves[0].shape[0] if leaves[0].dim() else 0
     if not 1 <= C <= _MAX_CLIENTS:
@@ -119,6 +127,23 @@ def _launch(leaves: List[torch.Tensor], p, scale, div) -> Tuple[List[torch.Tenso
             raise TypeError(f"vecavg: dtype {x.dtype} not supported (float32, bfloat16)")
         if x.dim() < 1 or x.shape[0] != C:
             raise ValueError(f"vecavg: every leaf must be [{C}, ...], got {tuple(x.shape)}")
+    return dev, C
+
+
+def _on_meta(leaves: List[torch.Tensor]) -> None:
+    """Count the launch the card would make for ``leaves`` (none when every
+    leaf is empty, as ``_launch`` returns before launching)."""
+    _check_leaves(leaves)
+    if any(x.numel() for x in leaves):
+        meta_launches["vecavg"] += 1
+
+
+def _launch(leaves: List[torch.Tensor], p, scale, div) -> Tuple[List[torch.Tensor],
+                                                                 torch.Tensor]:
+    """One kernel launch over ``leaves`` (CUDA tensors [C, ...]) -> (one
+    output a leaf, shaped like the leaf without its client axis, and the
+    per-client squared norms [C] float32)."""
+    dev, C = _check_leaves(leaves)
     p32 = _f32_on(dev, p, C, "p")
     if div is not None:
         if div.dtype != torch.float32:
@@ -166,6 +191,7 @@ def _launch(leaves: List[torch.Tensor], p, scale, div) -> Tuple[List[torch.Tenso
         s_value, sqn.data_ptr(), ws.data_ptr(), C, G, stream.cuda_stream)
     _raise_on(err, "vecavg launch")
     launches["vecavg"] += 1
+    build.check_outputs("vecavg", *outs, sqn)
     return outs, sqn
 
 
@@ -175,6 +201,9 @@ def vecavg(u: torch.Tensor, p: torch.Tensor, scale) -> Tuple[torch.Tensor, torch
     per-client ||u_c||^2 [C] float32). The one-leaf case of the tree form's
     kernel."""
     if u.device.type == "cpu":
+        return ref.vecavg(u, p, scale)
+    if u.device.type == "meta":
+        _on_meta([u])
         return ref.vecavg(u, p, scale)
     if u.device.type != "cuda":
         raise ValueError(f"vecavg: no kernel for {u.device}")
@@ -199,6 +228,9 @@ def vecavg_tree(grads_stacked: Dict[str, torch.Tensor], p, scale, div=None):
     keys = sorted(grads_stacked)
     dev = grads_stacked[keys[0]].device
     if dev.type == "cpu":
+        return ref.vecavg_tree(grads_stacked, p, scale, div)
+    if dev.type == "meta":
+        _on_meta([grads_stacked[k] for k in keys])
         return ref.vecavg_tree(grads_stacked, p, scale, div)
     if dev.type != "cuda":
         raise ValueError(f"vecavg: no kernel for {dev}")

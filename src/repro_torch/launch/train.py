@@ -27,7 +27,9 @@ launcher takes C = the data extent), each rank holding its model-axis
 pieces of the parameters (``sharding/partition.py``; every family, with
 ``--wire`` and ``--buffered`` too). ``--production-mesh`` builds the (data 16, model 16) mesh,
 which needs 256 ranks (started by ``torch.distributed.run``): a smaller
-world raises with the start hint. ``--sanitize`` raises naming A19.
+world raises with the start hint. ``--sanitize`` runs the driver (or the
+buffered engine) inside ``analysis.sanitize.Sanitizer``: round 0 the
+warm-up, then no library build and no new allocator segment.
 """
 from __future__ import annotations
 
@@ -37,8 +39,6 @@ import sys
 import time
 
 import numpy as np
-
-from repro_torch import not_ported
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -80,15 +80,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0,
                     help="root seed: init, per-client data topics, round keys")
     ap.add_argument("--sanitize", action="store_true",
-                    help="the analysis lane (ROADMAP.md A19: raises)")
+                    help="run under the sanitizer lane (analysis/sanitize.py): NaN "
+                         "trapped, no build or new allocator segment after round 0")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
                     help="process-group backend of the ranks under --mesh")
     ap.add_argument("--device", default=None,
                     help="each rank's device under gloo, and the run's without --mesh "
                          "(default: cuda)")
     args = ap.parse_args(argv)
-    if args.sanitize:
-        raise not_ported("--sanitize (the analysis lane)", "A19")
     if args.mesh and args.model_axis > 1:
         ap.error("--mesh shards the client axis alone; a model axis is "
                  "--data-axis D --model-axis M")
@@ -185,7 +184,7 @@ def run(args: argparse.Namespace) -> list:
             BufferedConfig(waves=args.buffer_waves, grad_decay=args.grad_decay,
                            latency=LatencyModel(args.latency, scale=args.latency_scale),
                            seed=args.seed, overlap=max(args.overlap, 1)),
-            mode=args.mode, on_row=on_row)
+            mode=args.mode, on_row=on_row, sanitize=args.sanitize)
         log = runner.run(params, args.rounds, taus)
         summary = (f"sim_time {runner.sim_time:.1f} ticks over {args.rounds} buffered steps "
                    f"({runner.wave_dispatches} waves, {runner.fold_dispatches} folds)")
@@ -196,7 +195,7 @@ def run(args: argparse.Namespace) -> list:
                                                           args.batch_per_client,
                                                           device=mesh.device))
                         if args.host_data else None),
-            on_row=on_row)
+            on_row=on_row, sanitize=args.sanitize)
         log = runner.run(params, args.rounds, taus)
         summary = f"{args.rounds} rounds"
     launches = dict(va_ops.launches, **rn_ops.launches)

@@ -250,7 +250,10 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     """Inverse frequencies [head_dim / 2] on ``device`` (default ``cuda``)."""
     device = resolve_device(device)
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exps)
+    # a float32 scalar made by a factory (not copied from a Python number
+    # by ``torch.tensor``), so that it also works under ``torch.func`` on meta
+    base = torch.full((), float(theta), dtype=torch.float32, device=device)
+    return 1.0 / (base ** exps)
 
 
 def apply_rope(x, positions, theta: float):

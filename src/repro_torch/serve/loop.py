@@ -22,8 +22,10 @@ package's, with its gates and its integer behaviour.
 Differences from the JAX loops: caches are updated in place (no donation);
 chunk writes under ``"kernel"`` take the plain ``"scatter"`` write where
 the JAX package takes ``"mask"`` (same bits; ``stats["extend_write"]``);
-sampled streams are the port's own (``serve/sampling.py``). The sanitizer
-lane (ROADMAP.md A19) is not ported and raises ``NotImplementedError``.
+sampled streams are the port's own (``serve/sampling.py``). Under
+``sanitize=`` (``analysis/sanitize.py``) ``run()`` drains cloned requests
+first (the warm-up), marks the steady state, replays the trace and asserts
+it; the paged loop audits its page refcounts every tick meanwhile.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.core.scheduler import AdmissionScheduler
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model, decode_capability
@@ -89,10 +92,6 @@ def _round_up(n: int, mult: int) -> int:
     return -(-n // mult) * mult
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 class ServeLoop(AdmissionScheduler):
     """Continuous-batching loop over one contiguous ``DecodeCache`` of
     ``n_slots`` rows: admission + one ``decode_step`` per tick.
@@ -121,7 +120,10 @@ class ServeLoop(AdmissionScheduler):
       sampler: ``SamplerConfig``: greedy (default) or temperature / top-k
         sampling with per-request streams of ``(seed, rid, n)``.
       unroll: the JAX package's scan-unrolling compile knob; ignored.
-      sanitize: the JAX package's analysis lane, ROADMAP.md A19; raises.
+      sanitize: True or an ``analysis.sanitize.Sanitizer``: ``run()`` drains
+        the trace twice inside it (cloned requests first, the warm-up; then
+        the requests, which must build no library and take no new
+        allocator segment), NaN trapped at the op that makes it.
     """
 
     def __init__(self, model: Model, params, *, device=None, n_slots: int = 8,
@@ -129,9 +131,8 @@ class ServeLoop(AdmissionScheduler):
                  cache_update: str = "kernel", unroll: int = 1,
                  sampler: Optional[SamplerConfig] = None, sanitize=None):
         del unroll
-        if sanitize:
-            _not_ported(f"{type(self).__name__}(sanitize=...), the analysis lane,", "A19")
         super().__init__()
+        self.sanitizer = _sanitize.coerce(sanitize, label="serve-loop")
         _check_servable(model)
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -290,7 +291,22 @@ class ServeLoop(AdmissionScheduler):
 
     def run(self, requests: Sequence[Request]) -> Dict:
         """Drive every request to completion from a fresh slot table;
-        returns per-run stats."""
+        returns per-run stats.
+
+        Under ``sanitize=`` the trace runs twice: once on cloned requests
+        (the warm-up: every kernel built, the allocator's pool filled),
+        then on the requests with the steady state asserted. Stats and
+        outputs come from the second pass."""
+        if self.sanitizer is not None and not self.sanitizer.active:
+            with self.sanitizer:
+                self._drain_trace([r.clone() for r in requests])
+                self.sanitizer.mark_steady()
+                stats = self._drain_trace(requests)
+                self.sanitizer.assert_steady_state()
+            return stats
+        return self._drain_trace(requests)
+
+    def _drain_trace(self, requests: Sequence[Request]) -> Dict:
         self.reset()
         self._queue = RequestQueue(requests)
         t0 = time.perf_counter()
@@ -370,8 +386,8 @@ class PagedServeLoop(ServeLoop):
     preemption works for every paged family (the hybrid family's SSM row is
     staged beside its pages). The xLSTM family has no KV to page: it is
     served by ``ServeLoop``. ``unroll`` is the JAX package's
-    scan-unrolling compile knob and is ignored. ``sanitize`` (the JAX
-    package's analysis lane) is ROADMAP.md A19 and raises.
+    scan-unrolling compile knob and is ignored. Under ``sanitize`` the
+    loop also runs ``check_invariants()`` after every tick.
     """
 
     def __init__(self, model: Model, params, *, device=None, n_slots: int = 8,
@@ -447,6 +463,10 @@ class PagedServeLoop(ServeLoop):
     def tick(self, queue: Optional[RequestQueue] = None):
         self._chunk_left = self.prefill_chunk  # this tick's chunk token budget
         super().tick(queue)
+        if self.sanitizer is not None and self.sanitizer.active:
+            # the sanitize lane audits page refcounts every tick: a leaked
+            # or doubly freed page fails at the tick that broke it
+            self.check_invariants()
 
     def _rows_needed(self, req: Request) -> int:
         rows = req.plen + req.max_new - 1

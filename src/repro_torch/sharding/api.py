@@ -96,16 +96,21 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # collectives issued by this process and the bytes of their buffers (this
 # rank's input): the client axis's traffic, as ``launches`` counts kernels
 collectives: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
+# the same bytes by kind (the dry run's table, launch/dryrun.py)
+collective_bytes: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
     collectives[kind] += 1
-    collectives["bytes"] += t.numel() * t.element_size()
+    collectives["bytes"] += n
+    collective_bytes[kind] += n
 
 
 def reset_collectives() -> None:
-    for k in collectives:
-        collectives[k] = 0
+    for counts in (collectives, collective_bytes):
+        for k in counts:
+            counts[k] = 0
 
 
 def all_reduce(tensors: List[torch.Tensor], group, op: str = "sum") -> List[torch.Tensor]:

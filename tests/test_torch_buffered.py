@@ -296,8 +296,9 @@ def test_buffered_validation(setup):
                             setup["p"])
     with pytest.raises(ValueError, match="scaffold"):
         BufferedRoundEngine(_engine(setup, 3, mode="scaffold"), setup["p"])
-    with pytest.raises(NotImplementedError, match="A19"):
-        BufferedRoundEngine(eng, setup["p"], sanitize=True)
+    # the sanitizer lane is ported (tests/test_torch_sanitize.py runs it)
+    lane = BufferedRoundEngine(eng, setup["p"], sanitize=True).sanitizer
+    assert lane.label == "buffered-rounds" and not lane.active
     with pytest.raises(ValueError, match="data_path"):
         FederatedSimulator(setup["tm"], setup["clients"],
                            FedSimConfig(buffered=True, data_path="host"))

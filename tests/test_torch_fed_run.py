@@ -347,9 +347,24 @@ def test_options_not_ported_raise(setup, kw, exc, item):
 
 
 def test_engine_halves_not_ported_raise(setup):
-    with pytest.raises(NotImplementedError, match="A19"):
-        from repro_torch.core.driver import TrainDriver
+    """The driver's sanitizer lane (once A19, ported): two sanitized rounds
+    on host batches are bit for bit the plain driver's, with no library
+    build and no new allocator segment after round 0."""
+    from repro_torch.core.driver import TrainDriver
 
-        TrainDriver(RoundEngine(setup["tm"].loss, EngineConfig(),
-                                controller=ControllerCore(ControllerConfig(eta=ETA), C)),
-                    np.full(C, 0.2), sanitize=True)
+    def run(sanitize):
+        drv = TrainDriver(
+            RoundEngine(setup["tm"].loss, EngineConfig(eta=ETA, tau_max=4, batch_size=BATCH),
+                        controller=ControllerCore(ControllerConfig(eta=ETA, tau_max=4), C)),
+            np.full(C, 0.2), sanitize=sanitize,
+            batches_fn=lambda rng: host_stacked_batches(setup["tclients"], rng, 4, BATCH,
+                                                        device="cpu"))
+        return drv, drv.run(_t(setup["jp"]), 2, np.full(C, 2, np.int32))
+
+    (_, plain), (drv, lane) = run(None), run(True)
+    assert drv.sanitizer.steady_builds == 0 and not drv.sanitizer.active
+    for a, b in zip(plain.rows, lane.rows):
+        np.testing.assert_array_equal(a["tau"], b["tau"])
+        assert a["train_loss"] == b["train_loss"]
+    for k in plain.params:
+        assert torch.equal(plain.params[k], lane.params[k])

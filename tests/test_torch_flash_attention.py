@@ -129,10 +129,20 @@ def test_tma_check_names_each_misaligned_stride(make, want):
 
 
 def test_wrapper_refuses_a_device_without_kernel():
-    """A tensor that is not on the CPU never takes the plain version."""
-    meta = torch.empty(1, 8, 2, 16, device="meta")
+    """A tensor on a device without a kernel (not the CPU, CUDA or meta)
+    never takes the plain version. A meta tensor (the dry run) takes it
+    for its shapes and counts the card's launch in ``meta_launches``."""
+    from _elsewhere import Elsewhere
+
+    q = Elsewhere(1, 8, 2, 16)
     with pytest.raises(ValueError, match="no kernel"):
-        fa_ops.flash_attention(meta, meta, meta)
+        fa_ops._FlashAttention.forward(q, q, q, True, 0, 0)
+    fa_ops.reset_launches()
+    meta = torch.empty(1, 8, 2, 16, device="meta")
+    out = fa_ops.flash_attention(meta, meta, meta)
+    assert out.is_meta and out.shape == meta.shape
+    assert fa_ops.meta_launches["flash_attention"] == 1
+    assert fa_ops.launches["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("S,causal,window,hq,hkv", [(77, True, 20, 4, 2), (77, True, 0, 2, 2),

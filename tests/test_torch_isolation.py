@@ -58,7 +58,9 @@ def test_port_modules_found():
                  "repro_torch.configs.whisper_medium", "repro_torch.core.wire",
                  "repro_torch.core.buffered", "repro_torch.launch.mesh",
                  "repro_torch.launch.train", "repro_torch.sharding.api",
-                 "repro_torch.sharding.partition", "repro_torch.train.steps"):
+                 "repro_torch.sharding.partition", "repro_torch.train.steps",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.perf",
+                 "repro_torch.analysis.sanitize"):
         assert want in mods
 
 
@@ -171,15 +173,47 @@ def test_state_helpers_default_to_cuda(monkeypatch):
 
 
 def test_kernel_wrapper_refuses_non_cpu_without_kernel():
-    """A tensor that is not on the CPU never takes the plain version."""
+    """A tensor on a device the port has no kernel for (neither the CPU, nor
+    CUDA, nor ``meta``) never takes the plain version: every wrapper
+    raises. ``meta`` (the dry run) takes the plain version for its shapes
+    and counts what the card would launch in ``meta_launches`` alone."""
+    from _elsewhere import Elsewhere
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.vecavg import ops as va
 
-    meta = torch.empty(2, 4, 8, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.paged_decode_attention(meta, torch.empty(3, 4, 2, 8, device="meta"),
-                                   torch.empty(3, 4, 2, 8, device="meta"),
-                                   torch.empty(2, 2, 8, device="meta"),
-                                   torch.empty(2, 2, 8, device="meta"),
-                                   torch.empty(2, 1, dtype=torch.int32, device="meta"),
-                                   torch.empty(2, dtype=torch.int32, device="meta"),
-                                   active=torch.empty(2, dtype=torch.bool, device="meta"))
+    E, i32 = Elsewhere, torch.int32
+    calls = {
+        "paged_decode": lambda: ops.paged_decode_attention(
+            E(2, 4, 8), E(3, 4, 2, 8), E(3, 4, 2, 8), E(2, 2, 8), E(2, 2, 8), E(2, 1, dtype=i32),
+            E(2, dtype=i32), active=E(2, dtype=torch.bool)),
+        "paged_insert": lambda: ops.paged_insert(E(1, 3, 4, 2, 8), E(1, 3, 4, 2, 8),
+                                                 E(1, 1, 4, 2, 8), E(1, 1, 4, 2, 8),
+                                                 E(1, dtype=i32)),
+        "vecavg": lambda: va.vecavg(E(2, 5), E(2), 1.0),
+        "vecavg_tree": lambda: va.vecavg_tree({"a": E(2, 5)}, E(2), 1.0),
+        "rmsnorm": lambda: rn.RMSNorm.forward(E(4, 8), E(8), 1, 1e-6),
+        "flash": lambda: fa._FlashAttention.forward(E(1, 4, 2, 16), E(1, 4, 2, 16),
+                                                    E(1, 4, 2, 16), True, 0, 0),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="no kernel for xpu"):
+            call()
+    for mod in (ops, fa, rn, va):
+        mod.reset_launches()
+    m = dict(device="meta")
+    out = ops.paged_decode_attention(
+        torch.empty(2, 4, 8, **m), torch.empty(3, 4, 2, 8, **m), torch.empty(3, 4, 2, 8, **m),
+        torch.empty(2, 2, 8, **m), torch.empty(2, 2, 8, **m),
+        torch.empty(2, 1, dtype=i32, **m), torch.empty(2, dtype=i32, **m),
+        active=torch.empty(2, dtype=torch.bool, **m))
+    assert out.is_meta and out.shape == (2, 4, 8)
+    assert rn.rmsnorm(torch.empty(3, 8, **m), torch.empty(8, **m)).is_meta
+    assert fa.flash_attention(*(torch.empty(1, 4, 2, 16, **m) for _ in range(3))).is_meta
+    dw, sqn = va.vecavg_tree({"a": torch.empty(2, 5, **m)}, torch.empty(2, **m), 1.0)
+    assert dw["a"].shape == (5,) and sqn.shape == (2,)
+    assert (ops.meta_launches["paged_decode"], rn.meta_launches["rmsnorm"],
+            fa.meta_launches["flash_attention"], va.meta_launches["vecavg"]) == (1, 1, 1, 1)
+    assert ops.launches["paged_decode"] == rn.launches["rmsnorm"] == 0
+    assert fa.launches["flash_attention"] == va.launches["vecavg"] == 0

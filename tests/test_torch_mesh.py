@@ -117,14 +117,19 @@ def _launch(flags):
                                         (["--model-axis", "2"], None),
                                         (["--sanitize"], "A19")])
 def test_launcher_flags_not_ported_raise(flags, item):
-    """``--sanitize`` raises naming A19; ``--production-mesh`` raises in a
+    """``--sanitize`` (once A19, ported) gives the rows of the plain run bit
+    for bit; ``--production-mesh`` raises in a
     world smaller than its 256 ranks, with the start hint; ``--data-axis 2
     --model-axis 2`` runs on 4 spawned CPU ranks (C = the data extent, 2
     clients) and gives the rows of the launcher unsharded on the same 2
     clients: tau traces exactly, losses to float32 noise."""
     if flags == ["--sanitize"]:
-        with pytest.raises(NotImplementedError, match=item):
-            parse_args(["--arch", "starcoder2-3b", "--reduced"] + flags)
+        assert parse_args(["--arch", "starcoder2-3b", "--reduced"] + flags).sanitize
+        rows, ref = _launch(flags), _launch([])
+        assert len(rows) == len(ref) == 3
+        for a, b in zip(rows, ref):
+            np.testing.assert_array_equal(a["tau"], b["tau"])
+            assert a["train_loss"] == b["train_loss"]
         return
     if flags == ["--production-mesh"]:
         with pytest.raises(RuntimeError, match=f"nproc-per-node {item}"):

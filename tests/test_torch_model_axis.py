@@ -243,8 +243,89 @@ def _leaves(x):
 
 
 @pytest.mark.parametrize("module", ["dryrun", "perf"])
-def test_dryrun_and_perf_raise_naming_a18c(module):
-    import importlib
+def test_dryrun_and_perf_raise_naming_a18c(module, tmp_path):
+    """The dry run and the perf driver (once A18d, ported) write their
+    records: a toy pair's, and the Qwen1.5-32B decode pair's variants."""
+    from repro_torch.launch import dryrun, perf
 
-    with pytest.raises(NotImplementedError, match="A18d"):
-        importlib.import_module(f"repro_torch.launch.{module}").main([])
+    if module == "dryrun":
+        assert dryrun.main(["--arch", "cnn-mnist", "--shape", "train_4k",
+                            "--out", str(tmp_path)]) == 0
+        assert len(list(tmp_path.glob("cnn-mnist__train_4k__pod16x16.json"))) == 1
+    else:
+        assert perf.main(["--pair", "qwen1.5-32b__decode_32k", "--out", str(tmp_path / "opt"),
+                          "--baseline-dir", str(tmp_path / "base")]) == 0
+        assert len(list((tmp_path / "opt").glob("*.json"))) == 3
+
+
+def _meta_predictions():
+    """The dry run's counts (``meta`` tensors, a fake group of 8 ranks on
+    (data 4, model 2), rank 0) of the ranks' round, SGD, forward and
+    serving scenarios."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    with dryrun.fake_world(S.DATA * S.MODEL):
+        from repro_torch.launch.mesh import build_mesh
+
+        mesh = build_mesh(("data", "model"), (S.DATA, S.MODEL), device="meta")
+
+        def count(fn, *args):
+            return dryrun.measure(fn, *args)["collectives"]
+
+        cfg = get_arch(S.ROUND["arch"]).reduced()
+        b = build_bundle(build_model(cfg, device="meta", mesh=mesh), mesh,
+                         ShapeConfig("t", S.ROUND["seq"], S.ROUND["batch"], "train"),
+                         tau_max=S.ROUND["tau_max"], eta=S.ROUND["eta"])
+        out["round"] = count(b.fn, *b.shard_inputs(*b.make_inputs()))
+        cfg = get_arch(S.SGD["arch"]).reduced()
+        b = build_bundle(build_model(cfg, device="meta"), mesh,
+                         ShapeConfig("t", S.SGD["seq"], S.SGD["batch"], "train"), plain_sgd=True,
+                         eta=S.SGD["eta"])
+        out["sgd"] = count(b.fn, *b.shard_inputs(*b.make_inputs()))
+        for name in R.FWD:
+            cfg = R.fwd_config(name)
+            model = build_model(cfg, device="meta", mesh=mesh)
+            params = model.init(0)
+            batch = {k: torch.empty((2, 16), dtype=torch.int32, device="meta")
+                     for k in ("tokens", "targets")}
+
+            def run():
+                for impl in ("auto", "pallas"):
+                    model.forward(params, batch, impl=impl)
+                model.loss(params, batch)
+                for remat in (True, "dots"):
+                    torch.func.grad(lambda p: model.loss(p, batch, remat=remat)[0])(params)
+
+            out[f"fwd/{name}"] = count(run)
+        for arch, names in R.SERVE.items():
+            cfg = R.fwd_config(arch)
+            for name in names:
+                kind, kw = R.BUNDLE_KW[name]
+                b = build_bundle(build_model(cfg, device="meta"), mesh,
+                                 ShapeConfig("s", R.CAP, R.B, kind), **kw)
+                # the scenario's own inputs (its prompt is shorter than CAP; the
+                # chunk's start and length are host ints), moved to meta
+                state = [R._torch_state(x) for x in R.serve_inputs(cfg, name)]
+                ins = b.shard_inputs(b.make_inputs()[0], *state)
+                out[f"serve/{arch}/{name}"] = count(b.fn, *ins)
+    return out
+
+
+def test_dryrun_collectives_equal_the_gloo_ranks(runs):
+    """ROADMAP.md A18d's gate: the collectives the dry run counts on
+    ``meta`` (count and bytes, all-reduce and all-gather) are the ones each
+    gloo rank issued for the round, SGD, forward and serving scenarios."""
+    pred = _meta_predictions()
+    for o in runs["ranks"]:
+        got = {"round": o["round"]["collectives"], "sgd": o["sgd"]["collectives"],
+               **{f"fwd/{n}": f["collectives"] for n, f in o["fwd"].items()},
+               **{f"serve/{n}": s["collectives"] for n, s in o["serve"].items()}}
+        assert set(got) == set(pred)
+        for k, c in got.items():
+            want = pred[k]
+            assert (c["all_reduce"], c["all_gather"]) == \
+                (want["all_reduce"]["count"], want["all_gather"]["count"]), (o["rank"], k)
+            assert c["bytes"] == want["all_reduce"]["bytes"] + want["all_gather"]["bytes"], \
+                (o["rank"], k)
+        assert sum(c["all_reduce"] for c in got.values()) > 0

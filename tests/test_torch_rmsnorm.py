@@ -229,6 +229,16 @@ def test_one_forward_call_per_norm_call_under_vmap_grad(monkeypatch):
 
 
 def test_wrapper_refuses_a_device_without_kernel():
-    meta = torch.empty(2, 8, device="meta")
+    """A device without a kernel (not the CPU, CUDA or meta) raises; a
+    meta tensor (the dry run) takes the plain version for its shapes,
+    checked as the kernel checks it, and counts ``meta_launches``."""
+    from _elsewhere import Elsewhere
+
     with pytest.raises(ValueError, match="no kernel"):
-        ops.rmsnorm(meta, torch.empty(8, device="meta"))
+        ops.RMSNorm.forward(Elsewhere(2, 8), Elsewhere(8), 1, 1e-6)
+    ops.reset_launches()
+    meta = torch.empty(2, 8, device="meta")
+    assert ops.rmsnorm(meta, torch.empty(8, device="meta")).is_meta
+    with pytest.raises(TypeError, match="dtype"):
+        ops.rmsnorm(meta.half(), torch.empty(8, device="meta"))
+    assert ops.meta_launches["rmsnorm"] == 1 and ops.launches["rmsnorm"] == 0

@@ -114,9 +114,9 @@ def test_paged_serve_loop_greedy_streams_match_jax(arch, trace_kw, loop_kw):
 
 def test_not_ported_parts_raise_naming_the_roadmap():
     """What the port still refuses: whisper's decode (for the JAX package's
-    reason), the xLSTM family on the page pool (no KV to page, in the JAX
-    package's words) and the analysis lane (A19). Serving the other
-    families is held against the JAX package in
+    reason) and the xLSTM family on the page pool (no KV to page, in the
+    JAX package's words); the sanitizer lane (once A19) is taken. Serving
+    the other families is held against the JAX package in
     tests/test_torch_serve_families.py."""
     from dataclasses import replace
 
@@ -139,9 +139,10 @@ def test_not_ported_parts_raise_naming_the_roadmap():
         PagedServeLoop(xlstm, xlstm.init(0), device="cpu")
     with pytest.raises(ValueError, match="no KV cache to page"):
         xlstm.init_paged_cache(2, 8, 8)
-    for loop_cls in (PagedServeLoop, ServeLoop):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A19"):
-            loop_cls(model, params, device="cpu", sanitize=True)
+    for loop_cls in (PagedServeLoop, ServeLoop):  # the sanitizer lane is ported
+        lane = loop_cls(model, params, device="cpu", sanitize=True).sanitizer
+        assert lane.label == "serve-loop" and not lane.active
+        assert loop_cls(model, params, device="cpu").sanitizer is None
 
 
 @pytest.mark.parametrize("kw", [

@@ -311,8 +311,8 @@ def test_extend_gates_match_jax(qwen):
         with pytest.raises(ValueError, match="prefill_chunk"):
             loop_cls(model, params, prefill_chunk=0, **dev)
         loop_cls(swa, None, preempt=True, **dev)  # preemption alone stays available
-    with pytest.raises(NotImplementedError, match="A19"):
-        PagedServeLoop(tm, tp, device="cpu", sanitize=True)
+    # the sanitizer lane is ported (tests/test_torch_sanitize.py runs it)
+    assert PagedServeLoop(tm, tp, device="cpu", sanitize=True).sanitizer.label == "serve-loop"
     row, toks = torch.full((4,), -1, dtype=torch.int32), torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="full-attention only"):
         tswa.paged_prefill_chunk(None, None, row, toks, 0, 4)

@@ -95,12 +95,24 @@ def test_vecavg_tensor_scale_and_no_launch_on_cpu():
 
 
 def test_vecavg_refuses_non_cpu_without_kernel():
-    """A tensor that is not on the CPU never takes the plain version."""
+    """A tensor on a device without a kernel (not the CPU, CUDA or meta)
+    never takes the plain version. A meta tensor (the dry run) takes it
+    for its shapes and counts the card's launch in ``meta_launches``."""
+    from _elsewhere import Elsewhere
+
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.vecavg(Elsewhere(3, 8), Elsewhere(3), 1.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.vecavg_tree({"w": Elsewhere(3, 8)}, Elsewhere(3), 1.0)
+    ops.reset_launches()
     meta = torch.empty(3, 8, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.vecavg(meta, torch.empty(3, device="meta"), 1.0)
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.vecavg_tree({"w": meta}, torch.empty(3, device="meta"), 1.0)
+    dw, sqn = ops.vecavg(meta, torch.empty(3, device="meta"), 1.0)
+    assert dw.is_meta and dw.shape == (8,) and sqn.shape == (3,)
+    ops.vecavg_tree({"w": meta, "e": torch.empty(3, 0, device="meta")},
+                    torch.empty(3, device="meta"), 1.0)
+    ops.vecavg_tree({"e": torch.empty(3, 0, device="meta")}, torch.empty(3, device="meta"),
+                    1.0)  # every leaf empty: the card launches nothing
+    assert ops.meta_launches["vecavg"] == 2 and ops.launches["vecavg"] == 0
 
 
 # The CNN's 8 leaves (cnn-cifar10, D 555178), C 5
